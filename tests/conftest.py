@@ -13,3 +13,9 @@ def has_host_memory() -> bool:
     except (ImportError, AttributeError, RuntimeError, IndexError,
             NotImplementedError):
         return False
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's kernels); skips without one")

@@ -1,0 +1,78 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package ``repro``, and the front
+door imports with JAX made unimportable.  Also: a CUDA entry point handed
+CPU tensors raises instead of falling back."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+
+
+def port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PORT):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def imported_roots(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_import(path):
+    roots = set(imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_front_door_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.serve.api, repro_torch.kernels.ops, "
+            "repro_torch.convert; print('ok')")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels import paged_attention as pa
+
+    q = torch.zeros((2, 4, 64))
+    pool = torch.zeros((8, 8, 4, 64))
+    table = torch.zeros((2, 3), dtype=torch.int32)
+    lengths = torch.ones((2,), dtype=torch.int32)
+    before = dict(pa.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pa.paged_attention_cuda(q, pool, pool, table, lengths)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pa.paged_prefill_cuda(q, pool, pool, table[0], lengths)
+    assert pa.LAUNCHES == before
+
+
+def test_default_device_is_the_card():
+    from repro_torch._device import resolve_device
+
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device(None)
