@@ -14,15 +14,15 @@ from typing import List
 
 from ..models.config import ModelConfig
 
-ARCHS: List[str] = ["llama3_2_1b"]
+ARCHS: List[str] = ["llama3_2_1b", "granite_moe_3b_a800m"]
 
 
 def _module(arch: str):
     if arch not in ARCHS:
         raise NotImplementedError(
             f"architecture {arch!r} is not ported yet; the port serves "
-            f"{ARCHS} (ROADMAP.md queue A item 6 brings the MoE configs, "
-            f"item 10 the other families)")
+            f"{ARCHS} (ROADMAP.md queue A item 10 brings the other "
+            f"families)")
     return importlib.import_module(f"{__name__}.{arch}")
 
 

@@ -48,6 +48,23 @@ def paged_prefill(q, k_pool, v_pool, page_table, lengths,
                               window=window)
 
 
+def moe_grouped_ffn(x, w_gate, w_up, w_down, group_sizes,
+                    group_experts: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Grouped-expert SwiGLU over sorted ragged segments (dropless MoE
+    dispatch).  x: (T, d) sorted by group; w_gate/w_up: (E, d, f); w_down:
+    (E, f, d); group_sizes: (G,) int32; group_experts: optional (G,) int32
+    group -> weight-row map (None means G == E).  Both versions give each
+    row bits that depend on the row and its expert alone."""
+    if x.device.type == "cpu":
+        return ref.moe_grouped_ffn_reference(x, w_gate, w_up, w_down,
+                                             group_sizes, group_experts)
+    from .moe_gemm import moe_grouped_ffn_cuda
+
+    return moe_grouped_ffn_cuda(x, w_gate, w_up, w_down, group_sizes,
+                                group_experts)
+
+
 def sample_tokens(logits, seeds, positions, temperature, top_k,
                   top_p) -> torch.Tensor:
     """Batched token sampling (the decode epilogue): temperature / top-k /

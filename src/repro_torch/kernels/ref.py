@@ -2,9 +2,11 @@
 assert against, the path a CPU tensor takes through ``kernels.ops``, and
 what ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
-Layouts are the JAX package's (``repro/kernels/ref.py``): q ``(B, H, dh)``,
-pools ``(N, P, K, dh)``, page table ``(B, MP)`` int32 with -1 for an unused
-slot, lengths ``(B,)``.  Scores, softmax and the weighted sum run in f32.
+Layouts are the JAX package's (``repro/kernels/ref.py``).  Paged attention:
+q ``(B, H, dh)``, pools ``(N, P, K, dh)``, page table ``(B, MP)`` int32
+with -1 for an unused slot, lengths ``(B,)``; scores, softmax and the
+weighted sum run in f32.  Grouped-expert FFN: x ``(T, d)`` sorted by group,
+weights ``(E, d, f)`` / ``(E, f, d)``, everything after the inputs in f32.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+from ..tiles import linear, row_tiles
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -71,3 +76,49 @@ def paged_prefill_reference(q, k_pool, v_pool, page_table, lengths,
     table = page_table[None, :].expand(S, page_table.shape[0])
     return paged_attention_reference(q, k_pool, v_pool, table, lengths,
                                      window=window)
+
+
+def moe_grouped_ffn_reference(x, w_gate, w_up, w_down, group_sizes,
+                              group_experts=None) -> torch.Tensor:
+    """Grouped-expert SwiGLU over sorted ragged segments.
+
+    x: (T, d) rows sorted by group, segment g holding ``group_sizes[g]``
+    consecutive rows (empty groups allowed); w_gate/w_up: (E, d, f);
+    w_down: (E, f, d); group_experts: optional (G,) int32 map from group
+    to the weight row it multiplies (None means G == E, group g uses
+    expert g).  Row r of segment g is
+    ``(silu(x_r Wg[e]) * (x_r Wu[e])) Wd[e]`` with e the group's expert,
+    x and the weights read as f32, h kept in f32, the down product in f32
+    and the result cast to x's dtype.  Rows past ``sum(group_sizes)`` are
+    zeros.
+
+    Each segment runs through ``tiles.linear`` (fixed ROW_TILE-row
+    products), so a row's result depends on that row and its expert alone,
+    not on T or on the other groups — unlike the JAX oracle's dense
+    all-experts einsum, whose rounding depends on T.  silu runs over whole
+    zero-padded tiles too: a CPU elementwise loop computes its last few
+    elements on a scalar path whose exp rounds differently, and a tile of
+    ROW_TILE * f elements (f even) has no such tail.  Reads the group sizes
+    on the host: the plain version, not a path for CUDA tensors.
+    """
+    T, d = x.shape
+    G = group_sizes.shape[0]
+    if group_experts is None:
+        if G != w_gate.shape[0]:
+            raise ValueError(f"{G} groups over {w_gate.shape[0]} experts "
+                             f"need a group_experts map")
+        experts = list(range(G))
+    else:
+        experts = [int(e) for e in group_experts.tolist()]
+    out = torch.zeros((T, d), dtype=F32, device=x.device)
+    start = 0
+    for g, n in enumerate(int(n) for n in group_sizes.tolist()):
+        if n <= 0:
+            continue
+        e = experts[g]
+        rows, _ = row_tiles(x[start:start + n].to(F32))
+        h = F.silu(linear(rows, w_gate[e].to(F32))) * linear(
+            rows, w_up[e].to(F32))
+        out[start:start + n] = linear(h, w_down[e].to(F32))[:n]
+        start += n
+    return out.to(x.dtype)

@@ -1,4 +1,5 @@
-"""Models of the port: config, layers and the dense decoder."""
+"""Models of the port: config, layers, the MoE layer and the decoder
+(dense and MoE families)."""
 
 from .config import ModelConfig
 from .transformer import Model

@@ -1,8 +1,8 @@
 """ModelConfig — the port's copy of ``repro/models/config.py``, with a
 torch dtype.  Every field of the JAX config is kept, so a reference config
 converts field by field (``repro_torch.convert.config_from_reference``);
-the port serves the ``dense`` family so far and says so where it is asked
-for another."""
+the port serves the ``dense`` and ``moe`` families so far and says so
+where it is asked for another."""
 
 from __future__ import annotations
 

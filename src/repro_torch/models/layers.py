@@ -3,15 +3,10 @@ MLP, embeddings and the LM head (``repro/models/layers.py``), with the same
 f32 islands: rmsnorm computes in f32 and casts back, silu runs in f32, rope
 angles are f32, and logits are cast to f32 after the head product.
 
-Row invariance.  The serving engine's bitwise invariants (one-shot prefill
-== chunked == decode, preemption by recompute) need each row's result to
-depend on that row alone, not on how many rows share the call.  A GEMM
-library picks its algorithm from the problem's shape, and a reduction
-kernel its split from the number of rows, so the same row can round
-differently in a 4-row decode batch and a 512-row prefill.  ``linear`` and
-``rmsnorm`` therefore run every call as tiles of exactly ``ROW_TILE`` rows
-(padding the last), so every row of every call goes through the same
-shape.  Elementwise ops need no such care.
+Row invariance.  ``linear`` and ``rmsnorm`` run every call as tiles of
+exactly ``ROW_TILE`` rows (``repro_torch.tiles``), so a row rounds the same
+in a 4-row decode batch and a 512-row prefill.  Elementwise ops need no
+such care.
 """
 
 from __future__ import annotations
@@ -20,34 +15,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..tiles import ROW_TILE, linear, row_tiles
+
 F32 = torch.float32
-ROW_TILE = 16
-
-
-def _row_tiles(x: torch.Tensor):
-    """(padded x, row count): x (R, ...) padded with zero rows to a
-    multiple of ROW_TILE."""
-    R = x.shape[0]
-    pad = -R % ROW_TILE
-    if pad:
-        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-    return x, R
-
-
-def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (R, din) @ w (din, dout), one ROW_TILE-row product at a time."""
-    xp, R = _row_tiles(x)
-    out = xp.new_empty((xp.shape[0], w.shape[1]))
-    for s in range(0, xp.shape[0], ROW_TILE):
-        torch.matmul(xp[s:s + ROW_TILE], w, out=out[s:s + ROW_TILE])
-    return out[:R]
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x (R, d): f32 mean of squares per row (in ROW_TILE-row tiles), scale,
     cast back to x's dtype."""
-    xp, R = _row_tiles(x)
+    xp, R = row_tiles(x)
     xf = xp.to(F32)
     var = xf.new_empty((xf.shape[0], 1))
     for s in range(0, xf.shape[0], ROW_TILE):

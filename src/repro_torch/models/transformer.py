@@ -1,12 +1,15 @@
-"""The dense decoder of the port (``repro/models/transformer.py``, dense
-family).
+"""The decoder of the port (``repro/models/transformer.py``, dense and MoE
+families).
 
 Parameters keep the JAX package's layouts, so the reference's weights load
 unchanged (``repro_torch.convert``): ``wq (d,H,dh)``, ``wk``/``wv``
 ``(d,K,dh)``, ``wo (H,dh,d)``, ``w_gate``/``w_up (d,f)``, ``w_down (f,d)``,
-``embed.tok (vocab,d)``, ``head.w (d,vocab)``.  The serving engine
-(``serve/engine.py``) drives the layers itself, so the module holds
-parameters and their initialisation and leaves the forward pass to it.
+``embed.tok (vocab,d)``, ``head.w (d,vocab)``; an MoE layer holds
+``moe.router (d,E)`` in f32 whatever ``cfg.dtype`` is, ``moe.w_gate``/
+``moe.w_up (E,d,f)`` and ``moe.w_down (E,f,d)`` in place of ``mlp``.  The
+serving engine (``serve/engine.py``) drives the layers itself, so the
+module holds parameters and their initialisation and leaves the forward
+pass to it.
 """
 
 from __future__ import annotations
@@ -19,9 +22,9 @@ from torch import nn
 
 from .._device import DeviceLike, resolve_device
 from .config import ModelConfig
+from .moe import CAPACITY_NOT_PORTED, MoEConfig
 
 _NOT_PORTED = {
-    "moe": "ROADMAP.md queue A item 6 (MoE)",
     "hybrid": "ROADMAP.md queue A item 10 (other families)",
     "xlstm": "ROADMAP.md queue A item 10 (other families)",
     "encdec": "ROADMAP.md queue A item 10 (other families)",
@@ -57,15 +60,34 @@ class MLP(nn.Module):
         self.w_down = _param((f, d), device, dtype)
 
 
-class DenseLayer(nn.Module):
-    def __init__(self, cfg: ModelConfig, device, dtype):
+class MoE(nn.Module):
+    """Expert weights and the router, which stays f32 (``moe_defs``)."""
+
+    def __init__(self, mc: MoEConfig, device, dtype):
+        super().__init__()
+        E, d, f = mc.padded_experts, mc.d_model, mc.d_ff
+        self.router = _param((d, E), device, torch.float32)
+        self.w_gate = _param((E, d, f), device, dtype)
+        self.w_up = _param((E, d, f), device, dtype)
+        self.w_down = _param((E, f, d), device, dtype)
+
+
+class DecoderLayer(nn.Module):
+    """rmsnorm, GQA attention, rmsnorm, then a SwiGLU ``mlp`` (dense) or
+    ``moe`` (given ``moe_cfg``)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype,
+                 moe_cfg: Optional[MoEConfig] = None):
         super().__init__()
         d, dh = cfg.d_model, cfg.resolved_head_dim
         self.ln1 = RMSNorm(d, device, dtype)
         self.attn = Attention(d, cfg.n_heads, cfg.kv_heads, dh, device,
                               dtype)
         self.ln2 = RMSNorm(d, device, dtype)
-        self.mlp = MLP(d, cfg.d_ff, device, dtype)
+        if moe_cfg is None:
+            self.mlp = MLP(d, cfg.d_ff, device, dtype)
+        else:
+            self.moe = MoE(moe_cfg, device, dtype)
 
 
 class Embed(nn.Module):
@@ -81,25 +103,36 @@ class Head(nn.Module):
 
 
 class Model(nn.Module):
-    """Dense decoder-only LM: embed -> n_layers x (rmsnorm, GQA attention,
-    rmsnorm, SwiGLU) -> rmsnorm -> head.  Parameters are created on
+    """Decoder-only LM: embed -> n_layers x (rmsnorm, GQA attention,
+    rmsnorm, SwiGLU or MoE) -> rmsnorm -> head.  Parameters are created on
     ``device`` (the card unless the caller asks for the CPU) in
-    ``cfg.dtype``, uninitialised until ``init`` or ``load_state_dict``."""
+    ``cfg.dtype`` (the MoE router in f32), uninitialised until ``init`` or
+    ``load_state_dict``."""
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
         cfg.validate()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: "
                 f"{_NOT_PORTED.get(cfg.family, 'ROADMAP.md queue A')} "
                 f"brings it")
+        self.moe_cfg: Optional[MoEConfig] = None
+        if cfg.family == "moe":
+            if cfg.moe_dispatch != "dropless":
+                raise NotImplementedError(CAPACITY_NOT_PORTED)
+            self.moe_cfg = MoEConfig(
+                d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
+                top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                dispatch=cfg.moe_dispatch, parallelism=cfg.moe_parallelism,
+                ep_axis_size=cfg.moe_ep_axis_size)
         self.cfg = cfg
         self.device = resolve_device(device)
         dev, dt = self.device, cfg.dtype
         self.embed = Embed(cfg.vocab, cfg.d_model, dev, dt)
         self.layers = nn.ModuleList(
-            DenseLayer(cfg, dev, dt) for _ in range(cfg.n_layers))
+            DecoderLayer(cfg, dev, dt, self.moe_cfg)
+            for _ in range(cfg.n_layers))
         self.final_ln = RMSNorm(cfg.d_model, dev, dt)
         self.head = Head(cfg.d_model, cfg.vocab, dev, dt)
 
@@ -113,8 +146,10 @@ class Model(nn.Module):
         (``repro/models/common.py`` ``_leaf_init``): norm scales are ones,
         the embedding is N(0, 0.02), every other matrix N(0, 1/fan_in) with
         fan_in = shape[-2] (for the JAX package's layer-stacked leaves that
-        is the per-layer shape's [-2] too).  Drawn in f32 from
-        ``generator``, then cast; the bits differ from JAX's."""
+        is the per-layer shape's [-2] too: d for the router, ``w_gate`` and
+        ``w_up``, f for ``w_down``).  Drawn in f32 from ``generator``, then
+        cast to each parameter's own dtype (the router stays f32); the bits
+        differ from JAX's."""
         for name, p in self.named_parameters():
             if name.endswith(".scale"):
                 p.fill_(1.0)

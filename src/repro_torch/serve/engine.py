@@ -1,7 +1,7 @@
 """Continuous-batching serving engine with guided KV-page tiering — the
-port of ``repro/serve/engine.py`` (dense decoders).
+port of ``repro/serve/engine.py`` (dense and MoE decoders).
 
-The engine serves a dense decoder from a paged two-tier KV cache
+The engine serves a decoder from a paged two-tier KV cache
 (``serve/kvcache.py``): on the card the fast tier is HBM (CUDA tensors)
 and the slow tier pinned host memory.  Each *request* is an allocation
 site; its pages are the chunks.  The request lifecycle is the reference's:
@@ -38,12 +38,14 @@ duplicate indices of that write are harmless; nothing accumulates through
 The bitwise invariants (one-shot == chunked == interleaved, preemption by
 recompute) need every row's result to depend on that row alone.  The
 paged-attention kernel reduces each row in an order fixed by the row; the
-projections and norms run in fixed-size row tiles
-(``models.layers.ROW_TILE``) so that a decode batch and a prefill bucket
-go through the same GEMM and reduction shapes.
+projections and norms run in fixed-size row tiles (``tiles.ROW_TILE``)
+so that a decode batch and a prefill bucket go through the same GEMM and reduction shapes.  An MoE layer routes every
+row of the pass, padded and inactive rows too (they are masked after), as
+one ``(1, R, d)`` set through ``models.moe.moe_decode``: per-token routing
+and the grouped-expert kernel's per-row order keep those invariants.
 
-Not in this slice: the prefix cache, expert tiering, MoE and live
-migration between replicas.  A ``ServeConfig`` that asks for one raises
+Not in this slice: the prefix cache, expert tiering and live migration
+between replicas.  A ``ServeConfig`` that asks for one raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -64,6 +66,7 @@ from ..core.runtime import MigrationPlan
 from ..kernels.ops import paged_attention, paged_prefill, sample_tokens
 from ..models.layers import (embed, linear, lm_head, mlp, rmsnorm, rope,
                              rope_freqs)
+from ..models.moe import moe_decode
 from ..models.transformer import Model
 from .eviction import make_eviction_policy
 from .kvcache import PagedKVPool
@@ -238,7 +241,7 @@ class PagedKVBackend:
 
 
 class Engine:
-    """The dense serving engine over ``model`` (a ``models.Model`` whose
+    """The serving engine over ``model`` (a ``models.Model`` whose
     parameters are loaded).  Tensors live on ``model.device``; ``hw``
     defaults to the H100 model with this engine's KV page size."""
 
@@ -353,8 +356,13 @@ class Engine:
         return x, rmsnorm(lp.ln2.scale, x)
 
     def _ffn_half(self, lp, x, h2, row_mask):
-        """SwiGLU FFN + residual, the second half of a layer."""
-        d = mlp(lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down, h2)
+        """SwiGLU FFN or MoE + residual, the second half of a layer.  MoE
+        routes all R rows as one (1, R, d) set, as the JAX engine does."""
+        moe_cfg = self.model.moe_cfg
+        if moe_cfg is not None:
+            d = moe_decode(lp.moe, h2[None], moe_cfg)[0]
+        else:
+            d = mlp(lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down, h2)
         return x + torch.where(row_mask[:, None], d, 0)
 
     def _layers(self, x, positions, write_slot, write_off, row_mask, attend):

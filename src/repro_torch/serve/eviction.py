@@ -14,34 +14,35 @@ wanted slow), tie-breaking by least-recently-scheduled request.  ``lru`` and
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Type
+from typing import Dict, List, Type
 
 from .kvcache import Page
 
 
 class EvictionPolicy:
-    """Picks the page that loses its HBM slot.  Stateless by default."""
+    """Ranks the pages that may lose their HBM slot.  Stateless by default.
+
+    A policy gives each candidate a sort key; ``pick_many`` ranks the
+    candidates once by a stable sort on it, so victims come in key order
+    and, among equal keys, in candidate order (what repeating ``min`` and
+    dropping the winner gives, at one ranking instead of one per victim).
+    """
 
     name = "base"
 
-    def pick(self, candidates: List[Page], engine) -> Optional[int]:
+    def keys(self, candidates: List[Page], engine) -> List:
+        """One sort key per candidate, in candidate order."""
         raise NotImplementedError
 
     def pick_many(self, candidates: List[Page], engine,
                   n: int) -> List[int]:
-        """Pick up to ``n`` victims (ranked by repeated ``pick``); the
-        engine swaps them out in ONE batched migration rather than one
-        transfer per victim.  Policies with a cheaper bulk ranking may
-        override."""
-        pool = list(candidates)
-        victims: List[int] = []
-        while len(victims) < n and pool:
-            vid = self.pick(pool, engine)
-            if vid is None:
-                break
-            victims.append(vid)
-            pool = [p for p in pool if p.page_id != vid]
-        return victims
+        """Up to ``n`` victims, best first; the engine swaps them out in
+        ONE batched migration rather than one transfer per victim."""
+        if n <= 0 or not candidates:
+            return []
+        keys = self.keys(candidates, engine)
+        ranked = sorted(range(len(candidates)), key=keys.__getitem__)
+        return [candidates[i].page_id for i in ranked[:n]]
 
 
 class LRUEviction(EvictionPolicy):
@@ -54,17 +55,15 @@ class LRUEviction(EvictionPolicy):
 
     name = "lru"
 
-    def pick(self, candidates: List[Page], engine) -> Optional[int]:
-        if not candidates:
-            return None
+    @staticmethod
+    def recency(p: Page, engine) -> int:
+        stamps = [engine.requests[rid].last_scheduled
+                  for rid in engine.pool.holders(p.page_id)
+                  if rid in engine.requests]
+        return max(stamps) if stamps else p.last_used
 
-        def recency(p: Page) -> int:
-            stamps = [engine.requests[rid].last_scheduled
-                      for rid in engine.pool.holders(p.page_id)
-                      if rid in engine.requests]
-            return max(stamps) if stamps else p.last_used
-
-        return min(candidates, key=recency).page_id
+    def keys(self, candidates: List[Page], engine) -> List:
+        return [self.recency(p, engine) for p in candidates]
 
 
 class FIFOEviction(EvictionPolicy):
@@ -72,25 +71,24 @@ class FIFOEviction(EvictionPolicy):
 
     name = "fifo"
 
-    def pick(self, candidates: List[Page], engine) -> Optional[int]:
-        if not candidates:
-            return None
-        return min(candidates, key=lambda p: p.birth_step).page_id
+    def keys(self, candidates: List[Page], engine) -> List:
+        return [p.birth_step for p in candidates]
 
 
 class GuidedEviction(LRUEviction):
-    """Prefer pages the last recommendation placed on the slow tier; fall
-    back to LRU among equals (and entirely, before the first interval)."""
+    """Prefer pages the last recommendation placed on the slow tier (or
+    did not place at all); LRU among equals, and entirely before the first
+    interval."""
 
     name = "gdt"
 
-    def pick(self, candidates: List[Page], engine) -> Optional[int]:
+    def keys(self, candidates: List[Page], engine) -> List:
         recs: Dict[int, bool] = getattr(engine, "last_recs", {}) or {}
-        if recs:
-            cold = [p for p in candidates if not recs.get(p.page_id, False)]
-            if cold:
-                candidates = cold
-        return super().pick(candidates, engine)
+        lru = super().keys(candidates, engine)
+        if not recs:
+            return lru
+        return [(recs.get(p.page_id, False), r)
+                for p, r in zip(candidates, lru)]
 
 
 EVICTION_POLICIES: Dict[str, Type[EvictionPolicy]] = {}

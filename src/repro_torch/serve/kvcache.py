@@ -30,12 +30,15 @@ only; the request->pages association lives in the pool's per-request
 sequence table (``request_pages``/``attach``/``release_request``), and
 ``free`` releases physical slots only at refcount zero.  A page with
 refcount > 1 is immutable (``copy_page`` gives a writer a private copy).
+Every change to the sequence table also updates a page -> holders index,
+so ``holders`` (which eviction asks for every candidate page) costs the
+page's few holders, not a scan of every sequence.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -104,6 +107,8 @@ class PagedKVPool:
         self.pages: Dict[int, Page] = {}
         # request_id -> ordered page list (the authoritative association).
         self._seq: Dict[int, List[Page]] = {}
+        # Its reverse: page_id -> the request ids whose list holds the page.
+        self._holders: Dict[int, Set[int]] = {}
         self._next_id = 0
         self.swaps_in = 0
         self.swaps_out = 0
@@ -137,8 +142,20 @@ class PagedKVPool:
                     hbm_slot=slot, host_slot=None, last_used=step)
         self._next_id += 1
         self.pages[page.page_id] = page
-        self._seq.setdefault(request_id, []).append(page)
+        self._hold(request_id, page)
         return page
+
+    def _hold(self, request_id: int, page: Page) -> None:
+        """Append ``page`` to ``request_id``'s list and index it."""
+        self._seq.setdefault(request_id, []).append(page)
+        self._holders.setdefault(page.page_id, set()).add(request_id)
+
+    def _unhold(self, request_id: int, page_id: int) -> None:
+        held = self._holders.get(page_id)
+        if held is not None:
+            held.discard(request_id)
+            if not held:
+                del self._holders[page_id]
 
     def free(self, page_id: int):
         """Drop ONE reference; physical slots release only at refcount
@@ -172,7 +189,7 @@ class PagedKVPool:
                 f"{len(seq)} pages: prefix pages attach in order")
         page.refcount += 1
         page.last_used = step
-        seq.append(page)
+        self._hold(request_id, page)
         return page
 
     def release_request(self, request_id: int) -> List[int]:
@@ -180,15 +197,19 @@ class PagedKVPool:
         pages that actually died."""
         freed: List[int] = []
         for page in self._seq.pop(request_id, []):
+            self._unhold(request_id, page.page_id)
             self.free(page.page_id)
             if page.page_id not in self.pages:
                 freed.append(page.page_id)
         return freed
 
     def holders(self, page_id: int) -> List[int]:
-        """Request ids currently referencing a page."""
-        return [rid for rid, seq in self._seq.items()
-                if any(p.page_id == page_id for p in seq)]
+        """Request ids currently referencing a page, in the order their
+        page lists entered the sequence table."""
+        held = self._holders.get(page_id, ())
+        if len(held) <= 1:
+            return list(held)
+        return [rid for rid in self._seq if rid in held]
 
     def copy_page(self, page_id: int, request_id: int, step: int) -> Page:
         """Copy-on-write: give ``request_id`` a private HBM copy of a shared
@@ -221,6 +242,8 @@ class PagedKVPool:
         self.k_hbm[:, slot].copy_(self.k_hbm[:, src.hbm_slot])
         self.v_hbm[:, slot].copy_(self.v_hbm[:, src.hbm_slot])
         seq[at] = new
+        self._unhold(request_id, page_id)
+        self._holders.setdefault(new.page_id, set()).add(request_id)
         self.free(page_id)               # drop the request's old reference
         return new
 
@@ -455,8 +478,9 @@ class PagedKVPool:
                 self._next_id += 1
                 self.pages[page.page_id] = page
                 new_pages[i] = page
-        seq = self._seq.setdefault(request_id, [])
-        seq.extend(p for p in new_pages if p is not None)
+        for p in new_pages:
+            if p is not None:
+                self._hold(request_id, p)
         self.imported_pages += n
         return [p for p in new_pages if p is not None]
 

@@ -1,5 +1,6 @@
-"""The port's serving engine on ``llama3_2_1b`` SMOKE in f32, with the JAX
-package's weights carried across by ``params_from_numpy``.
+"""The port's serving engine on ``llama3_2_1b`` SMOKE in f32 (and, where a
+test says so, ``granite_moe_3b_a800m`` SMOKE), with the JAX package's
+weights carried across by ``params_from_numpy``.
 
 Across frameworks: greedy and sampled token streams equal the JAX
 ``Engine``'s, and logits agree within 1e-4 (the two frameworks sum in
@@ -8,9 +9,13 @@ migrates a page: its swap-in does not run on this tree's jax.
 
 Within the port, bitwise: one-shot == chunked == interleaved prefill,
 preemption by recompute == uninterrupted, a migration-heavy run == a
-resident run, and the pool's round trips and transfer counts are exact."""
+resident run, and the pool's round trips and transfer counts are exact.
+Eviction ranks its victims exactly as the earlier scan-and-repeat
+algorithm did."""
 
 import dataclasses
+import functools
+import types
 
 import numpy as np
 import pytest
@@ -24,6 +29,7 @@ from repro.models import build_model  # noqa: E402
 from repro.serve import Engine as JEngine  # noqa: E402
 from repro.serve import SamplingParams as JSamplingParams  # noqa: E402
 from repro.serve import ServeConfig as JServeConfig  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
     config_from_reference,
     params_from_numpy,
@@ -43,25 +49,33 @@ PROMPTS = {0: [5, 17, 133, 42, 7, 99, 250, 3, 11, 29],
 SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.9)
 
 
-@pytest.fixture(scope="module")
-def ref_model():
-    cfg = dataclasses.replace(get_smoke("llama3_2_1b"), remat=False,
+DENSE, MOE = "llama3_2_1b", "granite_moe_3b_a800m"
+# (arch, sampled) with the ids the dense cases had before MoE joined them.
+ARCH_CASES = [pytest.param(DENSE, False, id="greedy"),
+              pytest.param(DENSE, True, id="sampled"),
+              pytest.param(MOE, False, id="moe-greedy"),
+              pytest.param(MOE, True, id="moe-sampled")]
+
+
+@functools.lru_cache(maxsize=None)
+def models(arch):
+    """(JAX model, its f32 params, the port's model with those weights)."""
+    cfg = dataclasses.replace(get_smoke(arch), remat=False,
                               dtype=jnp.float32)
     model = build_model(cfg)
     # The JAX package declares its weights in bf16 whatever cfg.dtype is
     # (which sets the KV pool's type): run both sides in f32.
     params = jax.tree.map(lambda a: a.astype(jnp.float32),
                           model.init(jax.random.PRNGKey(0)))
-    return model, params
-
-
-@pytest.fixture(scope="module")
-def port_model(ref_model):
-    model, params = ref_model
     m = Model(config_from_reference(model.cfg), device="cpu")
     m.load_state_dict(params_from_numpy(jax.tree.map(np.asarray, params),
                                         device="cpu"))
-    return m
+    return model, params, m
+
+
+@pytest.fixture(scope="module")
+def port_model():
+    return models(DENSE)[2]
 
 
 def drive(eng, prompts, params):
@@ -91,9 +105,9 @@ def both_params(max_tokens, sampled):
     return out
 
 
-@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
-def test_streams_and_logits_match_jax(ref_model, port_model, sampled):
-    model, params = ref_model
+@pytest.mark.parametrize("arch,sampled", ARCH_CASES)
+def test_streams_and_logits_match_jax(arch, sampled):
+    model, params, port_model = models(arch)
     kw = dict(max_batch=2, page_size=4, hbm_pages=48, host_pages=64,
               policy="gdt", interval_steps=4, keep_logits=True)
     jp, tp = both_params(6, sampled)
@@ -124,8 +138,9 @@ def pages_bits(eng, rid):
     return out
 
 
-@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
-def test_one_shot_equals_chunked_equals_interleaved(port_model, sampled):
+@pytest.mark.parametrize("arch,sampled", ARCH_CASES)
+def test_one_shot_equals_chunked_equals_interleaved(arch, sampled):
+    port_model = models(arch)[2]
     base = dict(max_batch=2, page_size=4, hbm_pages=48, host_pages=64,
                 policy="gdt", interval_steps=4, keep_logits=True)
     modes = {"one_shot": dict(),
@@ -159,8 +174,9 @@ def test_one_shot_equals_chunked_equals_interleaved(port_model, sampled):
                        zip(logits[rid][-n:], ref_logits[rid][-n:])), name
 
 
-@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
-def test_preempt_and_recompute_equals_uninterrupted(port_model, sampled):
+@pytest.mark.parametrize("arch,sampled", ARCH_CASES)
+def test_preempt_and_recompute_equals_uninterrupted(arch, sampled):
+    port_model = models(arch)[2]
     prompt_a, prompt_b = [3, 1, 4, 1, 5, 9], [2, 7, 1, 8, 2, 8, 1, 8]
     kw = dict(max_tokens=4)
     if sampled:
@@ -349,9 +365,13 @@ def test_out_of_slice_options_raise(port_model):
         Engine(port_model, ServeConfig(expert_offchip=True))
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         LLM(port_model, replicas=2)
-    moe = config_from_reference(get_smoke("granite_moe_3b_a800m"))
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        Model(moe, device="cpu")
+    hybrid = config_from_reference(get_smoke("zamba2_7b"))
+    with pytest.raises(NotImplementedError, match="queue A item 10"):
+        Model(hybrid, device="cpu")
+    capacity = dataclasses.replace(configs.get_smoke(MOE),
+                                   moe_dispatch="capacity")
+    with pytest.raises(NotImplementedError, match="queue A item 11"):
+        Model(capacity, device="cpu")
 
 
 def test_pool_refcounts_and_copy_on_write():
@@ -374,3 +394,89 @@ def test_pool_refcounts_and_copy_on_write():
     assert pool.release_request(0) == [page.page_id]
     assert pool.release_request(1) == [private.page_id]
     assert sorted(pool.free_hbm) == list(range(6)) and not pool.pages
+
+
+def scan_holders(pool, page_id):
+    """The holder scan eviction used before the pool kept an index."""
+    return [rid for rid, seq in pool._seq.items()
+            if any(p.page_id == page_id for p in seq)]
+
+
+def repeated_pick_many(policy, candidates, engine, n):
+    """The earlier eviction: ``min`` over the candidates per victim, with
+    the holders found by scanning every sequence."""
+    def recency(p):
+        stamps = [engine.requests[rid].last_scheduled
+                  for rid in scan_holders(engine.pool, p.page_id)
+                  if rid in engine.requests]
+        return max(stamps) if stamps else p.last_used
+
+    def pick(cands):
+        if policy == "fifo":
+            return min(cands, key=lambda p: p.birth_step).page_id
+        if policy == "gdt" and engine.last_recs:
+            cold = [p for p in cands
+                    if not engine.last_recs.get(p.page_id, False)]
+            cands = cold or cands
+        return min(cands, key=recency).page_id
+
+    pool, victims = list(candidates), []
+    while len(victims) < n and pool:
+        vid = pick(pool)
+        victims.append(vid)
+        pool = [p for p in pool if p.page_id != vid]
+    return victims
+
+
+def random_pool(rng):
+    """Requests allocating, sharing (attach), copying on write, releasing
+    and coming back, with random clocks; some pages on the host tier."""
+    pool = PagedKVPool(n_layers=1, page_size=2, kv_heads=1, head_dim=2,
+                       hbm_pages=64, host_pages=64, dtype=torch.float32,
+                       device="cpu")
+    rids = [int(r) for r in rng.permutation(8)]
+    for rid in rids:
+        donor = pool.request_pages(int(rng.choice(rids)))
+        n_shared = int(rng.integers(0, len(donor) + 1)) if donor else 0
+        for p in donor[:n_shared]:
+            pool.attach(rid, p.page_id, step=int(rng.integers(0, 50)))
+        for idx in range(n_shared, n_shared + int(rng.integers(1, 5))):
+            pool.allocate(rid, idx, step=int(rng.integers(0, 50)))
+    for rid in rng.choice(rids, 2, replace=False):
+        shared = [p for p in pool.request_pages(int(rid)) if p.refcount > 1]
+        if shared:
+            pool.copy_page(shared[0].page_id, int(rid), step=60)
+    back = int(rng.choice(rids))
+    pool.release_request(back)                     # re-enters last
+    pool.allocate(back, 0, step=70)
+    pool.swap_out_many([pid for pid in pool.pages if rng.random() < 0.2])
+    for p in pool.pages.values():
+        p.last_used = int(rng.integers(0, 80))
+    return pool, rids
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("policy", ["gdt", "lru", "fifo"])
+def test_eviction_victims_equal_the_scan_and_repeat_algorithm(seed, policy):
+    from repro_torch.serve.eviction import make_eviction_policy
+
+    rng = np.random.default_rng(seed)
+    pool, rids = random_pool(rng)
+    assert any(p.refcount > 1 for p in pool.pages.values())
+    for pid in pool.pages:
+        assert pool.holders(pid) == scan_holders(pool, pid), pid
+    live = [r for r in rids if rng.random() < 0.7]
+    recs = {} if seed % 3 == 0 else {
+        pid: bool(rng.random() < 0.5) for pid in pool.pages
+        if rng.random() < 0.8}
+    engine = types.SimpleNamespace(
+        pool=pool, last_recs=recs,
+        requests={rid: types.SimpleNamespace(
+            last_scheduled=int(rng.integers(0, 5))) for rid in live})
+    cands = [p for p in pool.pages.values() if p.hbm_slot is not None]
+    rng.shuffle(cands)
+    evict = make_eviction_policy(policy)
+    for n in (1, 3, len(cands) // 2, len(cands) + 2):
+        want = repeated_pick_many(policy, cands, engine, n)
+        assert evict.pick_many(cands, engine, n) == want, n
+    assert evict.pick_many([], engine, 3) == []

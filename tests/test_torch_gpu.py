@@ -6,6 +6,7 @@ with ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 import pytest
 import torch
 
+from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa
 
@@ -17,8 +18,8 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("no CUDA device: the paged-attention kernel runs only "
-                    "on the card")
+        pytest.skip("no CUDA device: the port's CUDA kernels run only on "
+                    "the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -48,6 +49,8 @@ def case(dev, dtype, B, H, K, dh, N, P, MP, seed=0):
     (2, 8, 4, 64, 16, 8, 4, 7),
     (1, 8, 2, 96, 8, 8, 4, None),
     (4, 32, 8, 64, 256, 16, 64, None),
+    (4, 24, 8, 64, 80, 16, 32, None),       # the MoE serving path's shape
+    (4, 24, 8, 64, 80, 16, 32, 200),
 ])
 def test_paged_attention_kernel_matches_plain(cuda, dtype, B, H, K, dh, N,
                                               P, MP, window):
@@ -136,3 +139,71 @@ def test_pool_migrates_between_hbm_and_pinned_host(cuda):
     export = pool.export_pages(ids)
     assert not export.k.is_cuda
     assert torch.equal(export.k[:, 0], before[ids[0]][0].cpu())
+
+
+def ffn_case(dev, dtype, T, E, d, f, sizes, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((T, d), generator=gen, device=dev).to(dtype)
+    wg = (torch.randn((E, d, f), generator=gen, device=dev)
+          / d ** 0.5).to(dtype)
+    wu = (torch.randn((E, d, f), generator=gen, device=dev)
+          / d ** 0.5).to(dtype)
+    wd = (torch.randn((E, f, d), generator=gen, device=dev)
+          / f ** 0.5).to(dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    return x, wg, wu, wd, gs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,E,d,f,sizes,experts", [
+    (32, 6, 128, 64, [5, 0, 17, 0, 3, 7], None),
+    (45, 4, 96, 40, [7, 20, 0, 11], None),              # 3 rows past sum
+    (50, 3, 64, 48, [9, 0, 14, 6, 21], [2, 0, 1, 1, 0]),  # G > E, a map
+    (200, 8, 256, 128, [40, 0, 33, 1, 60, 0, 50, 16], None),
+])
+def test_moe_grouped_ffn_kernel_matches_plain(cuda, dtype, T, E, d, f,
+                                              sizes, experts):
+    x, wg, wu, wd, gs = ffn_case(cuda, dtype, T, E, d, f, sizes)
+    ge = None if experts is None else torch.tensor(
+        experts, dtype=torch.int32, device=cuda)
+    before = mg.LAUNCHES["moe_grouped_ffn"]
+    got = ops.moe_grouped_ffn(x, wg, wu, wd, gs, ge)
+    torch.cuda.synchronize()
+    assert mg.LAUNCHES["moe_grouped_ffn"] == before + 1
+    want = ref.moe_grouped_ffn_reference(x, wg, wu, wd, gs, ge)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert torch.all(got[sum(sizes):] == 0), "rows past the segments"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_ffn_rows_do_not_depend_on_the_call(cuda, dtype):
+    """Bitwise: the first rows of a 300-row call equal the same rows
+    computed alone, with their groups cut to those rows."""
+    sizes = [0, 19, 5, 0, 130, 90, 56]
+    x, wg, wu, wd, gs = ffn_case(cuda, dtype, 300, 7, 192, 96, sizes, 1)
+    full = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs)
+    head = torch.tensor([0, 19, 5, 0, 8, 0, 0], dtype=torch.int32,
+                        device=cuda)
+    part = mg.moe_grouped_ffn_cuda(x[:32].contiguous(), wg, wu, wd, head)
+    assert torch.equal(part, full[:32])
+
+
+def test_moe_grouped_ffn_kernel_refuses_what_it_does_not_take(cuda):
+    x, wg, wu, wd, gs = ffn_case(cuda, torch.float32, 8, 2, 32, 16, [3, 5])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mg.moe_grouped_ffn_cuda(x.half(), wg.half(), wu.half(), wd.half(),
+                                gs)
+    with pytest.raises(ValueError, match="int32"):
+        mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs.long())
+    with pytest.raises(ValueError, match="is on cpu"):
+        mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs.cpu())
+    with pytest.raises(ValueError, match="group_experts map"):
+        mg.moe_grouped_ffn_cuda(x, wg, wu, wd,
+                                torch.tensor([3, 5, 0], dtype=torch.int32,
+                                             device=cuda))
+    with pytest.raises(ValueError, match="do not match"):
+        mg.moe_grouped_ffn_cuda(x, wg, wu, wd.transpose(1, 2).contiguous(),
+                                gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        mg.moe_grouped_ffn_cuda(x.t(), wg, wu, wd, gs)

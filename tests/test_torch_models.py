@@ -140,3 +140,49 @@ def test_h100_model_follows_the_page():
     assert small.page_bytes == 4096
     assert small.ns_per_page_moved < H100.ns_per_page_moved
     assert H100.extra_ns_per_slow_access > 0
+
+
+def test_moe_config_and_weights_carry_across():
+    """The MoE leaves ``layers/moe/*`` split per layer; the router stays
+    f32 on both sides while the experts keep the reference's bf16."""
+    arch = "granite_moe_3b_a800m"
+    ref = jget_smoke(arch)
+    assert config_from_reference(ref) == configs.get_smoke(arch)
+    assert config_from_reference(jget(arch)) == configs.get(arch)
+    model = build_model(dataclasses.replace(ref, remat=False))
+    params = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0)))
+    m = Model(config_from_reference(ref), device="cpu")
+    m.load_state_dict(params_from_numpy(params, device="cpu"))
+    jm = params["layers"]["moe"]
+    assert jm["router"].dtype == np.float32
+    lp = m.layers[1].moe
+    assert lp.router.dtype == torch.float32
+    assert lp.w_gate.dtype == torch.bfloat16
+    assert np.array_equal(lp.router.numpy(), jm["router"][1])
+    for name in ("w_gate", "w_up", "w_down"):         # (L, E, ., .) leaves
+        got = getattr(lp, name)
+        assert got.shape == jm[name].shape[1:]
+        assert np.array_equal(got.float().numpy(),
+                              jm[name][1].astype(np.float32)), name
+    assert not hasattr(m.layers[0], "mlp")
+
+
+def test_moe_init_follows_the_reference_statistics():
+    """N(0, 1/fan_in) with fan_in = d for the router, w_gate and w_up and
+    f for w_down; the router is f32 even in a bf16 model."""
+    arch = "granite_moe_3b_a800m"
+    m = Model(configs.get_smoke(arch), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    ref = build_model(dataclasses.replace(jget_smoke(arch), remat=False))
+    jp = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                      ref.init(jax.random.PRNGKey(0)))
+    ours = dict(m.named_parameters())
+    theirs = dict(params_from_numpy(jp, device="cpu"))
+    assert ours.keys() == theirs.keys()
+    assert ours["layers.0.moe.router"].dtype == torch.float32
+    assert ours["layers.0.moe.w_gate"].dtype == torch.bfloat16
+    for name, p in ours.items():
+        if name.endswith(".scale"):
+            continue
+        a, b = p.detach().float().numpy(), theirs[name].numpy()
+        assert abs(a.std() / b.std() - 1.0) < 0.15, name
