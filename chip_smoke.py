@@ -20,6 +20,12 @@ Phases, each of which raises on failure:
    than experts and a slot remap, rows past the segments zero, and the
    first 32 rows of a 2048-row call bitwise equal to the same rows alone;
    no single PyTorch call computes a grouped SwiGLU, so it has no yardstick.
+   Flash attention, forward and backward: bf16 and f32 at the training
+   shape (B=2, S=2048, 32/8 heads, dh 64, causal), with a window of 256,
+   Sq < Sk, non-causal, dh 128, S=1000 and Sq > Sk; dq, dk, dv against
+   autograd through the plain version; two backward runs bitwise equal;
+   timed beside ``scaled_dot_product_attention`` (forward, backward, and
+   both).
 4. Dense serving: ``LLM.from_arch("llama3_2_1b", smoke=False).generate`` at
    the published widths in bf16 with random weights: 8 requests of 512
    prompt tokens, KV pages migrating between HBM and pinned host memory
@@ -36,6 +42,18 @@ Phases, each of which raises on failure:
    just after); one-shot == chunked on a 64-token prompt at all 32 layers;
    an f32 copy cut to 2 layers against a plain forward pass with plain
    routing and combine.
+6. Dense training, after serving is freed: ``Trainer`` on
+   ``llama3_2_1b`` at the published widths in bf16 with remat and AdamW
+   (cosine lr 3e-4), ``SyntheticLM(seed=0)`` batches of 2 x 2048: 8 steps
+   unguided, then 8 guided with parameter and moment groups placed between
+   HBM and pinned host memory by ``GuidanceRuntime`` (60% of the state
+   fits).  Every attention, forward and backward, through the flash
+   kernels (counters zeroed just before each run, read just after: 32
+   forward and 16 backward launches a step under remat).  The guided
+   losses equal the unguided ones to rtol 1e-5.  Then an f32 copy cut to 2
+   layers: the kernel path's loss and gradients against a plain path with
+   attention through ``mha_reference``, to 1e-4.  Two more unguided steps
+   run under the profiler for the device's time by kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -61,12 +79,23 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # the two sum in different orders, and bf16 rounds the output.
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SEED = 0
+# Gradients of attention sum up to G * Sq terms in another order than
+# autograd through the plain version: f32 is held to 1e-4.
+GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "paged_prefill": "src/repro_torch/kernels/csrc/paged_attention.cu",
-           "moe_grouped_ffn": "src/repro_torch/kernels/csrc/moe_gemm.cu"}
+           "moe_grouped_ffn": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+           "flash_attention_fwd":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/kernels/csrc/flash_attention.cu"}
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:113",
             "paged_prefill": "src/repro/kernels/paged_attention.py:95",
-            "moe_grouped_ffn": "src/repro/kernels/moe_gemm.py:221"}
+            "moe_grouped_ffn": "src/repro/kernels/moe_gemm.py:221",
+            "flash_attention_fwd": "src/repro/kernels/flash_attention.py:153",
+            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:166"}
+KERNELS = ("paged_attention", "paged_prefill", "moe_grouped_ffn",
+           "flash_attention_fwd", "flash_attention_bwd")
 F32_CHECK_LAYERS = 2
 DENSE, MOE = "llama3_2_1b", "granite_moe_3b_a800m"
 
@@ -447,6 +476,167 @@ def check_moe_kernel(card) -> dict:
     return row
 
 
+
+def flash_bound_ms(B, Sq, Sk, H, K, dh, causal, item, backward) -> tuple:
+    """The least time for this work: the inputs read once and the outputs
+    written once over HBM bandwidth (forward: q, k, v in, out and the f32
+    log-sum-exp out; backward: q, k, v, out, dout and lse in, dq, dk, dv
+    out); and the products over the bf16 peak: 4 B H Sq Sk dh operations,
+    half of them under a causal mask, and about 2.5 times that for the
+    backward.  Returns (ms, bound_by)."""
+    q_bytes = B * Sq * H * dh * item
+    kv_bytes = B * Sk * K * dh * item
+    lse_bytes = B * H * Sq * 4
+    ops = (2 if causal else 4) * B * H * Sq * Sk * dh
+    if backward:
+        nbytes = 3 * q_bytes + 2 * kv_bytes + lse_bytes + q_bytes + 2 * kv_bytes
+        ops = 2.5 * ops
+    else:
+        nbytes = q_bytes + 2 * kv_bytes + q_bytes + lse_bytes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_flash_kernel(card) -> dict:
+    """Phase 3, flash attention forward and backward against the plain
+    version and its autograd gradients, then timed at the training shape.
+    Returns its two kernel rows (launches filled in by the training
+    phase)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def case(B, Sq, Sk, H, K, dh, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((B, Sq, H, dh), (B, Sk, K, dh), (B, Sk, K, dh),
+                              (B, Sq, H, dh))]
+
+    def within(got, want, tol):
+        want = want.detach()
+        diff = (got.float() - want.float()).abs()
+        ok = bool((diff <= tol + tol * want.float().abs()).all())
+        return ok, float(diff.max())
+
+    # (label, B, Sq, Sk, H, K, dh, causal, window)
+    train = (2, 2048, 2048, 32, 8, 64)
+    cases = [("training shape", *train, True, None),
+             ("training shape, window 256", *train, True, 256),
+             ("Sq=512 < Sk=2048", 2, 512, 2048, 32, 8, 64, True, None),
+             ("non-causal S=1024", 1, 1024, 1024, 32, 8, 64, False, None),
+             ("dh=128 S=1024", 1, 1024, 1024, 16, 4, 128, True, None),
+             ("S=1000", 2, 1000, 1000, 32, 8, 64, True, None),
+             ("Sq=1000 > Sk=300", 1, 1000, 300, 32, 8, 64, True, None)]
+    worst = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        for label, B, Sq, Sk, H, K, dh, causal, window in cases:
+            q, k, v, do = case(B, Sq, Sk, H, K, dh, dtype)
+            out, lse = fa.flash_attention_fwd_cuda(q, k, v, causal, window)
+            dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                     causal, window)
+            qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+            want = ref.mha_reference(qr, kr, vr, causal=causal,
+                                     window=window)
+            grads = torch.autograd.grad(want, (qr, kr, vr), do)
+            torch.cuda.synchronize()
+            for t in (out, dq, dk, dv):
+                if not torch.isfinite(t).all():
+                    raise AssertionError(f"flash {label} {dtype_name}: "
+                                         f"non-finite output")
+            ok, err = within(out, want, TOL[dtype_name])
+            if not ok:
+                raise AssertionError(
+                    f"flash forward {label} {dtype_name}: max abs err {err} "
+                    f"outside atol=rtol={TOL[dtype_name]}")
+            errs = []
+            for name, got, ref_grad in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                           grads):
+                ok, e = within(got, ref_grad, GRAD_TOL[dtype_name])
+                if not ok:
+                    raise AssertionError(
+                        f"flash backward {label} {dtype_name}: {name} max "
+                        f"abs err {e} outside atol=rtol="
+                        f"{GRAD_TOL[dtype_name]}")
+                errs.append(e)
+            if label == "training shape" and dtype == torch.bfloat16:
+                worst["flash_attention_fwd"] = err
+                worst["flash_attention_bwd"] = max(errs)
+                again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+                if not all(torch.equal(a, b)
+                           for a, b in zip(again, (dq, dk, dv))):
+                    raise AssertionError("flash backward: two runs differ")
+                log("kernel check flash_attention_bwd training shape "
+                    "bfloat16: two backward runs bitwise equal")
+            log(f"kernel check flash_attention {label} {dtype_name}: "
+                f"forward max abs err {err:.3e} (atol=rtol="
+                f"{TOL[dtype_name]}), dq/dk/dv "
+                f"{'/'.join(f'{e:.3e}' for e in errs)} (atol=rtol="
+                f"{GRAD_TOL[dtype_name]})")
+            del q, k, v, do, out, lse, dq, dk, dv, qr, kr, vr, want, grads
+
+    B, S, _, H, K, dh = train
+    q, k, v, do = case(B, S, S, H, K, dh, torch.bfloat16)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    plain_out = ref.mha_reference(qr, kr, vr)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+
+    def sdpa_both():
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+        torch.autograd.grad(o, (qs, ks, vs), dos)
+
+    def plain_fwd():
+        with torch.no_grad():
+            ref.mha_reference(q, k, v)
+
+    times = {
+        "flash_attention_fwd": (
+            time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v)),
+            time_ms(plain_fwd, iters=10), time_ms(sdpa_fwd)),
+        "flash_attention_bwd": (
+            time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                        do)),
+            time_ms(lambda: torch.autograd.grad(
+                plain_out, (qr, kr, vr), do, retain_graph=True), iters=10),
+            time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qs, ks, vs), dos, retain_graph=True))),
+    }
+    both_ms = time_ms(sdpa_both)
+    rows = {}
+    for name, (ms, plain_ms, lib_ms) in times.items():
+        b_ms, b_by = flash_bound_ms(B, S, S, H, K, dh, True, 2,
+                                    name.endswith("bwd"))
+        log(f"time {name} B={B} S={S} {H}/{K} heads dh={dh} causal bf16: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+            f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) {card.tag()}")
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": SOURCES[name], "replaces": REPLACES[name],
+                      "launches": 0, "max_abs_err": worst[name], "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lib_ms}
+    log(f"time flash_attention forward + backward: kernels "
+        f"{times['flash_attention_fwd'][0] + times['flash_attention_bwd'][0]:.4f}"
+        f" ms, sdpa forward + backward {both_ms:.4f} ms {card.tag()}")
+    del q, k, v, do, out, lse, qr, kr, vr, plain_out, qs, ks, vs, sdpa_out
+    free_card()
+    return rows
+
+
 # ----------------------------------------------------------------- serving
 def plain_moe(moe, h, cfg):
     """A plain MoE FFN for (S, d) rows: f32 router logits, softmax,
@@ -613,18 +803,21 @@ def free_card() -> None:
 
 
 def reset_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa
 
     pa.reset_launches()
     mg.reset_launches()
+    fa.reset_launches()
 
 
 def read_launches() -> dict:
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa
 
-    return {**pa.LAUNCHES, **mg.LAUNCHES}
+    return {**pa.LAUNCHES, **mg.LAUNCHES, **fa.LAUNCHES}
 
 
 def main_run(card, arch, cfg, n_req, n_prompt, n_new, rng):
@@ -812,6 +1005,247 @@ def serve_moe(card, kernel_rows) -> None:
     f32_check(MOE, rng)
 
 
+# ---------------------------------------------------------------- training
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 2048
+
+
+def train_run(card, label, cfg, batches, gdt):
+    """One ``Trainer.run`` of TRAIN_STEPS steps from the seeded init, the
+    launch counters zeroed just before and read just after.  Each step ends
+    in the host reading its loss, so the times between steps are
+    synchronised step times.  Returns (losses, launches, trainer)."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.train import Trainer, TrainerConfig
+
+    model = Model(cfg, device="cuda")
+    opt = AdamW(lr=cosine_schedule(3e-4, warmup=1, total=TRAIN_STEPS))
+    trainer = Trainer(model, opt, TrainerConfig(steps=TRAIN_STEPS,
+                                                log_every=1, gdt=gdt,
+                                                seed=SEED))
+    stamps = []
+
+    def timed():
+        for b in batches:
+            stamps.append(time.perf_counter())
+            yield b
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    result = trainer.run(timed())
+    stamps.append(time.perf_counter())
+    launches = read_launches()
+    losses = [m["loss"] for m in trainer.metrics_log]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x)
+                                             for x in losses):
+        raise AssertionError(f"training {label}: losses {losses}")
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    wall = stamps[-1] - stamps[0]
+    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    log(f"training {label}: losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)}")
+    steady = 1e3 * (TRAIN_STEPS - 1) * TRAIN_BATCH * TRAIN_SEQ / sum(
+        step_ms[1:])
+    log(f"training {label}: step ms {', '.join(f'{t:.1f}' for t in step_ms)}"
+        f"; {wall:.3f} s for {TRAIN_STEPS} steps, {tokens / wall:.1f} "
+        f"training tokens/s ({steady:.1f} after the first step) "
+        f"{card.tag()}")
+    log(f"training {label}: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {card.tag()}")
+    per_step = {"flash_attention_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
+                "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    for name, n in per_step.items():
+        if launches[name] != n:
+            raise AssertionError(f"training {label} {name}: "
+                                 f"{launches[name]} launches, expected {n} "
+                                 f"(remat: 2 forwards and 1 backward per "
+                                 f"layer and step)")
+    log(f"training {label}: launches flash_attention_fwd "
+        f"{launches['flash_attention_fwd']}, flash_attention_bwd "
+        f"{launches['flash_attention_bwd']}")
+    if gdt is not None:
+        log(f"training {label}: migrations {result['migrations']}, "
+            f"bytes_migrated {result['bytes_migrated']}, transfer_bytes "
+            f"{result['transfer_bytes']}, slow_bytes "
+            f"{trainer.placer.slow_bytes()}, fast_bytes "
+            f"{trainer.placer.fast_bytes()}, intervals "
+            f"{sum(e.kind == 'interval' for e in trainer.gdt.events)}")
+    return losses, launches, trainer
+
+
+def plain_loss(model, params, batch):
+    """The loss by a plain path: embedding by indexing, explicit rmsnorm,
+    einsum projections, attention through ``mha_reference`` (autograd for
+    its gradient), one cross entropy over the whole logits."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.models.layers import rope, rope_freqs
+
+    cfg = model.cfg
+    f32 = torch.float32
+
+    def norm(scale, x):
+        xf = x.to(f32)
+        y = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + 1e-6)
+        return (y * scale.to(f32)).to(x.dtype)
+
+    tokens, labels = batch["tokens"].long(), batch["labels"].long()
+    S = tokens.shape[1]
+    pos = torch.arange(S, device=tokens.device)
+    freqs = rope_freqs(model.head_dim, cfg.rope_theta, tokens.device)
+    x = params["embed.tok"][tokens]
+    for i in range(cfg.n_layers):
+        p = {n[len(f"layers.{i}."):]: t for n, t in params.items()
+             if n.startswith(f"layers.{i}.")}
+        h = norm(p["ln1.scale"], x)
+        q = rope(torch.einsum("bsd,dhk->bshk", h, p["attn.wq"]), pos, freqs)
+        k = rope(torch.einsum("bsd,dhk->bshk", h, p["attn.wk"]), pos, freqs)
+        v = torch.einsum("bsd,dhk->bshk", h, p["attn.wv"])
+        o = ref.mha_reference(q, k, v, causal=True, window=cfg.window)
+        x = x + torch.einsum("bshk,hkd->bsd", o, p["attn.wo"])
+        h2 = norm(p["ln2.scale"], x)
+        g = torch.einsum("bsd,df->bsf", h2, p["mlp.w_gate"])
+        u = torch.einsum("bsd,df->bsf", h2, p["mlp.w_up"])
+        x = x + torch.einsum("bsf,fd->bsd",
+                             F.silu(g.to(f32)).to(x.dtype) * u,
+                             p["mlp.w_down"])
+    x = norm(params["final_ln.scale"], x)
+    logits = torch.einsum("bsd,dv->bsv", x, params["head.w"]).to(f32)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))
+
+
+def train_f32_check(batch) -> None:
+    """The f32 model cut to F32_CHECK_LAYERS layers: the kernel path's
+    loss and gradients (``train.step.value_and_grad``: ``Model.loss``,
+    flash kernels, remat) against ``plain_loss``'s, each gradient leaf
+    within 1e-4 of the plain one in norm."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.train import value_and_grad
+
+    model = Model(dataclasses.replace(get(DENSE), n_layers=F32_CHECK_LAYERS,
+                                      dtype=torch.float32), device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(SEED + 5))
+    params = dict(model.named_parameters())
+    before = dict(fa.LAUNCHES)
+    loss, grads = value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    if fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"]:
+        raise AssertionError("f32 training check: the kernel path launched "
+                             "no flash backward")
+    leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
+    want = plain_loss(model, leaves, batch)
+    want_grads = dict(zip(leaves, torch.autograd.grad(
+        want, list(leaves.values()))))
+    want = float(want.detach())
+    rel_loss = abs(float(loss) - want) / abs(want)
+    worst, worst_name = 0.0, ""
+    for name, g in grads.items():
+        w = want_grads[name]
+        rel = float((g - w).norm() / w.norm().clamp_min(1e-30))
+        if not math.isfinite(rel):
+            raise AssertionError(f"f32 training check: {name} not finite")
+        if rel > worst:
+            worst, worst_name = rel, name
+    if rel_loss > 1e-4 or worst > 1e-4:
+        raise AssertionError(
+            f"f32 training check: loss rel err {rel_loss:.3e}, worst "
+            f"gradient {worst_name} rel err {worst:.3e} (tol 1e-4)")
+    log(f"f32 kernel-path loss and gradients vs plain path ({DENSE}, "
+        f"{F32_CHECK_LAYERS} layers, B={TRAIN_BATCH} S={TRAIN_SEQ}): loss "
+        f"{float(loss):.6f} vs {want:.6f} (rel {rel_loss:.3e}), worst "
+        f"gradient {worst_name} rel err {worst:.3e} in norm (tol 1e-4)")
+    del model, params, grads, leaves, want_grads
+    free_card()
+
+
+def profile_training(card, trainer, batches) -> None:
+    """Two more unguided steps under ``torch.profiler``: the device's busy
+    time by kernel, and its idle share over the two steps' wall time (the
+    profiler slows the host, not the kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.cfg.steps = len(batches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run(iter(batches))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    busy = sum(dev_us(e) for e in events) / 1e6
+    log(f"device training: kernels and copies busy {busy:.3f} s of "
+        f"{wall:.3f} s for {len(batches)} profiled steps: idle share "
+        f"{100 * max(0.0, 1 - busy / wall):.1f}% {card.tag()}")
+    for e in sorted(events, key=dev_us, reverse=True)[:12]:
+        log(f"  device {dev_us(e) / 1e3:10.2f} ms  calls {e.count:7d}  "
+            f"{e.key[:90]}")
+
+
+def train_dense(card, kernel_rows) -> None:
+    """Phase 6: dense training at the published widths, unguided then
+    guided, and the 2-layer f32 check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.core import GuidanceConfig
+    from repro_torch.data import SyntheticLM
+
+    cfg = get(DENSE)                       # bf16, remat on
+    src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda")
+                for k, v in src.batch_np(i).items()}
+               for i in range(TRAIN_STEPS)]
+    log(f"model {DENSE} training: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {cfg.dtype}, remat {cfg.remat}; batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps a run")
+    losses, launches, trainer = train_run(card, "unguided", cfg, batches,
+                                          None)
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        kernel_rows[name]["launches"] = launches[name]
+    profile_training(card, trainer, batches[:2])
+    n_params = sum(p.numel() for p in trainer.params.values())
+    state = sum(p.numel() * p.element_size()
+                for p in trainer.params.values()) + 2 * 4 * n_params
+    log(f"training state: {n_params} parameters, {state} bytes of "
+        f"parameters and f32 moments")
+    del trainer
+    free_card()
+    gdt = GuidanceConfig(enabled=True, fast_capacity_bytes=int(state * 0.6),
+                         interval_steps=2, promotion_threshold=64 * 1024)
+    guided, _, trainer = train_run(card, "guided", cfg, batches, gdt)
+    if not np.allclose(guided, losses, rtol=1e-5, atol=0):
+        raise AssertionError(f"guided losses {guided} != unguided {losses} "
+                             f"(rtol 1e-5)")
+    if trainer.placer.slow_bytes() <= 0:
+        raise AssertionError("guided training kept nothing on pinned host")
+    log(f"guided == unguided losses (rtol 1e-5), max rel diff "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(guided, losses)):.3e}; "
+        f"{trainer.placer.slow_bytes()} bytes on pinned host")
+    del trainer
+    free_card()
+    train_f32_check(batches[0])
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch is not beside this script; run "
@@ -842,14 +1276,13 @@ def main() -> int:
 
     kernel_rows = check_paged_kernels(card)
     kernel_rows["moe_grouped_ffn"] = check_moe_kernel(card)
-    for phase in (serve_dense, serve_moe):
+    kernel_rows.update(check_flash_kernel(card))
+    for phase in (serve_dense, serve_moe, train_dense):
         phase(card, kernel_rows)
         if torch.backends.cuda.matmul.allow_tf32:
             raise AssertionError(f"{phase.__name__} turned TF32 matmuls on")
     log(card.smi)
-    log(json.dumps({"kernels": [kernel_rows[name] for name in
-                                ("paged_attention", "paged_prefill",
-                                 "moe_grouped_ffn")]}))
+    log(json.dumps({"kernels": [kernel_rows[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card.name, "count": card.count}}),
         flush=True)

@@ -8,7 +8,7 @@ so this module imports neither JAX nor ``repro``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,12 +39,48 @@ def config_from_reference(cfg: Any) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
+    """A tensor on ``device`` from a numpy array (bfloat16 as ml_dtypes
+    gives it, or as the 2-byte void ``|V2`` that a checkpoint holds when
+    ml_dtypes is absent) or from a tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a)                       # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":        # numpy has no native bf16
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
         return torch.from_numpy(a.view(np.int16)).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``t``; bfloat16 (which numpy lacks) becomes the
+    2-byte void dtype ``|V2`` with the same bits, which ``np.save`` writes
+    as the JAX package writes bfloat16."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().copy().view(np.dtype("V2"))
+    return t.numpy().copy()
+
+
+def jax_path(name: str) -> Tuple[str, Optional[int]]:
+    """The JAX tree path and layer index of a port state-dict name:
+    ``layers.3.attn.wq`` -> (``layers/attn/wq``, 3), ``embed.tok`` ->
+    (``embed/tok``, None)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return "/".join(["layers"] + parts[2:]), int(parts[1])
+    return "/".join(parts), None
+
+
+def jax_order(names) -> List[str]:
+    """Port state-dict names in JAX's leaf order (dict keys sorted at every
+    level), the layers of a stacked leaf in index order."""
+    def key(name):
+        path, layer = jax_path(name)
+        return path.split("/"), -1 if layer is None else layer
+
+    return sorted(names, key=key)
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -73,3 +109,29 @@ def params_from_numpy(tree: Mapping, device: DeviceLike = None
         else:
             out[name] = t
     return out
+
+
+def params_to_numpy(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``params_from_numpy``: the JAX package's nested tree
+    of numpy leaves from a port state dict, ``layers.<i>.<...>`` stacked
+    into ``layers/<...>`` of shape ``(L, ...)``.  bfloat16 leaves come out
+    as ``|V2`` (``to_numpy``)."""
+    stacked: Dict[str, Dict[int, torch.Tensor]] = {}
+    flat: Dict[str, torch.Tensor] = {}
+    for name, t in state.items():
+        path, layer = jax_path(name)
+        if layer is None:
+            flat[path] = t
+        else:
+            stacked.setdefault(path, {})[layer] = t
+    for path, layers in stacked.items():
+        flat[path] = torch.stack([layers[i].detach().cpu()
+                                  for i in range(len(layers))])
+    tree: Dict[str, Any] = {}
+    for path in sorted(flat, key=lambda p: p.split("/")):
+        cur = tree
+        parts = path.split("/")
+        for part in parts[:-1]:
+            cur = cur.setdefault(part, {})
+        cur[parts[-1]] = to_numpy(flat[path])
+    return tree

@@ -1,7 +1,8 @@
 """repro_torch.core — the paper's contribution: online application guidance
-for heterogeneous memory.  A framework-free copy of ``repro.core`` (minus
-``placement``, which moves JAX arrays), so the PyTorch port imports without
-JAX; it adds the ``H100`` hardware model.
+for heterogeneous memory.  A framework-free copy of ``repro.core``, so the
+PyTorch port imports without JAX; it adds the ``H100`` hardware model, and
+``placement.TorchArenaPlacer`` takes the place of ``JaxArenaPlacer``
+(import it from ``core.placement``).
 
 The online loop (Algorithm 1) is owned by a single controller,
 ``runtime.GuidanceRuntime``, which drives pluggable ``TierBackend``

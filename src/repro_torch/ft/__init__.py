@@ -1,0 +1,7 @@
+"""Failure detection of the port (``repro/ft``): ``HeartbeatMonitor``, a
+framework-free copy.  Elastic rescaling comes with distribution
+(ROADMAP.md queue A item 11)."""
+
+from .heartbeat import HeartbeatMonitor, NodeStats
+
+__all__ = ["HeartbeatMonitor", "NodeStats"]

@@ -16,6 +16,20 @@ from . import ref
 from .sampling import sample_tokens as _sample_tokens
 
 
+def flash_attention(q, k, v, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Differentiable attention for training.  q: (B,Sq,H,dh); k/v:
+    (B,Sk,K,dh) with GQA; causal rows at positions ``i + Sk - Sq``; a
+    window applies only under causal.  A CPU tensor takes
+    ``ref.mha_reference`` (its gradient by autograd); a CUDA tensor the
+    hand-written forward and backward kernels."""
+    if q.device.type == "cpu":
+        return ref.mha_reference(q, k, v, causal=causal, window=window)
+    from .flash_attention import flash_attention_cuda
+
+    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
 def paged_attention(q, k_pool, v_pool, page_table, lengths,
                     window: Optional[int] = None) -> torch.Tensor:
     """Decode attention over paged KV.  q: (B,H,dh); k_pool/v_pool:

@@ -2,7 +2,10 @@
 assert against, the path a CPU tensor takes through ``kernels.ops``, and
 what ``chip_smoke.py`` holds each CUDA kernel against on the card.
 
-Layouts are the JAX package's (``repro/kernels/ref.py``).  Paged attention:
+Layouts are the JAX package's (``repro/kernels/ref.py``).  Attention
+(``mha_reference``): q ``(B, Sq, H, dh)``, k/v ``(B, Sk, K, dh)`` with GQA,
+scores and softmax in f32; its gradient is plain autograd through it.
+Paged attention:
 q ``(B, H, dh)``, pools ``(N, P, K, dh)``, page table ``(B, MP)`` int32
 with -1 for an unused slot, lengths ``(B,)``; scores, softmax and the
 weighted sum run in f32.  Grouped-expert FFN: x ``(T, d)`` sorted by group,
@@ -21,6 +24,33 @@ from ..tiles import linear, row_tiles
 
 F32 = torch.float32
 NEG_INF = -1e30
+
+
+def mha_reference(q, k, v, causal: bool = True,
+                  window: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Exact softmax attention.  q: (B,Sq,H,dh); k/v: (B,Sk,K,dh), GQA.
+
+    Causal masking puts query row i at position ``i + Sk - Sq``; a window
+    applies only under causal.  Masked scores are ``NEG_INF`` (-1e30), not
+    -inf, so a causal row that sees no key (only when Sq > Sk) gets the
+    mean of V over all Sk keys, as the JAX oracle gives it."""
+    B, Sq, H, dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qg = q.reshape(B, Sq, K, G, dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(F32), k.to(F32)) * scale
+    if causal:
+        q_pos = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        k_pos = torch.arange(Sk, device=q.device)[None, :]
+        mask = k_pos <= q_pos
+        if window is not None:
+            mask &= (q_pos - k_pos) < window
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, v.to(F32))
+    return o.reshape(B, Sq, H, dh).to(q.dtype)
 
 
 def paged_attention_reference(q, k_pool, v_pool, page_table, lengths,

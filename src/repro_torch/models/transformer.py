@@ -7,22 +7,38 @@ unchanged (``repro_torch.convert``): ``wq (d,H,dh)``, ``wk``/``wv``
 ``embed.tok (vocab,d)``, ``head.w (d,vocab)``; an MoE layer holds
 ``moe.router (d,E)`` in f32 whatever ``cfg.dtype`` is, ``moe.w_gate``/
 ``moe.w_up (E,d,f)`` and ``moe.w_down (E,f,d)`` in place of ``mlp``.  The
-serving engine (``serve/engine.py``) drives the layers itself, so the
-module holds parameters and their initialisation and leaves the forward
-pass to it.
+serving engine (``serve/engine.py``) drives the layers itself under
+``torch.no_grad``.  ``forward`` and ``loss`` are the training pass of the
+dense family (``repro/models/transformer.py`` ``_dense_body``, ``_trunk``,
+``loss``): whole-tensor layers, every attention through the flash kernels,
+each layer under ``torch.utils.checkpoint`` when ``cfg.remat``.
+
+Parameters are made with ``requires_grad=False``, so serving builds no
+autograd graph.  Training hands ``loss`` its own leaves (``params``: the
+state-dict names mapped to tensors that require grad, as
+``train.step.value_and_grad`` makes them), so the module's own tensors
+never need to be trainable.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from .config import ModelConfig
+from .layers import attention, chunked_lm_loss, norm, rope_freqs, swiglu
 from .moe import CAPACITY_NOT_PORTED, MoEConfig
+
+MOE_TRAINING_NOT_PORTED = (
+    "training the MoE family is not ported yet: its gradient needs a "
+    "grouped-FFN backward kernel (ROADMAP.md queue B item 6, with MoE "
+    "training)")
 
 _NOT_PORTED = {
     "hybrid": "ROADMAP.md queue A item 10 (other families)",
@@ -163,3 +179,67 @@ class Model(nn.Module):
                             dtype=torch.float32)
             p.copy_((w * std).to(p.dtype))
         return self
+
+    # ============================================================ training
+    def _freqs(self, device) -> torch.Tensor:
+        """The rope frequencies on ``device``, made once: a copy from host
+        memory in every forward pass would wait for the card."""
+        cache = self.__dict__.setdefault("_freqs_cache", {})
+        key = str(torch.device(device))
+        if key not in cache:
+            cache[key] = rope_freqs(self.head_dim, self.cfg.rope_theta,
+                                    device)
+        return cache[key]
+
+    def _layer_params(self, params: Mapping[str, torch.Tensor],
+                      i: int) -> Dict:
+        """Layer i's tensors of a state-dict-named mapping, nested as the
+        JAX layer tree is."""
+        pre = f"layers.{i}."
+        return {
+            "ln1": params[pre + "ln1.scale"],
+            "attn": {w: params[f"{pre}attn.{w}"]
+                     for w in ("wq", "wk", "wv", "wo")},
+            "ln2": params[pre + "ln2.scale"],
+            "mlp": {w: params[f"{pre}mlp.{w}"]
+                    for w in ("w_gate", "w_up", "w_down")},
+        }
+
+    def _dense_body(self, lp: Mapping, x: torch.Tensor,
+                    positions: torch.Tensor,
+                    freqs: torch.Tensor) -> torch.Tensor:
+        h = x + attention(lp["attn"], norm(lp["ln1"], x), positions, freqs,
+                          window=self.cfg.window)
+        return h + swiglu(lp["mlp"], norm(lp["ln2"], h))
+
+    def forward(self, tokens: torch.Tensor,
+                params: Optional[Mapping[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """The trunk: tokens (B, S) -> hidden (B, S, d) after the layer
+        stack (before the final norm).  ``params`` maps state-dict names to
+        the tensors to use (default: the module's own)."""
+        if self.moe_cfg is not None:
+            raise NotImplementedError(MOE_TRAINING_NOT_PORTED)
+        P = dict(self.named_parameters()) if params is None else params
+        S = tokens.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        freqs = self._freqs(tokens.device)
+        x = F.embedding(tokens.long(), P["embed.tok"])
+        for i in range(self.cfg.n_layers):
+            lp = self._layer_params(P, i)
+            if self.cfg.remat:
+                x = checkpoint(self._dense_body, lp, x, positions, freqs,
+                               use_reentrant=False)
+            else:
+                x = self._dense_body(lp, x, positions, freqs)
+        return x
+
+    def loss(self, batch: Mapping[str, torch.Tensor],
+             params: Optional[Mapping[str, torch.Tensor]] = None
+             ) -> torch.Tensor:
+        """Mean next-token CE of ``batch`` (``tokens``, ``labels`` (B, S),
+        label -1 ignored) as an f32 scalar."""
+        P = dict(self.named_parameters()) if params is None else params
+        x = self.forward(batch["tokens"], P)
+        x = norm(P["final_ln.scale"], x)
+        return chunked_lm_loss(P["head.w"], x, batch["labels"])

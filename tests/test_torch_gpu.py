@@ -207,3 +207,155 @@ def test_moe_grouped_ffn_kernel_refuses_what_it_does_not_take(cuda):
                                 gs)
     with pytest.raises(ValueError, match="contiguous"):
         mg.moe_grouped_ffn_cuda(x.t(), wg, wu, wd, gs)
+
+
+# ---------------------------------------------------------- flash attention
+def flash_case(dev, dtype, B, Sq, Sk, H, K, dh, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, Sq, H, dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, Sk, K, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, Sk, K, dh), generator=gen, device=dev).to(dtype)
+    do = torch.randn((B, Sq, H, dh), generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+# Gradients sum up to G * Sq (dK, dV) or Sk (dQ) terms in another order
+# than autograd through the plain version: f32 is held to 1e-4.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+FLASH_CASES = [
+    # B, Sq, Sk, H, K, dh, causal, window
+    (2, 128, 128, 8, 2, 64, True, None),
+    (1, 100, 100, 4, 4, 64, True, None),      # not a tile multiple
+    (2, 64, 200, 8, 2, 64, True, None),       # Sq < Sk: q_offset > 0
+    (1, 100, 40, 4, 2, 64, True, None),       # Sq > Sk: rows that see nothing
+    (2, 96, 96, 4, 2, 64, False, None),       # non-causal
+    (1, 130, 130, 4, 1, 128, True, None),     # dh 128
+    (1, 200, 200, 8, 2, 64, True, 37),        # sliding window
+    (1, 70, 90, 4, 2, 64, False, None),       # non-causal, Sq != Sk
+    (1, 50, 50, 2, 1, 16, True, None),        # dh 16 (the smoke configs)
+    (1, 66, 66, 4, 2, 32, True, 9),           # dh 32 with a window
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,K,dh,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Sq, Sk, H, K,
+                                              dh, causal, window):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = flash_case(cuda, dtype, B, Sq, Sk, H, K, dh)
+    before = dict(fa.LAUNCHES)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    got = ops.flash_attention(qg, kg, vg, causal=causal, window=window)
+    dq, dk, dv = torch.autograd.grad(got, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_fwd"] == \
+        before["flash_attention_fwd"] + 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    want = ref.mha_reference(qr, kr, vr, causal=causal, window=window)
+    wq, wk, wv = torch.autograd.grad(want, (qr, kr, vr), do)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    for name, a, b in (("dq", dq, wq), ("dk", dk, wk), ("dv", dv, wv)):
+        torch.testing.assert_close(a.float(), b.float(),
+                                   atol=GRAD_TOL[dtype],
+                                   rtol=GRAD_TOL[dtype], msg=name)
+
+
+def test_flash_attention_backward_is_bitwise_reproducible(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = flash_case(cuda, torch.bfloat16, 2, 256, 256, 8, 2, 64)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    first = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    second = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, _ = flash_case(cuda, torch.float32, 1, 16, 16, 4, 2, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros((1, 16, 4, 48), device=cuda)
+        fa.flash_attention_fwd_cuda(z, z[:, :, :2].contiguous(),
+                                    z[:, :, :2].contiguous())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd_cuda(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fa.flash_attention_fwd_cuda(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="group"):
+        fa.flash_attention_fwd_cuda(q, k[:, :, :1].expand(
+            1, 16, 3, 64).contiguous(), v[:, :, :1].expand(
+            1, 16, 3, 64).contiguous())
+
+
+# ------------------------------------------------------ training placement
+def test_arena_placer_moves_tensors_between_hbm_and_pinned_host(cuda):
+    from repro_torch.core import ArenaManager, SiteKind, SiteRegistry
+    from repro_torch.core.placement import TorchArenaPlacer
+
+    reg = SiteRegistry()
+    mgr = ArenaManager(reg, promotion_threshold=1024)
+    placer = TorchArenaPlacer(mgr, device="cuda")
+    arena = mgr.allocate(reg.register(["m"], SiteKind.OPT_STATE), 2 * 4096)
+    x = torch.arange(1024, dtype=torch.float32, device=cuda)
+    placer.bind(arena.arena_id, "a", x)
+    placer.bind(arena.arena_id, "b", x + 1)
+    assert [e.kind for e in placer.entries(arena.arena_id)] == ["device"] * 2
+    placer._apply(arena.arena_id, 0.5)
+    slow = placer.get(arena.arena_id, "b")
+    assert placer.kind(arena.arena_id, "b") == "pinned_host"
+    assert not slow.is_cuda and slow.is_pinned()
+    assert placer.get(arena.arena_id, "a").is_cuda
+    fetched = placer.fetch_fast(arena.arena_id)
+    assert fetched["b"].is_cuda and torch.equal(fetched["b"], x + 1)
+    placer.writeback(arena.arena_id, {"a": x * 2, "b": fetched["b"] * 3})
+    assert placer.get(arena.arena_id, "b") is slow       # its own buffer
+    assert torch.equal(slow, ((x + 1) * 3).cpu())
+    assert placer.slow_bytes() == placer.fast_bytes() == 4096
+    assert placer.transfers_bytes == 3 * 4096
+
+
+def test_guided_training_on_the_card_offloads_and_is_lossless(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import GuidanceConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_smoke("llama3_2_1b"), remat=True)
+    src = SyntheticLM(cfg.vocab, 64, 2, seed=0)
+    data = [{k: torch.from_numpy(v).to(cuda) for k, v in
+             src.batch_np(i).items()} for i in range(4)]
+    runs = {}
+    for name in ("plain", "guided"):
+        gdt = None
+        if name == "guided":
+            gdt = GuidanceConfig(enabled=True, fast_capacity_bytes=2**19,
+                                 interval_steps=2, promotion_threshold=1024)
+        tr = Trainer(Model(cfg, device="cuda"), AdamW(lr=1e-3),
+                     TrainerConfig(steps=4, log_every=1, gdt=gdt, seed=0))
+        before = dict(fa.LAUNCHES)
+        tr.run(iter(data))
+        assert fa.LAUNCHES["flash_attention_fwd"] - \
+            before["flash_attention_fwd"] == 4 * 2 * cfg.n_layers
+        assert fa.LAUNCHES["flash_attention_bwd"] - \
+            before["flash_attention_bwd"] == 4 * cfg.n_layers
+        runs[name] = ([m["loss"] for m in tr.metrics_log], tr)
+    assert runs["plain"][0] == runs["guided"][0]
+    tr = runs["guided"][1]
+    assert tr.placer.slow_bytes() > 0 and tr.placer.fast_bytes() > 0
+    on_host = [n for n, p in tr.params.items() if not p.is_cuda]
+    assert on_host and all(tr.params[n].is_pinned() for n in on_host)
+    assert any(not t.is_cuda for t in tr.opt_state.v.values())

@@ -123,3 +123,28 @@ def test_default_device_is_the_card():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device(None)
+
+
+def test_training_entry_points_import_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.launch.train, repro_torch.train, "
+            "repro_torch.ckpt, repro_torch.kernels.flash_attention; "
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_training_launcher_needs_the_card_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "llama3_2_1b", "--smoke", "--steps", "1"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
