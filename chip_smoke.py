@@ -25,7 +25,13 @@ Phases, each of which raises on failure:
    Sq < Sk, non-causal, dh 128, S=1000 and Sq > Sk; dq, dk, dv against
    autograd through the plain version; two backward runs bitwise equal;
    timed beside ``scaled_dot_product_attention`` (forward, backward, and
-   both).
+   both); and the forward at the hybrid prefill's dh 112 (B=4, S=1024,
+   32/32 heads), checked with the others and timed beside SDPA.  The SSD
+   intra-chunk kernel: bf16 and f32 against ``ref.ssd_reference`` at the
+   JAX package's sweep, short and ragged chunks and the hybrid prefill's
+   (32 chunks of 128, 112 heads of 64, state 64), within 1e-4 of max|y|,
+   two launches bitwise equal; timed beside its plain version (no single
+   PyTorch call computes it).
 4. Dense serving: ``LLM.from_arch("llama3_2_1b", smoke=False).generate`` at
    the published widths in bf16 with random weights: 8 requests of 512
    prompt tokens, KV pages migrating between HBM and pinned host memory
@@ -54,6 +60,18 @@ Phases, each of which raises on failure:
    layers: the kernel path's loss and gradients against a plain path with
    attention through ``mha_reference``, to 1e-4.  Two more unguided steps
    run under the profiler for the device's time by kernel.
+7. Hybrid serving, after training is freed: ``zamba2_7b`` at its
+   published widths (81 layers, d_model 3584, 32/32 heads of 112, 112 SSM
+   heads of 64, state 64; nothing cut) in bf16 with random weights:
+   ``Model.prefill`` of 4 prompts of 1024 tokens, then 32 greedy
+   ``Model.decode`` steps, the counters zeroed just before and read just
+   after (81 SSD and 13 flash forward launches: one per Mamba2 layer and
+   one per shared-attention application).  Then a profiled prefill and
+   four profiled decode steps, and an
+   f32 copy cut to 7 layers: the kernel path's prefill logits and cache
+   against a plain path (``ref.ssd_reference`` per chunk,
+   ``ref.mha_reference``), and prefill-then-decode against stepwise decode
+   on a 256-token prompt (greedy tokens equal, logits within 2e-3).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -62,6 +80,7 @@ repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -82,22 +101,33 @@ SEED = 0
 # Gradients of attention sum up to G * Sq terms in another order than
 # autograd through the plain version: f32 is held to 1e-4.
 GRAD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-SOURCES = {"paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+SOURCES = {"ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "paged_prefill": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "moe_grouped_ffn": "src/repro_torch/kernels/csrc/moe_gemm.cu",
            "flash_attention_fwd":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_bwd":
                "src/repro_torch/kernels/csrc/flash_attention.cu"}
+SOURCES["flash_attention_fwd_dh112"] = SOURCES["flash_attention_fwd"]
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:113",
             "paged_prefill": "src/repro/kernels/paged_attention.py:95",
             "moe_grouped_ffn": "src/repro/kernels/moe_gemm.py:221",
             "flash_attention_fwd": "src/repro/kernels/flash_attention.py:153",
-            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:166"}
+            "flash_attention_bwd": "src/repro/kernels/flash_attention.py:166",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:65"}
+REPLACES["flash_attention_fwd_dh112"] = REPLACES["flash_attention_fwd"]
+# flash_attention_fwd_dh112 is the flash forward at zamba2's head dim, its
+# launches those of the hybrid prefill.
 KERNELS = ("paged_attention", "paged_prefill", "moe_grouped_ffn",
-           "flash_attention_fwd", "flash_attention_bwd")
+           "flash_attention_fwd", "flash_attention_bwd", "ssd_scan",
+           "flash_attention_fwd_dh112")
 F32_CHECK_LAYERS = 2
-DENSE, MOE = "llama3_2_1b", "granite_moe_3b_a800m"
+DENSE, MOE, HYBRID = "llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b"
+# The SSD kernel against its plain version: as a fraction of max|y| (the
+# JAX package's kernel test scaling), 1e-4 in both dtypes: bf16 inputs load
+# exactly as f32 and both versions compute in f32, in other orders.
+SSD_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -524,13 +554,15 @@ def check_flash_kernel(card) -> dict:
 
     # (label, B, Sq, Sk, H, K, dh, causal, window)
     train = (2, 2048, 2048, 32, 8, 64)
+    worst_112 = 0.0
     cases = [("training shape", *train, True, None),
              ("training shape, window 256", *train, True, 256),
              ("Sq=512 < Sk=2048", 2, 512, 2048, 32, 8, 64, True, None),
              ("non-causal S=1024", 1, 1024, 1024, 32, 8, 64, False, None),
              ("dh=128 S=1024", 1, 1024, 1024, 16, 4, 128, True, None),
              ("S=1000", 2, 1000, 1000, 32, 8, 64, True, None),
-             ("Sq=1000 > Sk=300", 1, 1000, 300, 32, 8, 64, True, None)]
+             ("Sq=1000 > Sk=300", 1, 1000, 300, 32, 8, 64, True, None),
+             ("dh=112 hybrid prefill", *HYBRID_ATTN, True, None)]
     worst = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
@@ -563,6 +595,8 @@ def check_flash_kernel(card) -> dict:
                         f"abs err {e} outside atol=rtol="
                         f"{GRAD_TOL[dtype_name]}")
                 errs.append(e)
+            if label.startswith("dh=112") and dtype == torch.bfloat16:
+                worst_112 = err
             if label == "training shape" and dtype == torch.bfloat16:
                 worst["flash_attention_fwd"] = err
                 worst["flash_attention_bwd"] = max(errs)
@@ -633,8 +667,137 @@ def check_flash_kernel(card) -> dict:
         f"{times['flash_attention_fwd'][0] + times['flash_attention_bwd'][0]:.4f}"
         f" ms, sdpa forward + backward {both_ms:.4f} ms {card.tag()}")
     del q, k, v, do, out, lse, qr, kr, vr, plain_out, qs, ks, vs, sdpa_out
+
+    # The hybrid prefill's shared attention: the forward at dh 112.
+    B, S, _, H, K, dh = HYBRID_ATTN
+    q, k, v, _ = case(B, S, S, H, K, dh, torch.bfloat16)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def plain_112():
+        with torch.no_grad():
+            ref.mha_reference(q, k, v)
+
+    def sdpa_112():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v))
+    plain_ms = time_ms(plain_112, iters=10)
+    lib_ms = time_ms(sdpa_112)
+    b_ms, b_by = flash_bound_ms(B, S, S, H, K, dh, True, 2, False)
+    log(f"time flash_attention_fwd B={B} S={S} {H}/{K} heads dh={dh} causal "
+        f"bf16 (hybrid prefill): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) "
+        f"{card.tag()}")
+    name = "flash_attention_fwd_dh112"
+    rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
+                  "replaces": REPLACES[name], "launches": 0,
+                  "max_abs_err": worst_112, "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    del q, k, v, qs, ks, vs
     free_card()
     return rows
+
+
+# (B, S, S, H, K, dh) of the hybrid prefill's shared attention: 4 prompts
+# of 1024 tokens, zamba2's 32/32 heads of 112.
+HYBRID_ATTN = (4, 1024, 1024, 32, 32, 112)
+# The hybrid prefill's SSD call: 4 x 1024 tokens in chunks of 128, 112
+# heads of 64, state 64.
+HYBRID_SSD = (32, 128, 112, 64, 64)
+
+
+def ssd_case(gen, Bc, Q, H, P, N, dtype):
+    """x, dt, A, B, C of the model's statistics: dt in [0.001, 0.1], A in
+    [-2, -0.5] (the JAX kernel test's ranges)."""
+    import torch
+
+    x = torch.randn((Bc, Q, H, P), generator=gen, device="cuda").to(dtype)
+    dt = 0.001 + 0.099 * torch.rand((Bc, Q, H), generator=gen,
+                                    device="cuda")
+    A = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device="cuda"))
+    bm = torch.randn((Bc, Q, N), generator=gen, device="cuda").to(dtype)
+    cm = torch.randn((Bc, Q, N), generator=gen, device="cuda").to(dtype)
+    return x, dt, A, bm, cm
+
+
+def ssd_bound_ms(x, dt, A, bm) -> tuple:
+    """The least time for this work: x, dt, A, B and C read once and the
+    f32 y written once over HBM bandwidth; and the causal pairs' work over
+    the peak rate of x's type: per chunk row Q(Q+1)/2 pairs of an N-long
+    score (2N) and, per head, a weight (2) and a P-long product (2P).
+    Returns (ms, bound_by)."""
+    Bc, Q, H, P = x.shape
+    N = bm.shape[-1]
+    item = x.element_size()
+    nbytes = (x.numel() * item + dt.numel() * 4 + A.numel() * 4
+              + 2 * bm.numel() * item + x.numel() * 4)
+    ops = Bc * Q * (Q + 1) // 2 * (2 * N + H * (2 * P + 2))
+    dtype = "bfloat16" if item == 2 else "float32"
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_ssd_kernel(card) -> dict:
+    """Phase 3, the SSD intra-chunk kernel against ``ref.ssd_reference``
+    at the JAX package's sweep, short and ragged chunks and the hybrid
+    prefill shape, bf16 and f32; two launches bitwise equal; then timed at
+    the hybrid prefill shape.  Returns its kernel row (launches filled in
+    by the hybrid serving phase)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cases = [(2, 64, 8, 32, 16), (1, 128, 4, 64, 64), (2, 128, 16, 64, 64),
+             (1, 64, 2, 64, 32), (3, 8, 6, 32, 16), (2, 100, 5, 64, 32),
+             (1, 256, 4, 64, 64), HYBRID_SSD]
+    worst = 0.0
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        for shape in cases:
+            args = ssd_case(gen, *shape, dtype)
+            got = ss.ssd_scan_cuda(*args)
+            again = ss.ssd_scan_cuda(*args)
+            want = ref.ssd_reference(*args)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"ssd {shape}: non-finite output")
+            if not torch.equal(got, again):
+                raise AssertionError(f"ssd {shape} {dtype_name}: two "
+                                     f"launches differ")
+            scale = float(want.abs().max()) + 1e-6
+            diff = (got - want).abs() / scale
+            err = float(diff.max())
+            if not bool((diff <= SSD_TOL + SSD_TOL * want.abs()
+                         / scale).all()):
+                raise AssertionError(
+                    f"ssd {shape} {dtype_name}: max err {err} of max|y| "
+                    f"{scale} outside atol=rtol={SSD_TOL}")
+            if shape == HYBRID_SSD and dtype == torch.bfloat16:
+                worst = err * scale
+            log(f"kernel check ssd_scan (Bc, Q, H, P, N)={shape} "
+                f"{dtype_name}: max abs err {err * scale:.3e}, {err:.3e} of "
+                f"max|y| {scale:.3e} (atol=rtol={SSD_TOL}); two launches "
+                f"bitwise equal")
+            del args, got, again, want, diff
+
+    args = ssd_case(gen, *HYBRID_SSD, torch.bfloat16)
+    ms = time_ms(lambda: ss.ssd_scan_cuda(*args))
+    plain_ms = time_ms(lambda: ref.ssd_reference(*args), iters=10)
+    b_ms, b_by = ssd_bound_ms(*args[:4])
+    log(f"time ssd_scan (Bc, Q, H, P, N)={HYBRID_SSD} bf16 (hybrid "
+        f"prefill): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"none, bound {b_ms:.5f} ms ({b_by}) {card.tag()}")
+    del args
+    free_card()
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": SOURCES["ssd_scan"], "replaces": REPLACES["ssd_scan"],
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 # ----------------------------------------------------------------- serving
@@ -802,22 +965,25 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def reset_launches() -> None:
+def kernel_modules():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ss
 
-    pa.reset_launches()
-    mg.reset_launches()
-    fa.reset_launches()
+    return pa, mg, fa, ss
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules():
+        mod.reset_launches()
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import moe_gemm as mg
-    from repro_torch.kernels import paged_attention as pa
-
-    return {**pa.LAUNCHES, **mg.LAUNCHES, **fa.LAUNCHES}
+    out = {}
+    for mod in kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def main_run(card, arch, cfg, n_req, n_prompt, n_new, rng):
@@ -1246,6 +1412,254 @@ def train_dense(card, kernel_rows) -> None:
     train_f32_check(batches[0])
 
 
+# --------------------------------------------------------- hybrid serving
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW = 4, 1024, 32
+HYBRID_CHECK_LAYERS = 7          # one shared application and a remainder
+HYBRID_CHECK_PROMPT = 256        # two SSD chunks
+HYBRID_TOL = 2e-3                # tests/test_recurrent_prefill.py's
+
+
+def hybrid_expected(cfg) -> dict:
+    """Kernel launches of one prefill: one SSD call per Mamba2 layer, one
+    flash forward per shared-block application."""
+    return {"ssd_scan": cfg.n_layers,
+            "flash_attention_fwd": cfg.n_layers // cfg.attn_every}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within this context the model's kernel entry points take their plain
+    versions on any device: ``ref.ssd_reference`` per chunk and
+    ``ref.mha_reference``.  The comparison path of the f32 hybrid check."""
+    from repro_torch.kernels import ops, ref
+
+    saved = ops.ssd_scan, ops.flash_attention
+    ops.ssd_scan = ref.ssd_reference
+    ops.flash_attention = ref.mha_reference
+    try:
+        yield
+    finally:
+        ops.ssd_scan, ops.flash_attention = saved
+
+
+def profile_hybrid(card, model, tokens, n_decode: int = 4) -> None:
+    """One more prefill, then ``n_decode`` decode steps, each part under
+    ``torch.profiler``: the device's busy time by kernel, and its idle
+    share over the part's wall time (the profiler slows the host, not the
+    kernels, so the decode's idle share is an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    S = tokens.shape[1]
+    cache = model.init_cache(tokens.shape[0], S + n_decode)
+    state = {}
+
+    def prefill():
+        state["logits"], _ = model.prefill(tokens, cache)
+
+    def decode():
+        logits = state["logits"]
+        for pos in range(S, S + n_decode):
+            logits, _ = model.decode(logits.argmax(-1), cache, pos)
+
+    for label, part, top in (("prefill", prefill, 12),
+                             (f"{n_decode} decode steps", decode, 6)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            part()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        busy = sum(dev_us(e) for e in events) / 1e6
+        log(f"device hybrid {label}: kernels and copies busy {busy:.3f} s "
+            f"of {wall:.3f} s, {sum(e.count for e in events)} launches: "
+            f"idle share {100 * max(0.0, 1 - busy / wall):.1f}% "
+            f"{card.tag()}")
+        for e in sorted(events, key=dev_us, reverse=True)[:top]:
+            log(f"  device {dev_us(e) / 1e3:10.2f} ms  calls {e.count:7d}  "
+                f"{e.key[:90]}")
+    del cache, state
+
+
+def hybrid_f32_checks(rng) -> None:
+    """zamba2 in f32 at the published widths cut to HYBRID_CHECK_LAYERS
+    layers (one shared application and a remainder, the smoke config's
+    layout): the kernel path's prefill logits and cache against the plain
+    path's, and prefill-then-decode against stepwise decode on a
+    HYBRID_CHECK_PROMPT-token prompt, greedy tokens equal and logits within
+    HYBRID_TOL.  The kernel and plain versions differ by about 1e-6 of
+    their outputs; seven random layers amplify that, as the JAX package's
+    own prefill and stepwise forms show (its test holds them to 2e-3)."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get(HYBRID), n_layers=HYBRID_CHECK_LAYERS,
+                              dtype=torch.float32)
+    model = Model(cfg, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(SEED + 7))
+    S, n_new = HYBRID_CHECK_PROMPT, 4
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))).to("cuda")
+    reset_launches()
+    logits, cache = model.prefill(tokens, model.init_cache(1, S + n_new))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for name, n in hybrid_expected(cfg).items():
+        if launches[name] != n:
+            raise AssertionError(f"f32 hybrid kernel path: {launches[name]} "
+                                 f"{name} launches, expected {n}")
+    reset_launches()
+    with plain_kernels():
+        want, want_cache = model.prefill(tokens,
+                                         model.init_cache(1, S + n_new))
+    torch.cuda.synchronize()
+    if any(read_launches().values()):
+        raise AssertionError(f"the plain path launched kernels: "
+                             f"{read_launches()}")
+    if not torch.isfinite(logits).all() or logits.shape != (1, cfg.vocab):
+        raise AssertionError(f"f32 hybrid logits shaped "
+                             f"{tuple(logits.shape)} or not finite")
+    err = float((logits - want).abs().max() / want.abs().max())
+    leaves = {"conv": (cache["conv"], want_cache["conv"]),
+              "ssm": (cache["ssm"], want_cache["ssm"]),
+              "k": (cache["kv"]["k"], want_cache["kv"]["k"]),
+              "v": (cache["kv"]["v"], want_cache["kv"]["v"])}
+    cache_err = {name: max(float((a[i] - b[i]).norm() / b[i].norm())
+                           for i in range(a.shape[0]))
+                 for name, (a, b) in leaves.items()}
+    if err > HYBRID_TOL or max(cache_err.values()) > HYBRID_TOL:
+        raise AssertionError(
+            f"f32 hybrid kernel path vs plain path: logits {err:.3e} of "
+            f"max|logit|, cache leaves in norm {cache_err} (tol "
+            f"{HYBRID_TOL})")
+    log(f"f32 hybrid prefill, kernel path vs plain path ({HYBRID}, "
+        f"{HYBRID_CHECK_LAYERS} layers, S={S}): logits max err {err:.3e} of "
+        f"max|logit|; worst layer of each cache leaf in norm "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in cache_err.items())} (tol "
+        f"{HYBRID_TOL})")
+    del want, want_cache
+
+    a, la = [], [logits]
+    for pos in range(S, S + n_new):
+        nxt = logits.argmax(-1)
+        a.append(int(nxt))
+        logits, cache = model.decode(nxt, cache, pos)
+        la.append(logits)
+    cache = model.init_cache(1, S + n_new)
+    for pos in range(S):
+        logits, cache = model.decode(tokens[:, pos], cache, pos)
+    b, lb = [], [logits]
+    for pos in range(S, S + n_new):
+        nxt = logits.argmax(-1)
+        b.append(int(nxt))
+        logits, cache = model.decode(nxt, cache, pos)
+        lb.append(logits)
+    worst = max(float(((x - y).abs() / (HYBRID_TOL + HYBRID_TOL * y.abs()))
+                      .max()) for x, y in zip(la, lb))
+    if a != b or worst > 1.0:
+        raise AssertionError(
+            f"f32 hybrid prefill-then-decode {a} vs stepwise {b}; logits "
+            f"{worst:.3f} of atol=rtol={HYBRID_TOL}")
+    diff = max(float((x - y).abs().max()) for x, y in zip(la, lb))
+    log(f"f32 hybrid prefill-then-decode == stepwise decode "
+        f"({HYBRID_CHECK_LAYERS} layers, {S}-token prompt): greedy {a}; "
+        f"logits max abs "
+        f"diff {diff:.3e} (atol=rtol={HYBRID_TOL})")
+    del model, cache
+    free_card()
+
+
+def serve_hybrid(card, kernel_rows) -> None:
+    """Phase 7: zamba2 at its published widths (81 layers, nothing cut) in
+    bf16 with random weights: HYBRID_BATCH prompts of HYBRID_PROMPT tokens
+    through one ``prefill``, then HYBRID_NEW greedy ``decode`` steps, the
+    launch counters zeroed just before and read just after; a profiled
+    prefill and decode; then the f32 checks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    cfg = get(HYBRID)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(SEED + 6))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model {HYBRID}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.kv_heads} heads of {model.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, shared attention every "
+        f"{cfg.attn_every}, {model.ssm_cfg.n_heads} SSM heads of "
+        f"{model.ssm_cfg.head_dim}, state {model.ssm_cfg.state_dim}, chunk "
+        f"{model.ssm_cfg.chunk}, {cfg.dtype}; {n_params} parameters; built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 6)
+    B, S, n_new = HYBRID_BATCH, HYBRID_PROMPT, HYBRID_NEW
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to("cuda")
+    # Warm-up: the first prefill pays the allocator and the libraries.
+    model.prefill(tokens, model.init_cache(B, S + n_new))
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(B, S + n_new)
+    cache_bytes = sum(t.numel() * t.element_size() for t in
+                      (cache["kv"]["k"], cache["kv"]["v"], cache["conv"],
+                       cache["ssm"]))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens, cache)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = []
+    for pos in range(S, S + n_new):
+        nxt = logits.argmax(-1)
+        out.append(nxt)
+        logits, cache = model.decode(nxt, cache, pos)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches()
+    generated = torch.stack(out, 1).cpu()
+    if not torch.isfinite(logits).all() or logits.shape != (B, cfg.vocab):
+        raise AssertionError(f"hybrid logits shaped {tuple(logits.shape)} "
+                             f"or not finite")
+    if generated.shape != (B, n_new) or not bool(
+            ((generated >= 0) & (generated < cfg.vocab)).all()):
+        raise AssertionError(f"hybrid generated tokens {generated}")
+    expect = hybrid_expected(cfg)
+    for name, n in launches.items():
+        if launches[name] != expect.get(name, 0):
+            raise AssertionError(f"hybrid serving {name}: {launches[name]} "
+                                 f"launches, expected {expect.get(name, 0)} "
+                                 f"(one prefill)")
+    for name in ("ssd_scan", "flash_attention_fwd_dh112"):
+        kernel_rows[name]["launches"] = launches[name.replace("_dh112", "")]
+    prefill_s, decode_s = t1 - t0, t2 - t1
+    log(f"serving {HYBRID}: prefill of {B} x {S} tokens in "
+        f"{1e3 * prefill_s:.2f} ms, {B * S / prefill_s:.1f} prompt tokens/s; "
+        f"{n_new} decode steps in {decode_s:.3f} s, "
+        f"{1e3 * decode_s / n_new:.2f} ms per step, "
+        f"{B * n_new / decode_s:.2f} generated tokens/s {card.tag()}")
+    log(f"serving {HYBRID}: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (cache "
+        f"{cache_bytes / 1e9:.3f} GB) {card.tag()}")
+    log(f"serving {HYBRID}: launches {launches}; first generated tokens "
+        f"{generated[:, :8].tolist()}")
+    del cache, logits
+    profile_hybrid(card, model, tokens)
+    del model, tokens
+    free_card()
+    hybrid_f32_checks(rng)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch is not beside this script; run "
@@ -1277,7 +1691,8 @@ def main() -> int:
     kernel_rows = check_paged_kernels(card)
     kernel_rows["moe_grouped_ffn"] = check_moe_kernel(card)
     kernel_rows.update(check_flash_kernel(card))
-    for phase in (serve_dense, serve_moe, train_dense):
+    kernel_rows["ssd_scan"] = check_ssd_kernel(card)
+    for phase in (serve_dense, serve_moe, train_dense, serve_hybrid):
         phase(card, kernel_rows)
         if torch.backends.cuda.matmul.allow_tf32:
             raise AssertionError(f"{phase.__name__} turned TF32 matmuls on")

@@ -14,7 +14,7 @@ from typing import List
 
 from ..models.config import ModelConfig
 
-ARCHS: List[str] = ["llama3_2_1b", "granite_moe_3b_a800m"]
+ARCHS: List[str] = ["llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b"]
 
 
 def _module(arch: str):

@@ -63,13 +63,20 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
+def _stacked(key: str) -> bool:
+    """Is a top-level key of the JAX tree a layer stack (``layers``,
+    ``ssm_layers``, ...), whose leaves carry a leading layer axis?"""
+    return key == "layers" or key.endswith("_layers")
+
+
 def jax_path(name: str) -> Tuple[str, Optional[int]]:
     """The JAX tree path and layer index of a port state-dict name:
-    ``layers.3.attn.wq`` -> (``layers/attn/wq``, 3), ``embed.tok`` ->
-    (``embed/tok``, None)."""
+    ``layers.3.attn.wq`` -> (``layers/attn/wq``, 3),
+    ``ssm_layers.80.ssm.w_z`` -> (``ssm_layers/ssm/w_z``, 80), ``embed.tok``
+    -> (``embed/tok``, None)."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return "/".join(["layers"] + parts[2:]), int(parts[1])
+    if _stacked(parts[0]):
+        return "/".join([parts[0]] + parts[2:]), int(parts[1])
     return "/".join(parts), None
 
 
@@ -94,18 +101,19 @@ def _flatten(tree: Mapping, prefix: str = ""):
 
 def params_from_numpy(tree: Mapping, device: DeviceLike = None
                       ) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` from the JAX package's dense param tree
-    (numpy leaves).  Layer-stacked leaves ``layers/<...>`` of shape
-    ``(L, ...)`` split into ``layers.<i>.<...>``; every layout is kept.
-    Load with ``Model.load_state_dict``."""
+    """The port's ``state_dict`` from the JAX package's param tree (numpy
+    leaves).  Layer-stacked leaves (``layers/<...>``, ``ssm_layers/<...>``)
+    of shape ``(L, ...)`` split into ``<stack>.<i>.<...>``; unstacked
+    subtrees (``shared_attn``, ``embed``, ...) pass through; every layout is
+    kept.  Load with ``Model.load_state_dict``."""
     dev = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for name, leaf in _flatten(tree):
         t = _to_tensor(leaf, dev)
-        if name.startswith("layers."):
-            rest = name[len("layers."):]
+        stack, _, rest = name.partition(".")
+        if _stacked(stack):
             for i in range(t.shape[0]):
-                out[f"layers.{i}.{rest}"] = t[i].clone()
+                out[f"{stack}.{i}.{rest}"] = t[i].clone()
         else:
             out[name] = t
     return out
@@ -113,8 +121,8 @@ def params_from_numpy(tree: Mapping, device: DeviceLike = None
 
 def params_to_numpy(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of ``params_from_numpy``: the JAX package's nested tree
-    of numpy leaves from a port state dict, ``layers.<i>.<...>`` stacked
-    into ``layers/<...>`` of shape ``(L, ...)``.  bfloat16 leaves come out
+    of numpy leaves from a port state dict, ``<stack>.<i>.<...>`` stacked
+    into ``<stack>/<...>`` of shape ``(L, ...)``.  bfloat16 leaves come out
     as ``|V2`` (``to_numpy``)."""
     stacked: Dict[str, Dict[int, torch.Tensor]] = {}
     flat: Dict[str, torch.Tensor] = {}

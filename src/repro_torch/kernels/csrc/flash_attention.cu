@@ -522,6 +522,7 @@ cudaError_t fwd_dh(int dh, const void* q, const void* k, const void* v,
     case 16: return fwd<T, 16>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, window, scale, s);
     case 32: return fwd<T, 32>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, window, scale, s);
     case 64: return fwd<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, window, scale, s);
+    case 112: return fwd<T, 112>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, window, scale, s);
     case 128: return fwd<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
@@ -537,6 +538,7 @@ cudaError_t bwd_dh(int dh, const void* q, const void* k, const void* v,
     case 16: return bwd<T, 16>(q, k, v, out, dout, lse, dq, dk, dv, B, Sq, Sk, H, K, causal, window, scale, s);
     case 32: return bwd<T, 32>(q, k, v, out, dout, lse, dq, dk, dv, B, Sq, Sk, H, K, causal, window, scale, s);
     case 64: return bwd<T, 64>(q, k, v, out, dout, lse, dq, dk, dv, B, Sq, Sk, H, K, causal, window, scale, s);
+    case 112: return bwd<T, 112>(q, k, v, out, dout, lse, dq, dk, dv, B, Sq, Sk, H, K, causal, window, scale, s);
     case 128: return bwd<T, 128>(q, k, v, out, dout, lse, dq, dk, dv, B, Sq, Sk, H, K, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
@@ -546,7 +548,7 @@ cudaError_t bwd_dh(int dh, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; dh in {16, 32, 64, 128}; window <= 0
+// dtype: 0 = float32, 1 = bfloat16; dh in {16, 32, 64, 112, 128}; window <= 0
 // means no window (a window applies only under causal).  q (B,Sq,H,dh),
 // k/v (B,Sk,K,dh), out like q, lse (B,H,Sq) f32, all contiguous.
 // Returns cudaGetLastError() after the launch (0 = launched).

@@ -3,10 +3,11 @@
 The CUDA kernels replace the TPU kernel ``flash_attention_pallas``
 (``repro/kernels/flash_attention.py``): blockwise online-softmax attention
 with GQA, causal and sliding-window masks and ``q_offset = Sk - Sq``, in
-the model's ``(B, S, heads, dh)`` layout, scores in f32.  The JAX backward
-recomputes through the oracle; here the backward is two kernels as well
-(dK/dV per key tile, then dQ per query tile, no atomics, bitwise the same
-from run to run).  The source note in the ``.cu`` file states the design
+the model's ``(B, S, heads, dh)`` layout, scores in f32, dh 16, 32, 64,
+112 (zamba2's shared attention) or 128.  The JAX backward recomputes
+through the oracle; here the backward is two kernels as well (dK/dV per
+key tile, then dQ per query tile, no atomics, bitwise the same from run to
+run).  The source note in the ``.cu`` file states the design
 and the bound.
 
 ``flash_attention_fwd_cuda`` returns the output and the per-row f32
@@ -35,7 +36,7 @@ from . import _build
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd": 0}
 
-HEAD_DIMS = (16, 32, 64, 128)      # the instantiations in the .cu file
+HEAD_DIMS = (16, 32, 64, 112, 128)  # the instantiations in the .cu file
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -79,6 +79,18 @@ def moe_grouped_ffn(x, w_gate, w_up, w_down, group_sizes,
                                 group_experts)
 
 
+def ssd_scan(x, dt, A, Bm, Cm) -> torch.Tensor:
+    """The SSD (Mamba2) intra-chunk block, one chunk per row, no initial
+    state.  x: (Bc,Q,H,P); dt: (Bc,Q,H) f32; A: (H,) f32; Bm/Cm: (Bc,Q,N)
+    in x's dtype.  Returns y (Bc,Q,H,P) f32.  A CPU tensor takes
+    ``ref.ssd_reference``; a CUDA tensor the hand-written kernel."""
+    if x.device.type == "cpu":
+        return ref.ssd_reference(x, dt, A, Bm, Cm)
+    from .ssd_scan import ssd_scan_cuda
+
+    return ssd_scan_cuda(x, dt, A, Bm, Cm)
+
+
 def sample_tokens(logits, seeds, positions, temperature, top_k,
                   top_p) -> torch.Tensor:
     """Batched token sampling (the decode epilogue): temperature / top-k /

@@ -10,6 +10,8 @@ q ``(B, H, dh)``, pools ``(N, P, K, dh)``, page table ``(B, MP)`` int32
 with -1 for an unused slot, lengths ``(B,)``; scores, softmax and the
 weighted sum run in f32.  Grouped-expert FFN: x ``(T, d)`` sorted by group,
 weights ``(E, d, f)`` / ``(E, f, d)``, everything after the inputs in f32.
+SSD (Mamba2) intra-chunk block: x ``(B, Q, H, P)``, dt ``(B, Q, H)`` f32,
+A ``(H,)`` f32, B/C ``(B, Q, N)``; y ``(B, Q, H, P)`` f32.
 """
 
 from __future__ import annotations
@@ -152,3 +154,25 @@ def moe_grouped_ffn_reference(x, w_gate, w_up, w_down, group_sizes,
         out[start:start + n] = linear(h, w_down[e].to(F32))[:n]
         start += n
     return out.to(x.dtype)
+
+
+def ssd_reference(x, dt, A, Bm, Cm) -> torch.Tensor:
+    """Naive O(S^2) SSD (Mamba2) over the whole sequence, no initial state.
+
+    x: (B,S,H,P); dt: (B,S,H) f32; A: (H,) f32 negative; Bm/Cm: (B,S,N).
+    ``y[t] = sum_{j<=t} C_t . B_j * exp(sum_{j<i<=t} dt_i A) * dt_j x_j``,
+    in f32.  The exponent is masked to ``NEG_INF`` above the diagonal
+    before ``exp``, as the JAX oracle does: the unmasked upper triangle
+    overflows.  Returns y (B,S,H,P) f32."""
+    S = x.shape[1]
+    a = dt * A                                            # (B,S,H)
+    a_cum = torch.cumsum(a, dim=1)
+    diff = a_cum[:, :, None, :] - a_cum[:, None, :, :]    # (B,S,S,H)
+    causal = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                   device=x.device))
+    diff = torch.where(causal[None, :, :, None], diff,
+                       torch.full_like(diff, NEG_INF))
+    L = torch.exp(diff)
+    scores = torch.einsum("bin,bjn->bij", Cm.to(F32), Bm.to(F32))
+    xdt = x.to(F32) * dt[..., None]
+    return torch.einsum("bij,bijh,bjhp->bihp", scores, L, xdt)

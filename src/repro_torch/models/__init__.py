@@ -1,5 +1,5 @@
-"""Models of the port: config, layers, the MoE layer and the decoder
-(dense and MoE families)."""
+"""Models of the port: config, layers, the MoE layer, the Mamba2 block and
+the decoder (dense, MoE and hybrid families)."""
 
 from .config import ModelConfig
 from .transformer import Model

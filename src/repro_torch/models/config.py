@@ -1,8 +1,8 @@
 """ModelConfig — the port's copy of ``repro/models/config.py``, with a
 torch dtype.  Every field of the JAX config is kept, so a reference config
 converts field by field (``repro_torch.convert.config_from_reference``);
-the port serves the ``dense`` and ``moe`` families so far and says so
-where it is asked for another."""
+the port serves the ``dense``, ``moe`` and ``hybrid`` families so far and
+says so where it is asked for another."""
 
 from __future__ import annotations
 
@@ -52,8 +52,17 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
     def validate(self) -> "ModelConfig":
         if self.n_heads % max(self.kv_heads, 1):
             raise ValueError(f"{self.n_heads} query heads do not group over "
                              f"{self.kv_heads} KV heads")
+        if self.family == "hybrid" and not (self.ssm_state > 0
+                                            and self.attn_every > 0):
+            raise ValueError(f"a hybrid config needs ssm_state > 0 and "
+                             f"attn_every > 0, got {self.ssm_state} and "
+                             f"{self.attn_every}")
         return self

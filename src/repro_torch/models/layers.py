@@ -14,7 +14,9 @@ Training forms.  ``norm``, ``project``, ``attention``, ``swiglu``,
 ``rmsnorm``, the einsums, ``attention``, ``mlp``, ``cross_entropy``,
 ``chunked_lm_loss``) run on whole tensors and are differentiable;
 attention goes through ``kernels.ops.flash_attention`` (the hand-written
-forward and backward kernels on the card).
+forward and backward kernels on the card).  The hybrid family's
+contiguous-cache serving uses them too, with ``attention_decode`` for one
+token against a contiguous KV cache.
 """
 
 from __future__ import annotations
@@ -24,12 +26,21 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from ..tiles import ROW_TILE, linear, row_tiles
 
 F32 = torch.float32
+NEG_INF = -1e30
+
+
+def param(shape, device, dtype) -> nn.Parameter:
+    """An uninitialised parameter that needs no gradient: serving builds
+    no autograd graph, and training makes its own leaves."""
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
@@ -117,6 +128,38 @@ def attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     v = project(x, p["wv"])
     out = ops.flash_attention(q, k, v, causal=True, window=window)
     return project(out, p["wo"], k=2)
+
+
+def attention_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                     freqs: torch.Tensor,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token decode against a contiguous KV cache
+    (``repro/models/layers.py`` ``attention_decode``): x (B, 1, d);
+    cache_k/v (B, S_max, K, dh), written in place at ``pos`` with this
+    token's roped k and v.  Scores over the keys at positions <= pos (and
+    inside the window, if any) in f32, softmax, the product with V in f32,
+    a cast to x's dtype, then ``wo``.  Plain torch: the JAX package has no
+    kernel here.  Returns y (B, 1, d)."""
+    B, S_max, K, dh = cache_k.shape
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = rope(project(x, p["wq"]), positions, freqs)          # (B,1,H,dh)
+    k1 = rope(project(x, p["wk"]), positions, freqs)
+    v1 = project(x, p["wv"])
+    cache_k[:, pos] = k1[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v1[:, 0].to(cache_v.dtype)
+    H = q.shape[2]
+    qg = q.reshape(B, K, H // K, dh).to(F32)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.to(F32))
+    s = s * (1.0 / np.sqrt(dh))
+    k_pos = torch.arange(S_max, device=x.device)
+    allowed = k_pos <= pos
+    if window is not None:
+        allowed &= (pos - k_pos) < window
+    s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", w, cache_v.to(F32)).to(x.dtype)
+    return project(o.reshape(B, 1, H, dh), p["wo"], k=2)
 
 
 def swiglu(p: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

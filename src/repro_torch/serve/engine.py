@@ -247,6 +247,12 @@ class Engine:
 
     def __init__(self, model: Model, cfg: ServeConfig,
                  hw: Optional[HardwareModel] = None):
+        if model.cfg.family not in ("dense", "moe"):
+            raise ValueError(
+                f"paged engine serves decoder LMs (the dense and moe "
+                f"families), not {model.cfg.family!r}: the hybrid family "
+                f"serves through Model.init_cache/prefill/decode, as in the "
+                f"JAX package")
         for knob, what in _NOT_PORTED.items():
             if getattr(cfg, knob):
                 raise NotImplementedError(

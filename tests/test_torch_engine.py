@@ -365,9 +365,15 @@ def test_out_of_slice_options_raise(port_model):
         Engine(port_model, ServeConfig(expert_offchip=True))
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         LLM(port_model, replicas=2)
-    hybrid = config_from_reference(get_smoke("zamba2_7b"))
+    xlstm = config_from_reference(get_smoke("xlstm_350m"))
     with pytest.raises(NotImplementedError, match="queue A item 10"):
-        Model(hybrid, device="cpu")
+        Model(xlstm, device="cpu")
+    # The hybrid family is a Model now, but the paged engine serves decoder
+    # LMs only, as the JAX engine asserts.
+    hybrid = Model(config_from_reference(get_smoke("zamba2_7b")),
+                   device="cpu")
+    with pytest.raises(ValueError, match="paged engine serves decoder LMs"):
+        Engine(hybrid, ServeConfig())
     capacity = dataclasses.replace(configs.get_smoke(MOE),
                                    moe_dispatch="capacity")
     with pytest.raises(NotImplementedError, match="queue A item 11"):

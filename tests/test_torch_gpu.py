@@ -9,6 +9,7 @@ import torch
 from repro_torch.kernels import moe_gemm as mg
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_scan as ss
 
 pytestmark = pytest.mark.gpu
 
@@ -235,6 +236,8 @@ FLASH_CASES = [
     (1, 70, 90, 4, 2, 64, False, None),       # non-causal, Sq != Sk
     (1, 50, 50, 2, 1, 16, True, None),        # dh 16 (the smoke configs)
     (1, 66, 66, 4, 2, 32, True, 9),           # dh 32 with a window
+    (1, 130, 130, 4, 4, 112, True, None),     # dh 112 (zamba2's attention)
+    (2, 96, 160, 8, 4, 112, False, None),     # dh 112, non-causal, Sq < Sk
 ]
 
 
@@ -294,6 +297,66 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention_fwd_cuda(q, k[:, :, :1].expand(
             1, 16, 3, 64).contiguous(), v[:, :, :1].expand(
             1, 16, 3, 64).contiguous())
+
+
+# ----------------------------------------------------------------- SSD scan
+def ssd_inputs(dev, dtype, Bc, Q, H, P, N, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((Bc, Q, H, P), generator=gen, device=dev).to(dtype)
+    dt = 0.001 + 0.099 * torch.rand((Bc, Q, H), generator=gen, device=dev)
+    A = -(0.5 + 1.5 * torch.rand((H,), generator=gen, device=dev))
+    bm = torch.randn((Bc, Q, N), generator=gen, device=dev).to(dtype)
+    cm = torch.randn((Bc, Q, N), generator=gen, device=dev).to(dtype)
+    return x, dt, A, bm, cm
+
+
+# The JAX package's SSD sweep (tests/test_kernels.py), chunks shorter than
+# a 64-row tile and ragged ones, and the zamba2 prefill shape.
+SSD_CASES = [(2, 64, 8, 32, 16), (1, 128, 4, 64, 64), (2, 128, 16, 64, 64),
+             (1, 64, 2, 64, 32), (3, 8, 6, 32, 16), (2, 100, 5, 64, 32),
+             (1, 256, 4, 64, 64), (32, 128, 112, 64, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bc,Q,H,P,N", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda, dtype, Bc, Q, H, P, N):
+    """Within 1e-4 of max|y| in both dtypes: bf16 inputs load exactly as
+    f32 and both versions compute in f32, summing in other orders (the JAX
+    package holds its kernel to its model chunk at 1e-4).  Two launches
+    agree bit for bit."""
+    args = ssd_inputs(cuda, dtype, Bc, Q, H, P, N)
+    before = ss.LAUNCHES["ssd_scan"]
+    got = ops.ssd_scan(*args)
+    again = ss.ssd_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == before + 2
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    want = ref.ssd_reference(*args)
+    scale = float(want.abs().max()) + 1e-6
+    torch.testing.assert_close(got / scale, want / scale, atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, A, bm, cm = ssd_inputs(cuda, torch.float32, 2, 64, 4, 32, 16)
+    with pytest.raises(ValueError, match="head_dim"):
+        ss.ssd_scan_cuda(torch.zeros((2, 64, 4, 48), device=cuda), dt, A,
+                         bm, cm)
+    with pytest.raises(ValueError, match="chunk"):
+        z = ssd_inputs(cuda, torch.float32, 1, 300, 4, 32, 16)
+        ss.ssd_scan_cuda(*z)
+    with pytest.raises(ValueError, match="float32 or"):
+        ss.ssd_scan_cuda(x.half(), dt, A, bm.half(), cm.half())
+    with pytest.raises(ValueError, match="expected torch.bfloat16"):
+        ss.ssd_scan_cuda(x.bfloat16(), dt, A, bm, cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssd_scan_cuda(x.transpose(2, 3).contiguous().transpose(2, 3),
+                         dt, A, bm, cm)
+    with pytest.raises(ValueError, match="is on cpu"):
+        ss.ssd_scan_cuda(x, dt.cpu(), A, bm, cm)
+    with pytest.raises(ValueError, match="do not match"):
+        ss.ssd_scan_cuda(x, dt, A[:2].contiguous(), bm, cm)
 
 
 # ------------------------------------------------------ training placement

@@ -138,6 +138,38 @@ def test_training_entry_points_import_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.ssm",
+                                    "repro_torch.kernels.ssd_scan",
+                                    "repro_torch.configs.zamba2_7b"])
+def test_hybrid_modules_import_without_jax(module):
+    """The hybrid slice's modules exist and import with JAX and the JAX
+    package made unimportable (the static check above covers their source
+    too)."""
+    assert os.path.exists(os.path.join(ROOT, "src", *module.split(".")) +
+                          ".py")
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            f"import {module}; print('ok')")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_ssd_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels import ssd_scan as ss
+
+    x = torch.zeros((2, 8, 4, 32))
+    dt = torch.zeros((2, 8, 4))
+    A = torch.zeros((4,))
+    bm = torch.zeros((2, 8, 16))
+    before = dict(ss.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ss.ssd_scan_cuda(x, dt, A, bm, bm)
+    assert ss.LAUNCHES == before
+
+
 def test_training_launcher_needs_the_card_or_an_explicit_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
