@@ -13,8 +13,14 @@ Phases, each of which raises on failure:
    version, its bound and a library yardstick where one exists.  Paged
    attention: bf16 and f32, decode and prefill, with and without a window,
    at a wide sweep and at the dense and the MoE path's own shapes (32 and
-   24 query heads over 8), prefill rows bitwise equal to decode rows, beside
-   ``scaled_dot_product_attention`` over K/V gathered contiguously.  The
+   24 query heads over 8), prefill rows bitwise equal to decode rows; the
+   per-row contract at both serving shapes, bf16 and f32: every prefill
+   row equal bit for bit to its decode in batches of 4 and alone (B=1) at
+   the 16-token page and 64-key block edges, with no window, a window of
+   200 and one of 37 (ending mid-page and mid-block), and with a -1 slot in
+   the middle of the table; timed beside
+   ``scaled_dot_product_attention`` over K/V gathered contiguously (CUDA
+   events, and the device's own time by the profiler).  The
    grouped-expert FFN: decode (32 rows) and prefill (2048 rows) at
    granite's widths, empty groups, a ``group_experts`` map with more groups
    than experts and a slot remap, rows past the segments zero, and the
@@ -37,15 +43,17 @@ Phases, each of which raises on failure:
    prompt tokens, KV pages migrating between HBM and pinned host memory
    under the guidance runtime.  The launch counters are zeroed just before
    and read just after.  Then a synchronised breakdown and a profiler pass
-   of the same workload, one-shot prefill == chunked prefill on a
-   100-token prompt, and an f32 copy cut to 2 layers against a plain
-   contiguous forward pass.
+   of the same workload (the paged kernels' share of the device's time),
+   one-shot prefill == chunked prefill on a 100-token prompt and on a
+   300-token one (across the kernel's key-block edges), and an f32 copy
+   cut to 2 layers against a plain contiguous forward pass.
 5. MoE serving, after the dense model is freed:
    ``LLM.from_arch("granite_moe_3b_a800m", smoke=False).generate`` at the
    published widths (32 layers, 40 experts, top-8) in bf16: 8 requests of
    256 prompt tokens with pages migrating both ways, every expert FFN
    through the grouped-expert kernel (counters zeroed just before, read
-   just after); one-shot == chunked on a 64-token prompt at all 32 layers;
+   just after); one-shot == chunked on a 64-token and a 300-token prompt
+   at all 32 layers;
    an f32 copy cut to 2 layers against a plain forward pass with plain
    routing and combine.
 6. Dense training, after serving is freed: ``Trainer`` on
@@ -74,8 +82,17 @@ Phases, each of which raises on failure:
    on a 256-token prompt (greedy tokens equal, logits within 2e-3).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
-repository beside it, the script exits non-zero and prints no result.
+``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --serving-ab PARENT_TREE
+
+serves the workloads of phases 4 and 5 with the port of another checkout
+(PARENT_TREE, e.g. the parent commit unpacked with ``git archive``) and
+with this one, in turns on the same card: the way to compare serving
+speeds, which vary with the host from call to call.
+
+Without a CUDA device, or without the repository beside it, the script
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -171,6 +188,31 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def dev_us(e) -> float:
+    """A profiler event's own device microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of what ``fn`` launches, by
+    ``torch.profiler`` over ``iters`` calls after 3 warm-ups: the kernels'
+    own time, without the host's time to launch them (which ``time_ms``
+    includes when the host is the slower of the two)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(dev_us(e) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / iters / 1e3
+
+
 # ----------------------------------------------------------------- kernels
 def paged_case(gen, rows, H, K, dh, P, MP, N, lengths, shared_table, dtype):
     """Random q and pools; a table of shuffled slots per row (or one table
@@ -241,6 +283,51 @@ def sdpa_inputs(q, kp, vp, table, lengths, prefill):
     mask = (pos < lengths[:, None].long())[:, None, None, :]
     return (q[:, :, None, :], k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), mask, False)
+
+
+# Rows of the per-row contract checked one by one at decode B=1: the key
+# block's edges (64), the page's (16), the window's (200, 37) and the ends.
+CONTRACT_ROWS = (1, 2, 15, 16, 17, 37, 38, 63, 64, 65, 127, 128, 129, 200,
+                 201, 255, 256)
+
+
+def check_paged_contract(gen, dtype, H, K, MP, N, S, window, hole) -> None:
+    """The per-row contract at a serving shape: every row of an S-row
+    prefill equals, bit for bit, the decode of the same query, table and
+    length, in batches of 4 (the serving ``max_batch``; row t at slot t % 4)
+    and alone (B=1) on the block, page and window edges.  ``hole`` puts a -1
+    slot in the middle of the table; a window of 37 ends mid-page and
+    mid-block.  (The kernel splits no row's keys, so there is no split edge
+    to cross.)"""
+    import torch
+
+    from repro_torch.kernels import paged_attention as pa
+
+    dh, P = 64, 16
+    q, kp, vp, table, lens = paged_case(gen, S, H, K, dh, P, MP, N,
+                                        list(range(1, S + 1)), True, dtype)
+    if hole:
+        table[-(-S // P) // 2] = -1
+    pre = pa.paged_prefill_cuda(q, kp, vp, table, lens, window=window)
+    tables = table[None].expand(4, -1).contiguous()
+    label = (f"{H}/{K} heads S={S} {dtype} window={window} "
+             f"hole={hole}")
+    for start in range(0, S, 4):
+        dec = pa.paged_attention_cuda(q[start:start + 4], kp, vp,
+                                      tables[:min(4, S - start)],
+                                      lens[start:start + 4], window=window)
+        if not torch.equal(dec, pre[start:start + 4]):
+            raise AssertionError(f"contract {label}: decode B=4 rows "
+                                 f"{start}..{start + 3} differ from prefill")
+    for t in (r - 1 for r in CONTRACT_ROWS if r <= S):
+        dec = pa.paged_attention_cuda(q[t:t + 1], kp, vp, tables[:1],
+                                      lens[t:t + 1], window=window)
+        if not torch.equal(dec[0], pre[t]):
+            raise AssertionError(f"contract {label}: decode B=1 of row {t} "
+                                 f"(length {t + 1}) differs from prefill")
+    torch.cuda.synchronize()
+    log(f"contract {label}: {S} prefill rows == decode rows bitwise (B=4 "
+        f"all rows, B=1 at lengths {[r for r in CONTRACT_ROWS if r <= S]})")
 
 
 def check_paged_kernels(card) -> dict:
@@ -326,6 +413,15 @@ def check_paged_kernels(card) -> dict:
                     f"window={window}: max abs err {err:.3e} "
                     f"(atol=rtol={tol})")
 
+    # The per-row contract at the two serving shapes (dense: 32/8 heads,
+    # MP 64, N 160, S 512; MoE: 24/8, MP 32, N 80, S 256).
+    for dtype in (torch.bfloat16, torch.float32):
+        for H, MP, N, S in ((32, 64, 160, 512), (24, 32, 80, 256)):
+            for window in (None, 200, 37):
+                for hole in (False, True):
+                    check_paged_contract(gen, dtype, H, 8, MP, N, S, window,
+                                         hole)
+
     rows_out = {}
     for label, prefill, rows, H, K, MP, N, lengths in cases:
         q, kp, vp, table, lens = paged_case(
@@ -353,6 +449,9 @@ def check_paged_kernels(card) -> dict:
         log(f"time {name} {label} bf16: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} "
             f"ms ({b_by}) {card.tag()}")
+        log(f"device time {name} {label} bf16 (profiler, launch excluded): "
+            f"kernel {device_ms(kern):.4f} ms, sdpa {device_ms(lib):.4f} ms "
+            f"{card.tag()}")
         # The result line keeps the dense path's shapes, as in slice 1;
         # the MoE path's times are in the log above.
         if label.endswith("dense serving"):
@@ -941,10 +1040,6 @@ def where_time_goes(card, arch, cfg, prompts, params, main_wall) -> None:
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     busy = sum(dev_us(e) for e in events) / 1e6
     log(f"device {arch}: kernels and copies busy {busy:.3f} s, "
         f"{100 * busy / main_wall:.1f}% of the main run's {main_wall:.3f} s: "
@@ -952,6 +1047,11 @@ def where_time_goes(card, arch, cfg, prompts, params, main_wall) -> None:
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         log(f"  device {dev_us(e) / 1e3:10.2f} ms  calls {e.count:7d}  "
             f"{e.key[:90]}")
+    paged = [e for e in events if "paged_attention" in e.key]
+    paged_s = sum(dev_us(e) for e in paged) / 1e6
+    log(f"device {arch}: paged attention kernels {paged_s:.4f} s over "
+        f"{sum(e.count for e in paged)} launches, {100 * paged_s / busy:.1f}% "
+        f"of the busy time {card.tag()}")
     del llm
     free_card()
 
@@ -1059,7 +1159,8 @@ def main_run(card, arch, cfg, n_req, n_prompt, n_new, rng):
 def one_shot_equals_chunked(model, prompt) -> None:
     """One-shot == chunked prefill at full width, bitwise in the stream and
     in every decode step's logits: the projections' row tiles and the
-    kernels' per-row orders make them equal."""
+    kernels' per-row orders make them equal.  32 HBM pages hold the
+    300-token prompt and its 8 new tokens (20 pages)."""
     import numpy as np
 
     from repro_torch.serve import Engine, ServeConfig
@@ -1067,7 +1168,7 @@ def one_shot_equals_chunked(model, prompt) -> None:
     streams = {}
     for mode in ("one_shot", "chunked"):
         eng = Engine(model, ServeConfig(max_batch=4, page_size=16,
-                                        hbm_pages=16, host_pages=16,
+                                        hbm_pages=32, host_pages=16,
                                         prefill=mode, keep_logits=True))
         eng.add_request(0, prompt, max_new=8)
         rows = []
@@ -1081,6 +1182,15 @@ def one_shot_equals_chunked(model, prompt) -> None:
         raise AssertionError(f"{model.cfg.arch}: one-shot {a} != chunked {b}")
     log(f"one-shot == chunked prefill ({model.cfg.arch}, "
         f"{model.cfg.n_layers} layers, {len(prompt)}-token prompt): {a}")
+
+
+def long_prompt(vocab: int) -> list:
+    """300 tokens: rows that cross the paged kernel's 64-key block edges
+    (and its 16-token pages) several times, from a generator of its own so
+    that the other checks keep their prompts."""
+    import numpy as np
+
+    return np.random.default_rng(SEED + 7).integers(0, vocab, 300).tolist()
 
 
 def f32_check(arch, rng) -> None:
@@ -1126,46 +1236,58 @@ def f32_check(arch, rng) -> None:
     free_card()
 
 
-def serve_dense(card, kernel_rows) -> None:
-    """Phase 4: the dense main path, its breakdown and its checks."""
+# The serving workloads of phases 4 and 5: (ServeConfig fields, requests,
+# prompt tokens, new tokens, seed of the prompts).  The MoE page is 1 MiB
+# (32 layers of K and V); a request needs 17 pages, so 4 requests fit the
+# 79 usable HBM slots and 8 do not.
+SERVING = {
+    DENSE: (dict(max_batch=4, page_size=16, max_pages_per_seq=64,
+                 hbm_pages=160, host_pages=512, policy="gdt",
+                 interval_steps=4), 8, 512, 32, SEED),
+    MOE: (dict(max_batch=4, page_size=16, max_pages_per_seq=32,
+               hbm_pages=80, host_pages=256, policy="gdt",
+               interval_steps=4), 8, 256, 16, SEED + 3),
+}
+
+
+def serving_run(card, arch):
+    """``main_run`` on the serving workload of ``arch``.  Returns
+    (llm, cfg, prompts, params, wall, launches, rng)."""
     import numpy as np
 
     from repro_torch.serve import ServeConfig
 
-    cfg = ServeConfig(max_batch=4, page_size=16, max_pages_per_seq=64,
-                      hbm_pages=160, host_pages=512, policy="gdt",
-                      interval_steps=4)
-    rng = np.random.default_rng(SEED)
-    llm, prompts, params, wall, launches = main_run(card, DENSE, cfg, 8, 512,
-                                                    32, rng)
+    fields, n_req, n_prompt, n_new, seed = SERVING[arch]
+    cfg = ServeConfig(**fields)
+    rng = np.random.default_rng(seed)
+    llm, prompts, params, wall, launches = main_run(card, arch, cfg, n_req,
+                                                    n_prompt, n_new, rng)
+    return llm, cfg, prompts, params, wall, launches, rng
+
+
+def serve_dense(card, kernel_rows) -> None:
+    """Phase 4: the dense main path, its breakdown and its checks."""
+    llm, cfg, prompts, params, wall, launches, rng = serving_run(card, DENSE)
     for name in ("paged_attention", "paged_prefill"):
         kernel_rows[name]["launches"] = launches[name]
     where_time_goes(card, DENSE, cfg, prompts, params, wall)
     model = llm.engine.model
     one_shot_equals_chunked(model,
                             rng.integers(0, model.cfg.vocab, 100).tolist())
+    one_shot_equals_chunked(model, long_prompt(model.cfg.vocab))
     del llm, model
     free_card()
     f32_check(DENSE, rng)
 
 
 def serve_moe(card, kernel_rows) -> None:
-    """Phase 5: the MoE main path at the published widths and its checks.
-    A page is 1 MiB (32 layers of K and V); a request needs 17 pages, so
-    4 requests fit the 79 usable HBM slots and 8 do not."""
-    import numpy as np
-
-    from repro_torch.serve import ServeConfig
-
-    cfg = ServeConfig(max_batch=4, page_size=16, max_pages_per_seq=32,
-                      hbm_pages=80, host_pages=256, policy="gdt",
-                      interval_steps=4)
-    rng = np.random.default_rng(SEED + 3)
-    llm, _, _, _, launches = main_run(card, MOE, cfg, 8, 256, 16, rng)
+    """Phase 5: the MoE main path at the published widths and its checks."""
+    llm, _, _, _, _, launches, rng = serving_run(card, MOE)
     kernel_rows["moe_grouped_ffn"]["launches"] = launches["moe_grouped_ffn"]
     model = llm.engine.model
     one_shot_equals_chunked(model,
                             rng.integers(0, model.cfg.vocab, 64).tolist())
+    one_shot_equals_chunked(model, long_prompt(model.cfg.vocab))
     del llm, model
     free_card()
     f32_check(MOE, rng)
@@ -1351,11 +1473,6 @@ def profile_training(card, trainer, batches) -> None:
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
     busy = sum(dev_us(e) for e in events) / 1e6
     log(f"device training: kernels and copies busy {busy:.3f} s of "
         f"{wall:.3f} s for {len(batches)} profiled steps: idle share "
@@ -1449,10 +1566,6 @@ def profile_hybrid(card, model, tokens, n_decode: int = 4) -> None:
     kernels, so the decode's idle share is an upper bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
 
     S = tokens.shape[1]
     cache = model.init_cache(tokens.shape[0], S + n_decode)
@@ -1660,7 +1773,56 @@ def serve_hybrid(card, kernel_rows) -> None:
     hybrid_f32_checks(rng)
 
 
+# ------------------------------------------------------------ serving A/B
+AB_ROUNDS = 5
+
+
+def serving_ab(parent: str) -> int:
+    """``python3 chip_smoke.py --serving-ab PARENT``: the serving workloads
+    of phases 4 and 5 (``SERVING``) served by the port under PARENT/src and
+    by this tree's, in turns (parent, this, this, parent), one process each
+    on the same card.  The host's speed differs from one machine to the
+    next and from run to run, so two versions compare only inside one such
+    call."""
+    for tree in (parent, HERE, HERE, parent):
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--serving-child", os.path.abspath(tree)],
+                       check=True, timeout=900)
+    return 0
+
+
+def serving_child(tree: str) -> int:
+    """One turn of ``serving_ab``: a warm-up round (the first run of each
+    workload in a process is slow: cold library and kernel paths), then
+    AB_ROUNDS rounds of the dense and the MoE workload, each on a fresh
+    ``LLM`` (its build not timed), served by the port under TREE/src."""
+    sys.path.insert(0, os.path.join(tree, "src"))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = Card()
+    label = "this tree" if tree == HERE else "parent"
+    for i, arch in enumerate((DENSE, MOE) * (1 + AB_ROUNDS)):
+        llm, _, _, _, wall, _, _ = serving_run(card, arch)
+        _, n_req, _, n_new, _ = SERVING[arch]
+        log(f"ab {label} ({tree}) {arch}{' warm-up' if i < 2 else ''}: "
+            f"{n_req * n_new / wall:.2f} generated tokens/s, {wall:.3f} s "
+            f"{card.tag()}")
+        del llm
+        free_card()
+    return 0
+
+
 def main() -> int:
+    args = sys.argv[1:]
+    if len(args) == 2 and args[0] == "--serving-child":
+        return serving_child(os.path.abspath(args[1]))
+    if len(args) == 2 and args[0] == "--serving-ab":
+        return serving_ab(args[1])
+    if args:
+        print("usage: python3 chip_smoke.py [--serving-ab PARENT_TREE]",
+              file=sys.stderr)
+        return 2
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke.py: src/repro_torch is not beside this script; run "
               "it from the repository root", file=sys.stderr)

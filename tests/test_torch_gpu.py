@@ -94,6 +94,69 @@ def test_paged_prefill_kernel_matches_plain_and_decode(cuda, dtype, window):
     assert torch.equal(dec, got), "prefill rows == decode rows, bitwise"
 
 
+def contract_case(dev, dtype, H, K, dh, S, pad, hole, seed):
+    """S prompt rows (causal lengths 1..S, so BK-1, BK and BK+1 among
+    them) and ``pad`` zero-length rows over one shuffled table of 16-token
+    pages; with ``hole`` a -1 slot in the middle of the table."""
+    P, MP, N = 16, 24, 64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((S + pad, H, dh), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((N, P, K, dh), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((N, P, K, dh), generator=gen, device=dev).to(dtype)
+    table = torch.full((MP,), -1, dtype=torch.int32, device=dev)
+    n_pages = -(-S // P)
+    table[:n_pages] = torch.randperm(N, generator=gen, device=dev)[
+        :n_pages].to(torch.int32)
+    if hole:
+        table[n_pages // 2] = -1
+    lengths = torch.cat([torch.arange(1, S + 1), torch.zeros(pad)]).to(
+        device=dev, dtype=torch.int32)
+    return q, kp, vp, table, lengths
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,K", [(24, 8), (32, 8)])       # G = 3 and 4
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("window", [None, 37])   # ends mid-page, mid-block
+@pytest.mark.parametrize("hole", [False, True])
+def test_prefill_rows_bitwise_equal_decode_rows(cuda, dtype, H, K, dh,
+                                                window, hole):
+    """The per-row contract: every prefill row equals the decode of the
+    same query, table and length bit for bit, whatever the decode batch
+    (B = 1, 4, 32) and wherever the row sits in it.  S = 150 is not a
+    multiple of the prefill tile (16 tokens at G = 4, 21 at G = 3).  Also
+    the kernel against the plain version, and two launches bitwise."""
+    S, pad = 150, 6
+    q, kp, vp, table, lengths = contract_case(cuda, dtype, H, K, dh, S, pad,
+                                              hole, seed=dh + H + 1)
+    pre = pa.paged_prefill_cuda(q, kp, vp, table, lengths, window=window)
+    again = pa.paged_prefill_cuda(q, kp, vp, table, lengths, window=window)
+    want = ref.paged_prefill_reference(q, kp, vp, table, lengths,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(pre, again), "two launches differ"
+    torch.testing.assert_close(pre.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert torch.all(pre[S:] == 0), "padded rows are zeros"
+    rows = S + pad
+    MP = table.shape[0]
+    for B in (1, 4, 32):
+        for start in range(0, rows, B):
+            idx = list(range(start, min(start + B, rows)))
+            # Place the rows from the end of the batch backwards, the other
+            # slots zero-length rows, as the engine pads its batch.
+            qq = torch.zeros((B, H, dh), dtype=dtype, device=cuda)
+            tb = torch.full((B, MP), -1, dtype=torch.int32, device=cuda)
+            ll = torch.zeros((B,), dtype=torch.int32, device=cuda)
+            slots = list(range(B - 1, B - 1 - len(idx), -1))
+            for b, t in zip(slots, idx):
+                qq[b], tb[b], ll[b] = q[t], table, lengths[t]
+            dec = pa.paged_attention_cuda(qq, kp, vp, tb, ll, window=window)
+            for b, t in zip(slots, idx):
+                assert torch.equal(dec[b], pre[t]), \
+                    f"B={B}: row {t} (length {int(lengths[t])}) differs"
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, kp, vp, table, lengths = case(cuda, torch.float32, 2, 4, 4, 64, 8, 8,
                                      3)

@@ -168,3 +168,70 @@ def test_plain_versions_are_the_ops_on_cpu():
     args = [torch.from_numpy(a) for a in (q, kp, vp, table, lengths)]
     assert torch.equal(ops.paged_attention(*args),
                        ref.paged_attention_reference(*args))
+
+
+# ------------------------------------------------ the kernel's launch plan
+# ``plan`` is plain Python (it runs here, where the CUDA kernel cannot):
+# the route, tile, key block, split and shared memory of every call.
+from repro_torch.configs import ARCHS, get  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+
+PLAN_DTYPES = [torch.bfloat16, torch.float32]
+
+
+def port_heads():
+    """(H, K, dh) of each config the port carries (zamba2's shared
+    attention included, as if it were ever paged)."""
+    return [(c.n_heads, c.kv_heads, c.resolved_head_dim)
+            for c in (get(a) for a in ARCHS)]
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES)
+@pytest.mark.parametrize("prefill", [False, True])
+@pytest.mark.parametrize("H,K,dh", [(32, 8, 64), (24, 8, 64), (32, 32, 112),
+                                    (8, 2, 128), (4, 4, 16)])
+def test_plan_does_not_depend_on_rows_or_mp(H, K, dh, prefill, dtype):
+    """The tile, the key block and the shared memory come from the heads,
+    the head dim, the page size and the dtype: the launch's argument block
+    carries the same plan whatever the number of rows (B or S) or MP, so a
+    row's arithmetic is the same whatever the call."""
+    p = pa.plan(H, K, dh, 16, dtype, prefill)
+    for rows in (1, 3, 16, 21, 64, 150, 512, 2049):
+        for MP in (1, 7, 32, 64, 128):
+            a = pa._args(rows, H, K, dh, 16, MP, 0 if prefill else MP, 0,
+                         dtype, prefill)
+            assert (a.rows, a.MP) == (rows, MP)
+            assert (a.tokens_per_cta, a.warps, a.smem_bytes) == (
+                p.tokens_per_cta, p.warps, p.smem_bytes)
+    assert p.route == ("mma" if dtype == torch.bfloat16 else "simt")
+    if not prefill:
+        assert p.tokens_per_cta == 1         # decode rows own their tables
+    if dtype == torch.bfloat16:
+        assert p.block_keys == 64
+        assert p.tokens_per_cta * (H // K) <= p.warps * 16
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES)
+@pytest.mark.parametrize("P", [4, 8, 16, 32, 64])
+def test_plan_smem_fits_every_port_config(P, dtype):
+    for H, K, dh in port_heads():
+        for prefill in (False, True):
+            p = pa.plan(H, K, dh, P, dtype, prefill)
+            assert 0 < p.smem_bytes <= pa.SMEM_LIMIT == 227 * 1024
+
+
+def test_plan_raises_on_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="shared memory"):
+        pa.plan(256, 1, 128, 64, torch.float32, False)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        pa.plan(256, 1, 64, 16, torch.bfloat16, True)
+    with pytest.raises(ValueError, match="head_dim up to"):
+        pa.plan(8, 8, 256, 16, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pa.plan(8, 8, 72, 16, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="divides 64"):
+        pa.plan(8, 8, 64, 24, torch.bfloat16, False)
+    with pytest.raises(ValueError, match="do not group"):
+        pa.plan(6, 4, 64, 16, torch.float32, False)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pa.plan(8, 8, 64, 16, torch.float16, False)
