@@ -29,10 +29,13 @@ Phases, each of which raises on failure:
    Flash attention, forward and backward: bf16 and f32 at the training
    shape (B=2, S=2048, 32/8 heads, dh 64, causal), with a window of 256,
    Sq < Sk, non-causal, dh 128, S=1000 and Sq > Sk; dq, dk, dv against
-   autograd through the plain version; two backward runs bitwise equal;
-   timed beside ``scaled_dot_product_attention`` (forward, backward, and
-   both); and the forward at the hybrid prefill's dh 112 (B=4, S=1024,
-   32/32 heads), checked with the others and timed beside SDPA.  The SSD
+   autograd through the plain version; two backward runs bitwise equal at
+   the training shape and at dh 112; the route each dtype takes (bf16 on
+   tensor cores, f32 on SIMT); timed beside
+   ``scaled_dot_product_attention`` (forward, backward, and both), by CUDA
+   events and by the profiler's device time; and the forward at the
+   hybrid prefill's dh 112 (B=4, S=1024, 32/32 heads), checked with the
+   others and timed beside SDPA.  The SSD
    intra-chunk kernel: bf16 and f32 against ``ref.ssd_reference`` at the
    JAX package's sweep, short and ragged chunks and the hybrid prefill's
    (32 chunks of 128, 112 heads of 64, state 64), within 1e-4 of max|y|,
@@ -67,7 +70,8 @@ Phases, each of which raises on failure:
    losses equal the unguided ones to rtol 1e-5.  Then an f32 copy cut to 2
    layers: the kernel path's loss and gradients against a plain path with
    attention through ``mha_reference``, to 1e-4.  Two more unguided steps
-   run under the profiler for the device's time by kernel.
+   run under the profiler for the device's time by kernel and the flash
+   kernels' share of it.
 7. Hybrid serving, after training is freed: ``zamba2_7b`` at its
    published widths (81 layers, d_model 3584, 32/32 heads of 112, 112 SSM
    heads of 64, state 64; nothing cut) in bf16 with random weights:
@@ -665,6 +669,12 @@ def check_flash_kernel(card) -> dict:
     worst = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
+        for dh in sorted({c[6] for c in cases}):
+            p = fa.plan(*train[:5], dh, dtype)
+            log(f"flash route {dtype_name} dh={dh}: {p.route} (forward "
+                f"{p.rows_per_cta} rows over {p.warps} warps, dK/dV steps "
+                f"of {p.bwd_rows} rows, {p.stages} stage(s), shared "
+                f"{p.fwd_smem}/{p.dkdv_smem}/{p.dq_smem} bytes)")
         for label, B, Sq, Sk, H, K, dh, causal, window in cases:
             q, k, v, do = case(B, Sq, Sk, H, K, dh, dtype)
             out, lse = fa.flash_attention_fwd_cuda(q, k, v, causal, window)
@@ -699,12 +709,16 @@ def check_flash_kernel(card) -> dict:
             if label == "training shape" and dtype == torch.bfloat16:
                 worst["flash_attention_fwd"] = err
                 worst["flash_attention_bwd"] = max(errs)
-                again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+            if dtype == torch.bfloat16 and (
+                    label == "training shape" or label.startswith("dh=112")):
+                again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                    causal, window)
                 if not all(torch.equal(a, b)
                            for a, b in zip(again, (dq, dk, dv))):
-                    raise AssertionError("flash backward: two runs differ")
-                log("kernel check flash_attention_bwd training shape "
-                    "bfloat16: two backward runs bitwise equal")
+                    raise AssertionError(f"flash backward {label}: two runs "
+                                         f"differ")
+                log(f"kernel check flash_attention_bwd {label} bfloat16: "
+                    f"two backward runs bitwise equal")
             log(f"kernel check flash_attention {label} {dtype_name}: "
                 f"forward max abs err {err:.3e} (atol=rtol="
                 f"{TOL[dtype_name]}), dq/dk/dv "
@@ -750,6 +764,18 @@ def check_flash_kernel(card) -> dict:
                 sdpa_out, (qs, ks, vs), dos, retain_graph=True))),
     }
     both_ms = time_ms(sdpa_both)
+    # The device's own time by the profiler: SDPA's backward event time
+    # moves with the host from call to call.
+    dev = {
+        "flash_attention_fwd": (
+            device_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v)),
+            device_ms(sdpa_fwd)),
+        "flash_attention_bwd": (
+            device_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                          do)),
+            device_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qs, ks, vs), dos, retain_graph=True))),
+    }
     rows = {}
     for name, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = flash_bound_ms(B, S, S, H, K, dh, True, 2,
@@ -757,6 +783,9 @@ def check_flash_kernel(card) -> dict:
         log(f"time {name} B={B} S={S} {H}/{K} heads dh={dh} causal bf16: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
             f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) {card.tag()}")
+        log(f"device time {name} B={B} S={S} {H}/{K} heads dh={dh} causal "
+            f"bf16 (profiler, launch excluded): kernel {dev[name][0]:.4f} "
+            f"ms, sdpa {dev[name][1]:.4f} ms {card.tag()}")
         rows[name] = {"name": name, "route": "cuda",
                       "source": SOURCES[name], "replaces": REPLACES[name],
                       "launches": 0, "max_abs_err": worst[name], "ms": ms,
@@ -788,6 +817,10 @@ def check_flash_kernel(card) -> dict:
         f"bf16 (hybrid prefill): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) "
         f"{card.tag()}")
+    log(f"device time flash_attention_fwd B={B} S={S} {H}/{K} heads dh={dh} "
+        f"causal bf16 (profiler, launch excluded): kernel "
+        f"{device_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v)):.4f} ms, "
+        f"sdpa {device_ms(sdpa_112):.4f} ms {card.tag()}")
     name = "flash_attention_fwd_dh112"
     rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
                   "replaces": REPLACES[name], "launches": 0,
@@ -1047,13 +1080,20 @@ def where_time_goes(card, arch, cfg, prompts, params, main_wall) -> None:
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         log(f"  device {dev_us(e) / 1e3:10.2f} ms  calls {e.count:7d}  "
             f"{e.key[:90]}")
-    paged = [e for e in events if "paged_attention" in e.key]
-    paged_s = sum(dev_us(e) for e in paged) / 1e6
-    log(f"device {arch}: paged attention kernels {paged_s:.4f} s over "
-        f"{sum(e.count for e in paged)} launches, {100 * paged_s / busy:.1f}% "
-        f"of the busy time {card.tag()}")
+    log_kernel_share(card, arch, events, busy, "paged attention",
+                     "paged_attention")
     del llm
     free_card()
+
+
+def log_kernel_share(card, label, events, busy, what, needle) -> None:
+    """The device time of the profiled kernels whose name holds
+    ``needle``, their launches and their share of the busy time."""
+    mine = [e for e in events if needle in e.key]
+    secs = sum(dev_us(e) for e in mine) / 1e6
+    log(f"device {label}: {what} kernels {secs:.4f} s over "
+        f"{sum(e.count for e in mine)} launches, {100 * secs / busy:.1f}% "
+        f"of the busy time {card.tag()}")
 
 
 def free_card() -> None:
@@ -1480,6 +1520,8 @@ def profile_training(card, trainer, batches) -> None:
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         log(f"  device {dev_us(e) / 1e3:10.2f} ms  calls {e.count:7d}  "
             f"{e.key[:90]}")
+    log_kernel_share(card, "training", events, busy, "flash attention",
+                     "flash_")
 
 
 def train_dense(card, kernel_rows) -> None:
@@ -1598,6 +1640,9 @@ def profile_hybrid(card, model, tokens, n_decode: int = 4) -> None:
         for e in sorted(events, key=dev_us, reverse=True)[:top]:
             log(f"  device {dev_us(e) / 1e3:10.2f} ms  calls {e.count:7d}  "
                 f"{e.key[:90]}")
+        if label == "prefill":
+            log_kernel_share(card, f"hybrid {label}", events, busy,
+                             "flash attention", "flash_")
     del cache, state
 
 

@@ -148,3 +148,63 @@ def test_flash_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         fa.flash_attention_bwd_cuda(q, k, v, q, lse, do)
     assert fa.LAUNCHES == before
+
+
+# ------------------------------------------------------------------ plan
+PLAN_SHAPES = [
+    # B, Sq, Sk, H, K
+    (2, 2048, 2048, 32, 8),     # the training shape
+    (4, 1024, 1024, 32, 32),    # the hybrid prefill
+    (1, 200, 200, 8, 2),        # not a multiple of any tile
+    (1, 257, 257, 8, 2),
+    (1, 1000, 300, 32, 8),      # Sq > Sk
+    (3, 1, 65, 4, 1),           # one query row
+]
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_plan_routes_bf16_to_tensor_cores_and_f32_to_simt(dh):
+    assert fa.plan(2, 2048, 2048, 32, 8, dh, torch.bfloat16).route == "mma"
+    assert fa.plan(2, 2048, 2048, 32, 8, dh, torch.float32).route == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_plan_shared_memory_fits_the_card(dh, dtype):
+    p = fa.plan(2, 2048, 2048, 32, 8, dh, dtype)
+    for smem in (p.fwd_smem, p.dkdv_smem, p.dq_smem):
+        assert 0 < smem <= 227 * 1024
+    if dtype == torch.bfloat16:
+        # 16 query rows a warp; a 2-stage ring of 64-key tiles.
+        assert p.rows_per_cta == 16 * p.warps and p.stages == 2
+        assert p.fwd_smem == 2 * (dh + 8) * (p.rows_per_cta +
+                                             2 * p.stages * 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Sk,H,K", PLAN_SHAPES)
+def test_plan_grids_cover_every_tile(B, Sq, Sk, H, K, dtype):
+    for dh in fa.HEAD_DIMS:
+        p = fa.plan(B, Sq, Sk, H, K, dh, dtype)
+        for grid, heads, n, tile in (
+                (p.fwd_grid, H, Sq, p.rows_per_cta),
+                (p.dq_grid, H, Sq, p.dq_rows),
+                (p.dkdv_grid, K, Sk, fa.KEY_TILE)):
+            assert grid[:2] == (heads, B)
+            assert (grid[2] - 1) * tile < n <= grid[2] * tile
+
+
+@pytest.mark.parametrize("args,match", [
+    ((1, 16, 16, 4, 2, 48, torch.bfloat16), "head_dim"),
+    ((1, 16, 16, 4, 2, 80, torch.float32), "head_dim"),
+    ((1, 16, 16, 6, 4, 64, torch.bfloat16), "group"),
+    ((1, 16, 16, 4, 0, 64, torch.bfloat16), "group"),
+    ((1, 0, 16, 4, 2, 64, torch.bfloat16), "nothing to attend"),
+    ((1, 16, 0, 4, 2, 64, torch.float32), "nothing to attend"),
+    ((1, 16, 16, 4, 2, 64, torch.float16), "float32 or bfloat16"),
+    ((1, 64 * 65536, 16, 4, 2, 64, torch.float32), "Sq="),
+    ((1, 16, 64 * 65536, 4, 2, 64, torch.bfloat16), "Sk="),
+])
+def test_plan_refuses_odd_shapes_by_name(args, match):
+    with pytest.raises(ValueError, match=match):
+        fa.plan(*args)

@@ -301,6 +301,12 @@ FLASH_CASES = [
     (1, 66, 66, 4, 2, 32, True, 9),           # dh 32 with a window
     (1, 130, 130, 4, 4, 112, True, None),     # dh 112 (zamba2's attention)
     (2, 96, 160, 8, 4, 112, False, None),     # dh 112, non-causal, Sq < Sk
+    (1, 200, 200, 8, 2, 64, True, None),      # G = 4, 200 and 257 rows: no
+    (1, 257, 257, 8, 2, 64, True, None),      # multiple of any CTA's rows
+    (1, 512, 512, 8, 2, 64, True, 100),       # window ends mid-tile
+    (1, 300, 100, 8, 2, 64, True, None),      # rows that see no key, dh 64
+    (1, 300, 100, 8, 2, 112, True, None),     # and dh 112
+    (1, 300, 100, 4, 1, 112, True, 30),       # and under a window
 ]
 
 
@@ -335,6 +341,19 @@ def test_flash_attention_backward_is_bitwise_reproducible(cuda):
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v, do = flash_case(cuda, torch.bfloat16, 2, 256, 256, 8, 2, 64)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    first = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    second = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dh", [112, 128])
+def test_flash_attention_backward_is_bitwise_reproducible_at_wide_heads(
+        cuda, dh):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, do = flash_case(cuda, torch.bfloat16, 2, 300, 300, 8, 2, dh)
     out, lse = fa.flash_attention_fwd_cuda(q, k, v)
     first = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
     second = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
