@@ -23,9 +23,13 @@ Phases, each of which raises on failure:
    events, and the device's own time by the profiler).  The
    grouped-expert FFN: decode (32 rows) and prefill (2048 rows) at
    granite's widths, empty groups, a ``group_experts`` map with more groups
-   than experts and a slot remap, rows past the segments zero, and the
-   first 32 rows of a 2048-row call bitwise equal to the same rows alone;
-   no single PyTorch call computes a grouped SwiGLU, so it has no yardstick.
+   than experts and a slot remap, rows past the segments zero, two launches
+   bitwise equal, the first 32 rows of a 2048-row call bitwise equal to the
+   same rows alone, and rows of the 2048-row call (the prefill tiles)
+   bitwise equal to the same rows in 1-, 4- and 32-row calls (the decode
+   tiles); the route each dtype takes (bf16 on tensor cores, f32 on SIMT);
+   timed by CUDA events and by the profiler's device time; no single
+   PyTorch call computes a grouped SwiGLU, so it has no yardstick.
    Flash attention, forward and backward: bf16 and f32 at the training
    shape (B=2, S=2048, 32/8 heads, dh 64, causal), with a window of 256,
    Sq < Sk, non-causal, dh 128, S=1000 and Sq > Sk; dq, dk, dv against
@@ -40,7 +44,7 @@ Phases, each of which raises on failure:
    JAX package's sweep, short and ragged chunks and the hybrid prefill's
    (32 chunks of 128, 112 heads of 64, state 64), within 1e-4 of max|y|,
    two launches bitwise equal; timed beside its plain version (no single
-   PyTorch call computes it).
+   PyTorch call computes it), by CUDA events and by the profiler.
 4. Dense serving: ``LLM.from_arch("llama3_2_1b", smoke=False).generate`` at
    the published widths in bf16 with random weights: 8 requests of 512
    prompt tokens, KV pages migrating between HBM and pinned host memory
@@ -55,8 +59,11 @@ Phases, each of which raises on failure:
    published widths (32 layers, 40 experts, top-8) in bf16: 8 requests of
    256 prompt tokens with pages migrating both ways, every expert FFN
    through the grouped-expert kernel (counters zeroed just before, read
-   just after); one-shot == chunked on a 64-token and a 300-token prompt
-   at all 32 layers;
+   just after); then a synchronised breakdown and a profiler pass of the
+   same workload (the grouped-expert and paged kernels' device time,
+   launches and share of the busy time, and the device's idle share);
+   one-shot == chunked on a 64-token and a 300-token prompt at all 32
+   layers;
    an f32 copy cut to 2 layers against a plain forward pass with plain
    routing and combine.
 6. Dense training, after serving is freed: ``Trainer`` on
@@ -510,6 +517,37 @@ def moe_bound_ms(x, wg, sizes, experts) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def cut_sizes(sizes, lo, hi) -> list:
+    """The group sizes of rows [lo, hi) of a call with ``sizes``."""
+    out, start = [], 0
+    for n in sizes:
+        out.append(max(0, min(start + n, hi) - max(start, lo)))
+        start += n
+    return out
+
+
+def check_moe_rows(mg, x, wg, wu, wd, sizes, full, dtype_name) -> None:
+    """Row invariance at the two routes' tile edges: rows of the 2048-row
+    call (the prefill tiles) equal, bitwise, the same rows in 1-, 4- and
+    32-row calls (the decode tiles), their groups cut to those rows."""
+    import torch
+
+    spans = [(lo, n) for n in (1, 4, 32)
+             for lo in (0, 61, 64, 127, 1000, 2048 - n)]
+    for lo, n in spans:
+        part = mg.moe_grouped_ffn_cuda(
+            x[lo:lo + n].contiguous(), wg, wu, wd,
+            torch.tensor(cut_sizes(sizes, lo, lo + n), dtype=torch.int32,
+                         device="cuda"))
+        if not torch.equal(part, full[lo:lo + n]):
+            raise AssertionError(
+                f"moe {dtype_name}: rows {lo}..{lo + n - 1} of the 2048-row "
+                f"call differ from the same rows in a {n}-row call")
+    log(f"kernel check moe_grouped_ffn {dtype_name}: rows of the 2048-row "
+        f"call == the same rows in 1-, 4- and 32-row calls at rows "
+        f"{sorted({lo for lo, _ in spans})}, bitwise")
+
+
 def check_moe_kernel(card) -> dict:
     """Phase 3, the grouped-expert FFN at granite's widths (d 1536, f 512,
     40 experts, top-8).  Returns its kernel row (launches filled in by the
@@ -552,10 +590,14 @@ def check_moe_kernel(card) -> dict:
             ge = None if experts is None else torch.tensor(
                 experts, dtype=torch.int32, device="cuda")
             got = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs, ge)
+            again = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs, ge)
             want = ref.moe_grouped_ffn_reference(x, wg, wu, wd, gs, ge)
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
                 raise AssertionError(f"moe {label}: non-finite output")
+            if not torch.equal(got, again):
+                raise AssertionError(f"moe {label} {dtype_name}: two "
+                                     f"launches differ")
             if not torch.all(got[sum(sizes):] == 0):
                 raise AssertionError(f"moe {label}: rows past the segments "
                                      f"are not zero")
@@ -569,7 +611,8 @@ def check_moe_kernel(card) -> dict:
             if label.startswith("decode") and dtype == torch.bfloat16:
                 worst = err
             log(f"kernel check moe_grouped_ffn {label} {dtype_name}: max "
-                f"abs err {err:.3e} (atol=rtol={tol})")
+                f"abs err {err:.3e} (atol=rtol={tol}); two launches bitwise "
+                f"equal")
             if T == 2048 and experts is None and sizes is prefill:
                 # Row invariance: the first 32 rows, alone, with their
                 # groups cut to those rows, give the same bits.
@@ -587,6 +630,10 @@ def check_moe_kernel(card) -> dict:
                 log(f"kernel check moe_grouped_ffn {dtype_name}: first 32 "
                     f"rows of the 2048-row call == the same rows alone, "
                     f"bitwise")
+                check_moe_rows(mg, x, wg, wu, wd, sizes, got, dtype_name)
+        routes = {T: mg.plan(T, d, f, E, E, dtype).route for T in (32, 2048)}
+        log(f"route moe_grouped_ffn {dtype_name}: decode T=32 -> "
+            f"{routes[32]}, prefill T=2048 -> {routes[2048]}")
 
     row = None
     for label, T, sizes in (("prefill T=2048", 2048, prefill),
@@ -594,13 +641,14 @@ def check_moe_kernel(card) -> dict:
         x, wg, wu, wd = moe_case(gen, T, E, d, f, torch.bfloat16)
         gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
         ms = time_ms(lambda: mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs))
+        dev = device_ms(lambda: mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs))
         plain_ms = time_ms(lambda: ref.moe_grouped_ffn_reference(
             x, wg, wu, wd, gs), iters=10)
         b_ms, b_by = moe_bound_ms(x, wg, sizes, list(range(E)))
         log(f"time moe_grouped_ffn {label} bf16 ({sum(n > 0 for n in sizes)}"
-            f" experts with rows): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library none, bound {b_ms:.5f} ms "
-            f"({b_by}) {card.tag()}")
+            f" experts with rows): kernel {ms:.4f} ms (events), device "
+            f"{dev:.4f} ms (profiler), plain {plain_ms:.4f} ms, library "
+            f"none, bound {b_ms:.5f} ms ({b_by}) {card.tag()}")
         row = {"name": "moe_grouped_ffn", "route": "cuda",
                "source": SOURCES["moe_grouped_ffn"],
                "replaces": REPLACES["moe_grouped_ffn"], "launches": 0,
@@ -918,11 +966,13 @@ def check_ssd_kernel(card) -> dict:
 
     args = ssd_case(gen, *HYBRID_SSD, torch.bfloat16)
     ms = time_ms(lambda: ss.ssd_scan_cuda(*args))
+    dev = device_ms(lambda: ss.ssd_scan_cuda(*args))
     plain_ms = time_ms(lambda: ref.ssd_reference(*args), iters=10)
     b_ms, b_by = ssd_bound_ms(*args[:4])
     log(f"time ssd_scan (Bc, Q, H, P, N)={HYBRID_SSD} bf16 (hybrid "
-        f"prefill): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"none, bound {b_ms:.5f} ms ({b_by}) {card.tag()}")
+        f"prefill): kernel {ms:.4f} ms (events), device {dev:.4f} ms "
+        f"(profiler), plain {plain_ms:.4f} ms, library none, bound "
+        f"{b_ms:.5f} ms ({b_by}) {card.tag()}")
     del args
     free_card()
     return {"name": "ssd_scan", "route": "cuda",
@@ -1002,14 +1052,17 @@ def forward_reference(model, tokens):
     return (x[-1] @ model.head.w).to(f32)
 
 
-def where_time_goes(card, arch, cfg, prompts, params, main_wall) -> None:
+def where_time_goes(card, arch, cfg, prompts, params, main_wall,
+                    shares) -> None:
     """The serving workload twice more on fresh engines.  First with the
     engine's layers of work timed on the host clock, the device
     synchronised around each (which slows the run a little); eviction is
     the ranking of pages to demote, host work only.  Then under
     ``torch.profiler`` for the device's time by kernel; the device's busy
     time over the main run's wall time gives its idle share there (the
-    profiler slows the host, not the kernels)."""
+    profiler slows the host, not the kernels).  ``shares``: (what, needle)
+    pairs, each kernel family whose device time, launches and share of the
+    busy time are logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1080,8 +1133,8 @@ def where_time_goes(card, arch, cfg, prompts, params, main_wall) -> None:
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         log(f"  device {dev_us(e) / 1e3:10.2f} ms  calls {e.count:7d}  "
             f"{e.key[:90]}")
-    log_kernel_share(card, arch, events, busy, "paged attention",
-                     "paged_attention")
+    for what, needle in shares:
+        log_kernel_share(card, arch, events, busy, what, needle)
     del llm
     free_card()
 
@@ -1310,7 +1363,8 @@ def serve_dense(card, kernel_rows) -> None:
     llm, cfg, prompts, params, wall, launches, rng = serving_run(card, DENSE)
     for name in ("paged_attention", "paged_prefill"):
         kernel_rows[name]["launches"] = launches[name]
-    where_time_goes(card, DENSE, cfg, prompts, params, wall)
+    where_time_goes(card, DENSE, cfg, prompts, params, wall,
+                    [("paged attention", "paged_attention")])
     model = llm.engine.model
     one_shot_equals_chunked(model,
                             rng.integers(0, model.cfg.vocab, 100).tolist())
@@ -1321,9 +1375,14 @@ def serve_dense(card, kernel_rows) -> None:
 
 
 def serve_moe(card, kernel_rows) -> None:
-    """Phase 5: the MoE main path at the published widths and its checks."""
-    llm, _, _, _, _, launches, rng = serving_run(card, MOE)
+    """Phase 5: the MoE main path at the published widths, where its time
+    goes (the grouped-expert kernels' share of the device time), and its
+    checks."""
+    llm, cfg, prompts, params, wall, launches, rng = serving_run(card, MOE)
     kernel_rows["moe_grouped_ffn"]["launches"] = launches["moe_grouped_ffn"]
+    where_time_goes(card, MOE, cfg, prompts, params, wall,
+                    [("paged attention", "paged_attention"),
+                     ("grouped-expert", "moe_")])
     model = llm.engine.model
     one_shot_equals_chunked(model,
                             rng.integers(0, model.cfg.vocab, 64).tolist())

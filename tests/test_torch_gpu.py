@@ -3,6 +3,7 @@ card.  Marked ``gpu``: without a CUDA device every test here skips, and
 the module imports no JAX (the card's machine has none).  Run on the card
 with ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -218,12 +219,42 @@ def ffn_case(dev, dtype, T, E, d, f, sizes, seed=0):
     return x, wg, wu, wd, gs
 
 
+def routed(tokens, E, k, seed):
+    """Group sizes of ``tokens`` tokens each routed to k distinct experts
+    at random (numpy, the same on every machine)."""
+    rng = np.random.default_rng(seed)
+    picks = np.argsort(rng.random((tokens, E)), axis=1)[:, :k]
+    return np.bincount(picks.reshape(-1), minlength=E).tolist()
+
+
+def cut(sizes, lo, hi):
+    """The group sizes of rows [lo, hi) of a call with ``sizes``."""
+    out, start = [], 0
+    for n in sizes:
+        out.append(max(0, min(start + n, hi) - max(start, lo)))
+        start += n
+    return out
+
+
+# Segments of 15, 16, 17, 63, 64 and 65 rows: across the edges of both M
+# tiles (6 groups take 64-row tiles at T=240, 40 groups 16-row tiles).
+EDGES = [15, 16, 17, 63, 64, 65]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,E,d,f,sizes,experts", [
     (32, 6, 128, 64, [5, 0, 17, 0, 3, 7], None),
     (45, 4, 96, 40, [7, 20, 0, 11], None),              # 3 rows past sum
     (50, 3, 64, 48, [9, 0, 14, 6, 21], [2, 0, 1, 1, 0]),  # G > E, a map
     (200, 8, 256, 128, [40, 0, 33, 1, 60, 0, 50, 16], None),
+    (32, 40, 1536, 512, routed(4, 40, 8, 0), None),     # granite decode
+    (2048, 40, 1536, 512, routed(256, 40, 8, 1), None),  # granite prefill
+    (243, 6, 128, 96, EDGES, None),                     # 64-row tiles
+    (243, 40, 128, 96, EDGES + [0] * 34, None),         # 16-row tiles
+    # 40 groups (a last chunk of 8 for the kernel's 32-lane scan) and rows
+    # past the segments, with the decode and with the prefill tiles.
+    (300, 40, 128, 64, routed(36, 40, 8, 9), None),
+    (700, 40, 128, 64, routed(86, 40, 8, 10), None),
 ])
 def test_moe_grouped_ffn_kernel_matches_plain(cuda, dtype, T, E, d, f,
                                               sizes, experts):
@@ -253,6 +284,68 @@ def test_moe_grouped_ffn_rows_do_not_depend_on_the_call(cuda, dtype):
     assert torch.equal(part, full[:32])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_ffn_rows_of_2048_equal_1_4_and_32_row_calls(cuda,
+                                                                  dtype):
+    """Bitwise, at granite's widths: rows of a 2048-row call (64-row tiles
+    on the bf16 route) equal the same rows in 1-, 4- and 32-row calls
+    (16-row tiles), their groups cut to those rows."""
+    sizes = routed(256, 40, 8, 2)
+    x, wg, wu, wd, gs = ffn_case(cuda, dtype, 2048, 40, 1536, 512, sizes, 4)
+    full = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs)
+    for lo, n in ((0, 1), (63, 1), (64, 1), (1000, 1), (2047, 1), (0, 4),
+                  (62, 4), (1021, 4), (2044, 4), (0, 32), (48, 32),
+                  (1000, 32), (2016, 32)):
+        part = mg.moe_grouped_ffn_cuda(
+            x[lo:lo + n].contiguous(), wg, wu, wd,
+            torch.tensor(cut(sizes, lo, lo + n), dtype=torch.int32,
+                         device=cuda))
+        assert torch.equal(part, full[lo:lo + n]), (lo, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [32, 2048])
+def test_moe_grouped_ffn_two_launches_are_bitwise_equal(cuda, dtype, T):
+    sizes = routed(T // 8, 40, 8, 3)
+    x, wg, wu, wd, gs = ffn_case(cuda, dtype, T, 40, 1536, 512, sizes, 5)
+    first = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs)
+    assert torch.equal(mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_ffn_1024_small_groups(cuda, dtype):
+    """G = 1024 groups of 0-3 rows over 8 weight rows through a map, the
+    most groups the kernel takes, and 5 rows past the segments."""
+    rng = np.random.default_rng(6)
+    sizes = rng.integers(0, 4, 1024).tolist()
+    T = sum(sizes) + 5
+    experts = rng.integers(0, 8, 1024).tolist()
+    x, wg, wu, wd, gs = ffn_case(cuda, dtype, T, 8, 64, 48, sizes, 7)
+    ge = torch.tensor(experts, dtype=torch.int32, device=cuda)
+    got = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs, ge)
+    want = ref.moe_grouped_ffn_reference(x, wg, wu, wd, gs, ge)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert torch.all(got[T - 5:] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,sizes", [(32, [5, 0, 9, 18]),
+                                     (300, [70, 0, 90, 140])])
+def test_moe_grouped_ffn_out_of_range_expert_gives_nan_rows(cuda, dtype, T,
+                                                            sizes):
+    """A non-empty group whose expert lies outside [0, E) gets NaN rows;
+    the other groups' rows are unchanged, bitwise."""
+    x, wg, wu, wd, gs = ffn_case(cuda, dtype, T, 3, 128, 64, sizes, 8)
+    good = torch.tensor([0, 1, 2, 1], dtype=torch.int32, device=cuda)
+    bad = torch.tensor([0, 1, 3, -1], dtype=torch.int32, device=cuda)
+    want = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs, good)
+    got = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs, bad)
+    lo = sizes[0] + sizes[1]
+    assert torch.equal(got[:lo], want[:lo])
+    assert torch.isnan(got[lo:sum(sizes)].float()).all()
+
+
 def test_moe_grouped_ffn_kernel_refuses_what_it_does_not_take(cuda):
     x, wg, wu, wd, gs = ffn_case(cuda, torch.float32, 8, 2, 32, 16, [3, 5])
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -271,6 +364,9 @@ def test_moe_grouped_ffn_kernel_refuses_what_it_does_not_take(cuda):
                                 gs)
     with pytest.raises(ValueError, match="contiguous"):
         mg.moe_grouped_ffn_cuda(x.t(), wg, wu, wd, gs)
+    x, wg, wu, wd, gs = ffn_case(cuda, torch.bfloat16, 8, 2, 36, 16, [3, 5])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs)
 
 
 # ---------------------------------------------------------- flash attention
