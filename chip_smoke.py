@@ -41,10 +41,14 @@ Phases, each of which raises on failure:
    hybrid prefill's dh 112 (B=4, S=1024, 32/32 heads), checked with the
    others and timed beside SDPA.  The SSD
    intra-chunk kernel: bf16 and f32 against ``ref.ssd_reference`` at the
-   JAX package's sweep, short and ragged chunks and the hybrid prefill's
-   (32 chunks of 128, 112 heads of 64, state 64), within 1e-4 of max|y|,
-   two launches bitwise equal; timed beside its plain version (no single
-   PyTorch call computes it), by CUDA events and by the profiler.
+   JAX package's sweep, short and ragged chunks, the hybrid prefill's (32
+   chunks of 128, 112 heads of 64, state 64), states of 40 and 13 (not
+   multiples of 16) and P = 32 at Q = 256, within 1e-4 of max|y|, two
+   launches bitwise equal; chunks of the hybrid prefill's call equal to
+   each chunk alone, bitwise; the route each dtype takes (bf16 on tensor
+   cores, f32 on SIMT, the other route refused); timed beside its plain
+   version (no single PyTorch call computes it), by CUDA events and by
+   the profiler.
 4. Dense serving: ``LLM.from_arch("llama3_2_1b", smoke=False).generate`` at
    the published widths in bf16 with random weights: 8 requests of 512
    prompt tokens, KV pages migrating between HBM and pinned host memory
@@ -97,10 +101,11 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
     python3 chip_smoke.py --serving-ab PARENT_TREE
 
-serves the workloads of phases 4 and 5 with the port of another checkout
-(PARENT_TREE, e.g. the parent commit unpacked with ``git archive``) and
-with this one, in turns on the same card: the way to compare serving
-speeds, which vary with the host from call to call.
+serves the workloads of phases 4 and 5, and phase 7's hybrid prefill,
+with the port of another checkout (PARENT_TREE, e.g. the parent commit
+unpacked with ``git archive``) and with this one, in turns on the same
+card: the way to compare serving speeds, which vary with the host from
+call to call.
 
 Without a CUDA device, or without the repository beside it, the script
 exits non-zero and prints no result.
@@ -153,8 +158,9 @@ KERNELS = ("paged_attention", "paged_prefill", "moe_grouped_ffn",
 F32_CHECK_LAYERS = 2
 DENSE, MOE, HYBRID = "llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b"
 # The SSD kernel against its plain version: as a fraction of max|y| (the
-# JAX package's kernel test scaling), 1e-4 in both dtypes: bf16 inputs load
-# exactly as f32 and both versions compute in f32, in other orders.
+# JAX package's kernel test scaling), 1e-4 in both dtypes: f32 computes in
+# f32 in another order; bf16 inputs are exact and the weights reach the
+# tensor cores as a bf16 hi/lo pair (about 16 bits).
 SSD_TOL = 1e-4
 
 
@@ -919,12 +925,65 @@ def ssd_bound_ms(x, dt, A, bm) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_ssd_chunks(ss, args, dtype_name) -> None:
+    """Chunk k's rows of a call equal, bit for bit, a call of that chunk
+    alone (first, middle and last chunk)."""
+    import torch
+
+    x, dt, A, bm, cm = args
+    full = ss.ssd_scan_cuda(*args)
+    chunks = (0, x.shape[0] // 2, x.shape[0] - 1)
+    for k in chunks:
+        one = ss.ssd_scan_cuda(x[k:k + 1].contiguous(),
+                               dt[k:k + 1].contiguous(), A,
+                               bm[k:k + 1].contiguous(),
+                               cm[k:k + 1].contiguous())
+        if not torch.equal(one[0], full[k]):
+            raise AssertionError(f"ssd {tuple(x.shape)} {dtype_name}: chunk "
+                                 f"{k} alone differs from its rows in the "
+                                 f"{x.shape[0]}-chunk call")
+    log(f"kernel check ssd_scan {dtype_name}: chunks {chunks} of the "
+        f"{x.shape[0]}-chunk call == each chunk alone (Bc=1), bitwise")
+
+
+def check_ssd_route(ss, dtype, dtype_name) -> None:
+    """bf16 on tensor cores, f32 on SIMT: the plan's route, and the
+    launcher refuses the other route for that dtype."""
+    import torch
+
+    want = "mma" if dtype == torch.bfloat16 else "simt"
+    shape = (2, 128, 4, 64, 64)
+    p = ss.plan(*shape, dtype)
+    if p.route != want:
+        raise AssertionError(f"ssd {dtype_name}: route {p.route}, expected "
+                             f"{want}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    args = ssd_case(gen, *shape, dtype)
+    y = ss.ssd_scan_cuda(*args)
+    block = ss._args(*shape, dtype)
+    other = ss._Args(*(getattr(block, name) for name, _ in block._fields_))
+    other.route = 1 - other.route
+    err = ss._lib().ssd_scan_launch(
+        *(t.data_ptr() for t in args), y.data_ptr(), other,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if err == 0:
+        raise AssertionError(f"ssd {dtype_name}: the launcher took the "
+                             f"{'simt' if want == 'mma' else 'mma'} route")
+    log(f"route ssd_scan {dtype_name}: {p.route} (head group "
+        f"{p.head_group}, {p.warps} warps, key block {p.key_block}, k step "
+        f"{p.k_step}, {p.stages} stages, {p.smem} bytes of shared memory); "
+        f"the other route refused (CUDA error {err})")
+
+
 def check_ssd_kernel(card) -> dict:
     """Phase 3, the SSD intra-chunk kernel against ``ref.ssd_reference``
-    at the JAX package's sweep, short and ragged chunks and the hybrid
-    prefill shape, bf16 and f32; two launches bitwise equal; then timed at
-    the hybrid prefill shape.  Returns its kernel row (launches filled in
-    by the hybrid serving phase)."""
+    at the JAX package's sweep, short and ragged chunks, the hybrid
+    prefill shape, a state not a multiple of 16 (nor of 8) and P = 32 at
+    Q = 256, bf16 and f32; two launches bitwise equal; each chunk of the
+    hybrid prefill's call equal to the chunk alone; the route each dtype
+    takes; then timed at the hybrid prefill shape.  Returns its kernel row
+    (launches filled in by the hybrid serving phase)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -933,10 +992,12 @@ def check_ssd_kernel(card) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     cases = [(2, 64, 8, 32, 16), (1, 128, 4, 64, 64), (2, 128, 16, 64, 64),
              (1, 64, 2, 64, 32), (3, 8, 6, 32, 16), (2, 100, 5, 64, 32),
-             (1, 256, 4, 64, 64), HYBRID_SSD]
+             (1, 256, 4, 64, 64), HYBRID_SSD, (2, 128, 4, 64, 40),
+             (2, 256, 8, 32, 64), (2, 72, 3, 32, 13)]
     worst = 0.0
     for dtype_name, dtype in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32)):
+        check_ssd_route(ss, dtype, dtype_name)
         for shape in cases:
             args = ssd_case(gen, *shape, dtype)
             got = ss.ssd_scan_cuda(*args)
@@ -962,6 +1023,8 @@ def check_ssd_kernel(card) -> dict:
                 f"{dtype_name}: max abs err {err * scale:.3e}, {err:.3e} of "
                 f"max|y| {scale:.3e} (atol=rtol={SSD_TOL}); two launches "
                 f"bitwise equal")
+            if shape == HYBRID_SSD:
+                check_ssd_chunks(ss, args, dtype_name)
             del args, got, again, want, diff
 
     args = ssd_case(gen, *HYBRID_SSD, torch.bfloat16)
@@ -969,10 +1032,12 @@ def check_ssd_kernel(card) -> dict:
     dev = device_ms(lambda: ss.ssd_scan_cuda(*args))
     plain_ms = time_ms(lambda: ref.ssd_reference(*args), iters=10)
     b_ms, b_by = ssd_bound_ms(*args[:4])
+    p = ss.plan(*HYBRID_SSD, torch.bfloat16)
     log(f"time ssd_scan (Bc, Q, H, P, N)={HYBRID_SSD} bf16 (hybrid "
-        f"prefill): kernel {ms:.4f} ms (events), device {dev:.4f} ms "
-        f"(profiler), plain {plain_ms:.4f} ms, library none, bound "
-        f"{b_ms:.5f} ms ({b_by}) {card.tag()}")
+        f"prefill; {p.route}, {p.blocks} blocks of {p.head_group} heads): "
+        f"kernel {ms:.4f} ms (events), device {dev:.4f} ms (profiler), "
+        f"plain {plain_ms:.4f} ms, library none, bound {b_ms:.5f} ms "
+        f"({b_by}) {card.tag()}")
     del args
     free_card()
     return {"name": "ssd_scan", "route": "cuda",
@@ -1702,6 +1767,8 @@ def profile_hybrid(card, model, tokens, n_decode: int = 4) -> None:
         if label == "prefill":
             log_kernel_share(card, f"hybrid {label}", events, busy,
                              "flash attention", "flash_")
+            log_kernel_share(card, f"hybrid {label}", events, busy, "SSD",
+                             "ssd_chunk")
     del cache, state
 
 
@@ -1883,11 +1950,11 @@ AB_ROUNDS = 5
 
 def serving_ab(parent: str) -> int:
     """``python3 chip_smoke.py --serving-ab PARENT``: the serving workloads
-    of phases 4 and 5 (``SERVING``) served by the port under PARENT/src and
-    by this tree's, in turns (parent, this, this, parent), one process each
-    on the same card.  The host's speed differs from one machine to the
-    next and from run to run, so two versions compare only inside one such
-    call."""
+    of phases 4 and 5 (``SERVING``) and phase 7's hybrid prefill, served by
+    the port under PARENT/src and by this tree's, in turns (parent, this,
+    this, parent), one process each on the same card.  The host's speed
+    differs from one machine to the next and from run to run, so two
+    versions compare only inside one such call."""
     for tree in (parent, HERE, HERE, parent):
         subprocess.run([sys.executable, os.path.abspath(__file__),
                         "--serving-child", os.path.abspath(tree)],
@@ -1895,11 +1962,44 @@ def serving_ab(parent: str) -> int:
     return 0
 
 
+def ab_hybrid_prefill(card, label: str, tree: str) -> None:
+    """Phase 7's prefill (HYBRID_BATCH prompts of HYBRID_PROMPT tokens
+    through ``zamba2_7b`` at its published widths, the same weights and
+    tokens) by the port under TREE: a warm-up prefill, then AB_ROUNDS
+    timed ones, each on a fresh cache, ending in a synchronise."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    cfg = get(HYBRID)
+    model = Model(cfg, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(SEED + 6))
+    rng = np.random.default_rng(SEED + 6)
+    B, S = HYBRID_BATCH, HYBRID_PROMPT
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to("cuda")
+    for i in range(1 + AB_ROUNDS):
+        cache = model.init_cache(B, S + HYBRID_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(tokens, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"ab {label} ({tree}) {HYBRID} prefill"
+            f"{' warm-up' if i == 0 else ''}: {1e3 * wall:.2f} ms, "
+            f"{B * S / wall:.1f} prompt tokens/s {card.tag()}")
+        del cache, logits
+    del model, tokens
+    free_card()
+
+
 def serving_child(tree: str) -> int:
     """One turn of ``serving_ab``: a warm-up round (the first run of each
     workload in a process is slow: cold library and kernel paths), then
     AB_ROUNDS rounds of the dense and the MoE workload, each on a fresh
-    ``LLM`` (its build not timed), served by the port under TREE/src."""
+    ``LLM`` (its build not timed), then the hybrid prefill's rounds, all
+    served by the port under TREE/src."""
     sys.path.insert(0, os.path.join(tree, "src"))
     import torch
 
@@ -1914,6 +2014,7 @@ def serving_child(tree: str) -> int:
             f"{card.tag()}")
         del llm
         free_card()
+    ab_hybrid_prefill(card, label, tree)
     return 0
 
 

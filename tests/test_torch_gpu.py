@@ -489,19 +489,24 @@ def ssd_inputs(dev, dtype, Bc, Q, H, P, N, seed=0):
 
 
 # The JAX package's SSD sweep (tests/test_kernels.py), chunks shorter than
-# a 64-row tile and ragged ones, and the zamba2 prefill shape.
+# a 64-row tile and ragged ones, the zamba2 prefill shape, a state that is
+# not a multiple of 16 (nor of 8: rows not 16-byte aligned) and P = 32 at
+# the longest chunk.
+HYBRID_SSD = (32, 128, 112, 64, 64)
 SSD_CASES = [(2, 64, 8, 32, 16), (1, 128, 4, 64, 64), (2, 128, 16, 64, 64),
              (1, 64, 2, 64, 32), (3, 8, 6, 32, 16), (2, 100, 5, 64, 32),
-             (1, 256, 4, 64, 64), (32, 128, 112, 64, 64)]
+             (1, 256, 4, 64, 64), HYBRID_SSD, (2, 128, 4, 64, 40),
+             (2, 256, 8, 32, 64), (2, 72, 3, 32, 13)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Bc,Q,H,P,N", SSD_CASES)
 def test_ssd_kernel_matches_plain(cuda, dtype, Bc, Q, H, P, N):
-    """Within 1e-4 of max|y| in both dtypes: bf16 inputs load exactly as
-    f32 and both versions compute in f32, summing in other orders (the JAX
-    package holds its kernel to its model chunk at 1e-4).  Two launches
-    agree bit for bit."""
+    """Within 1e-4 of max|y| in both dtypes (the JAX package holds its
+    kernel to its model chunk at 1e-4): f32 computes in f32 in another
+    order; bf16 inputs are exact, the scores sum in f32 and the weights
+    reach the tensor cores as a bf16 hi/lo pair (about 16 bits).  Two
+    launches agree bit for bit."""
     args = ssd_inputs(cuda, dtype, Bc, Q, H, P, N)
     before = ss.LAUNCHES["ssd_scan"]
     got = ops.ssd_scan(*args)
@@ -514,6 +519,37 @@ def test_ssd_kernel_matches_plain(cuda, dtype, Bc, Q, H, P, N):
     scale = float(want.abs().max()) + 1e-6
     torch.testing.assert_close(got / scale, want / scale, atol=1e-4,
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_chunk_rows_do_not_depend_on_the_call(cuda, dtype):
+    """Chunk k's rows of the hybrid prefill's call equal, bit for bit, a
+    call of that chunk alone: every output's sum order depends on (Q, N,
+    P, dtype) only."""
+    x, dt, A, bm, cm = ssd_inputs(cuda, dtype, *HYBRID_SSD)
+    full = ss.ssd_scan_cuda(x, dt, A, bm, cm)
+    for k in (0, 13, HYBRID_SSD[0] - 1):
+        one = ss.ssd_scan_cuda(*(t[k:k + 1].contiguous()
+                                 for t in (x, dt)), A,
+                               *(t[k:k + 1].contiguous() for t in (bm, cm)))
+        assert torch.equal(one[0], full[k]), k
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "simt")])
+def test_ssd_kernel_takes_its_route(cuda, dtype, route):
+    """bf16 runs on tensor cores and f32 on SIMT: the launcher takes the
+    plan's route and refuses the other one for that dtype."""
+    args = ssd_inputs(cuda, dtype, 2, 128, 4, 64, 64)
+    assert ss.plan(2, 128, 4, 64, 64, dtype).route == route
+    y = ss.ssd_scan_cuda(*args)
+    block = ss._args(2, 128, 4, 64, 64, dtype)
+    bad = ss._Args(*(getattr(block, name) for name, _ in block._fields_))
+    bad.route = 1 - bad.route
+    err = ss._lib().ssd_scan_launch(
+        *(t.data_ptr() for t in args), y.data_ptr(), bad,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
