@@ -27,7 +27,11 @@ Phases, each of which raises on failure:
    bitwise equal, the first 32 rows of a 2048-row call bitwise equal to the
    same rows alone, and rows of the 2048-row call (the prefill tiles)
    bitwise equal to the same rows in 1-, 4- and 32-row calls (the decode
-   tiles); the route each dtype takes (bf16 on tensor cores, f32 on SIMT);
+   tiles); the expert cache's call (the 40 experts at scattered rows of a
+   320-row array through ``group_experts``) bitwise equal to the resident
+   call, and groups at slot -1 NaN with every other row untouched, the
+   kernel equal to the plain version under ``equal_nan``; the route each
+   dtype takes (bf16 on tensor cores, f32 on SIMT);
    timed by CUDA events and by the profiler's device time; no single
    PyTorch call computes a grouped SwiGLU, so it has no yardstick.
    Flash attention, forward and backward: bf16 and f32 at the training
@@ -95,6 +99,21 @@ Phases, each of which raises on failure:
    against a plain path (``ref.ssd_reference`` per chunk,
    ``ref.mha_reference``), and prefill-then-decode against stepwise decode
    on a 256-token prompt (greedy tokens equal, logits within 2e-3).
+
+8. Prefix sharing and expert tiering, run after phase 5 (before
+   training).  8a: ``llama3_2_1b`` on phase
+   4's ServeConfig, 8 requests of one shared 448-token prefix (28 full
+   pages) plus 64 tokens of their own, 32 new tokens, request 3 sampled,
+   served with the prefix cache off and on: streams bitwise equal, 7 x 448
+   prompt tokens served from the cache; then with 64-token interleaved
+   prefill through the cache, equal to the one-shot run.  8b: phase 5's
+   workload with the expert weights in pinned host memory and 320 of the
+   1280 (layer, expert) blocks cached on the card (``expert_offchip``):
+   streams and grouped-FFN launches equal phase 5's resident run, the
+   engine's device memory after build lower by at least the 960 blocks
+   left on the host; then 2 requests with double buffering off and on,
+   bitwise equal, and a synchronised breakdown and a profiled pass of
+   the 2-request run (the host-to-device copies' share of the busy time).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -554,6 +573,67 @@ def check_moe_rows(mg, x, wg, wu, wd, sizes, full, dtype_name) -> None:
         f"{sorted({lo for lo, _ in spans})}, bitwise")
 
 
+def check_moe_cache(mg, ref, gen, host, E, k, d, f) -> None:
+    """The expert cache's call at granite's widths: the 40 experts at
+    scattered rows of an EXPERT_CACHE-row weight array, mapped by
+    ``group_experts``, give rows bitwise equal to the 40-row resident call
+    (decode and prefill tiles); with some groups' slots -1, those groups'
+    rows are NaN and every other row is untouched.  The kernel equals the
+    plain version, NaN rows included (``equal_nan``)."""
+    import torch
+
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        for T in (32, 2048):
+            sizes = routed_sizes(host, T // k, E, k)
+            x, wg, wu, wd = moe_case(gen, T, E, d, f, dtype)
+            rows = torch.randperm(EXPERT_CACHE, generator=host)[:E]
+            bank = []
+            for w in (wg, wu, wd):
+                b = torch.randn((EXPERT_CACHE,) + w.shape[1:], generator=gen,
+                                device="cuda").to(dtype)
+                b[rows.to("cuda")] = w
+                bank.append(b)
+            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            slots = rows.to(torch.int32).to("cuda")
+            resident = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs)
+            cached = mg.moe_grouped_ffn_cuda(x, *bank, gs, slots)
+            if not torch.equal(cached, resident):
+                raise AssertionError(
+                    f"moe cache {dtype_name} T={T}: rows through a "
+                    f"{EXPERT_CACHE}-row cache differ from the resident "
+                    f"call")
+            absent = [g for g in range(E) if sizes[g] > 0][1::3]
+            holes = slots.clone()
+            holes[absent] = -1
+            got = mg.moe_grouped_ffn_cuda(x, *bank, gs, holes)
+            want = ref.moe_grouped_ffn_reference(x, *bank, gs, holes)
+            torch.cuda.synchronize()
+            bounds = [0]
+            for n in sizes:
+                bounds.append(bounds[-1] + n)
+            dead = torch.zeros(T, dtype=torch.bool, device="cuda")
+            for g in absent:
+                dead[bounds[g]:bounds[g + 1]] = True
+            if not (torch.isnan(got[dead].float()).all()
+                    and torch.equal(got[~dead], resident[~dead])):
+                raise AssertionError(
+                    f"moe cache {dtype_name} T={T}: -1 slots do not give "
+                    f"NaN rows with every other row untouched")
+            tol = TOL[dtype_name]
+            if not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol, equal_nan=True):
+                raise AssertionError(
+                    f"moe cache {dtype_name} T={T}: kernel and plain version "
+                    f"differ (atol=rtol={tol}, equal_nan)")
+            log(f"kernel check moe_grouped_ffn cache {dtype_name} T={T}: "
+                f"{E} experts at scattered rows of a {EXPERT_CACHE}-row "
+                f"array == the resident call, bitwise; {len(absent)} groups "
+                f"at slot -1 ({int(dead.sum())} rows) NaN, the other rows "
+                f"untouched; kernel == plain (atol=rtol={tol}, equal_nan)")
+            del bank, x, wg, wu, wd
+
+
 def check_moe_kernel(card) -> dict:
     """Phase 3, the grouped-expert FFN at granite's widths (d 1536, f 512,
     40 experts, top-8).  Returns its kernel row (launches filled in by the
@@ -641,6 +721,7 @@ def check_moe_kernel(card) -> dict:
         log(f"route moe_grouped_ffn {dtype_name}: decode T=32 -> "
             f"{routes[32]}, prefill T=2048 -> {routes[2048]}")
 
+    check_moe_cache(mg, ref, gen, host, E, k, d, f)
     row = None
     for label, T, sizes in (("prefill T=2048", 2048, prefill),
                             ("decode T=32", 32, decode)):
@@ -1118,7 +1199,7 @@ def forward_reference(model, tokens):
 
 
 def where_time_goes(card, arch, cfg, prompts, params, main_wall,
-                    shares) -> None:
+                    shares, label=None) -> None:
     """The serving workload twice more on fresh engines.  First with the
     engine's layers of work timed on the host clock, the device
     synchronised around each (which slows the run a little); eviction is
@@ -1127,11 +1208,14 @@ def where_time_goes(card, arch, cfg, prompts, params, main_wall,
     time over the main run's wall time gives its idle share there (the
     profiler slows the host, not the kernels).  ``shares``: (what, needle)
     pairs, each kernel family whose device time, launches and share of the
-    busy time are logged."""
+    busy time are logged.  ``label`` names the run in the log (default
+    ``arch``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import LLM
+
+    label = label or arch
 
     def fresh():
         return LLM.from_arch(arch, smoke=False, cfg=cfg, seed=SEED,
@@ -1175,31 +1259,32 @@ def where_time_goes(card, arch, cfg, prompts, params, main_wall,
     rest = wall - sum(spent.values())
     parts = ", ".join(f"{k} {v:.3f} s ({100 * v / wall:.1f}%)"
                       for k, v in sorted(spent.items(), key=lambda kv: -kv[1]))
-    log(f"breakdown {arch} (synchronised run, {wall:.3f} s): {parts}, rest "
+    log(f"breakdown {label} (synchronised run, {wall:.3f} s): {parts}, rest "
         f"of the engine {rest:.3f} s ({100 * rest / wall:.1f}%) "
         f"{card.tag()}")
     del llm, eng
 
     llm = fresh()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    # The device's activity only: recording every host operator too (the
+    # tiered run issues 133,234 copies) slows the pass by minutes.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         llm.generate(prompts, params)
         torch.cuda.synchronize()
-    # Device-side events only (kernels and copies): an operator's own
-    # entry repeats the time of the kernels it launched.
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
 
     busy = sum(dev_us(e) for e in events) / 1e6
-    log(f"device {arch}: kernels and copies busy {busy:.3f} s, "
+    log(f"device {label}: kernels and copies busy {busy:.3f} s, "
         f"{100 * busy / main_wall:.1f}% of the main run's {main_wall:.3f} s: "
-        f"idle share {100 * (1 - busy / main_wall):.1f}% {card.tag()}")
+        f"idle share {100 * (1 - busy / main_wall):.1f}% (profiled pass "
+        f"{time.perf_counter() - t0:.1f} s) {card.tag()}")
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         log(f"  device {dev_us(e) / 1e3:10.2f} ms  calls {e.count:7d}  "
             f"{e.key[:90]}")
     for what, needle in shares:
-        log_kernel_share(card, arch, events, busy, what, needle)
+        log_kernel_share(card, label, events, busy, what, needle)
     del llm
     free_card()
 
@@ -1244,24 +1329,36 @@ def read_launches() -> dict:
     return out
 
 
-def main_run(card, arch, cfg, n_req, n_prompt, n_new, rng):
+# What each main run left for later phases: its streams, launches, wall
+# time and the device bytes its LLM took when built ({label: dict}).
+RUNS = {}
+
+
+def main_run(card, arch, cfg, n_req, n_prompt, n_new, rng, label=None):
     """The main path: ``LLM.from_arch(arch, smoke=False).generate`` on 8
     requests (request 3 sampled), launch counters zeroed just before and
-    read just after.  Returns (llm, prompts, params, wall, launches)."""
+    read just after.  Records the run in ``RUNS[label or arch]``.  Returns
+    (llm, prompts, params, wall, launches)."""
     import torch
 
     from repro_torch.serve import LLM, SamplingParams
 
+    # Collect earlier phases' garbage on both sides of the build: a tensor
+    # freed by a collection inside it would count against the build.
+    free_card()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     llm = LLM.from_arch(arch, smoke=False, cfg=cfg, seed=SEED, device="cuda")
-    torch.cuda.synchronize()
+    free_card()
+    built = torch.cuda.memory_allocated() - before
     mc = llm.engine.model.cfg
     moe = (f", {mc.n_experts} experts top-{mc.top_k}"
            if mc.family == "moe" else "")
     log(f"model {arch}: {mc.n_layers} layers, d_model {mc.d_model}, "
         f"{mc.n_heads}/{mc.kv_heads} heads, d_ff {mc.d_ff}{moe}, vocab "
         f"{mc.vocab}, {mc.dtype}; page {llm.engine.pool.page_bytes} bytes; "
-        f"built in {time.perf_counter() - t0:.1f} s")
+        f"built in {time.perf_counter() - t0:.1f} s, {built} bytes on the "
+        f"device (memory_allocated) {card.tag()}")
     prompts = [rng.integers(0, mc.vocab, n_prompt).tolist()
                for _ in range(n_req)]
     params = [SamplingParams(max_tokens=n_new) for _ in range(n_req)]
@@ -1311,6 +1408,9 @@ def main_run(card, arch, cfg, n_req, n_prompt, n_new, rng):
         f"prefill_dispatches {st['prefill_dispatches']}, decode_dispatches "
         f"{st['decode_dispatches']}, intervals {len(runtime.history)}, "
         f"launches {launches}")
+    RUNS[label or arch] = dict(streams=[o.token_ids for o in outs],
+                               launches=launches, wall=wall, built=built,
+                               tokens=tokens)
     return llm, prompts, params, wall, launches
 
 
@@ -1455,6 +1555,221 @@ def serve_moe(card, kernel_rows) -> None:
     del llm, model
     free_card()
     f32_check(MOE, rng)
+
+
+# ------------------------------------------- prefix sharing, expert tiering
+# Phase 8a: 8 requests, each one shared 448-token prefix (28 full pages)
+# and 64 tokens of its own, 32 new tokens, on phase 4's ServeConfig.
+PREFIX_REQ, PREFIX_SHARED, PREFIX_OWN, PREFIX_NEW = 8, 448, 64, 32
+# Phase 8b: phase 5's workload with a quarter of granite's 1280 (layer,
+# expert) blocks in the expert cache (at least one prefill's 40).
+EXPERT_CACHE = 320
+
+
+def prefix_workload(vocab: int):
+    """Phase 8a's prompts and SamplingParams (request 3 sampled, as in
+    phase 4), from a generator of their own."""
+    import numpy as np
+
+    from repro_torch.serve import SamplingParams
+
+    rng = np.random.default_rng(SEED + 8)
+    shared = rng.integers(0, vocab, PREFIX_SHARED).tolist()
+    prompts = [shared + rng.integers(0, vocab, PREFIX_OWN).tolist()
+               for _ in range(PREFIX_REQ)]
+    params = [SamplingParams(max_tokens=PREFIX_NEW)
+              for _ in range(PREFIX_REQ)]
+    params[3] = SamplingParams(max_tokens=PREFIX_NEW, temperature=0.8,
+                               top_k=40, top_p=0.9, seed=7)
+    return prompts, params
+
+
+def prefix_run(card, label, cache, first_alone=False, **extra):
+    """Serve phase 8a's workload through ``LLM.submit``/``step`` on a fresh
+    ``llama3_2_1b`` (prefix cache on or off), the counters zeroed just
+    before and read just after.  ``first_alone``: request 0 runs its
+    prefill before the others are submitted (an interleaved prefill
+    inserts its prefix only when it completes).  Logs and returns (streams,
+    stats, launches)."""
+    import torch
+
+    from repro_torch.serve import LLM, ServeConfig
+
+    fields = dict(SERVING[DENSE][0], enable_prefix_cache=cache, **extra)
+    llm = LLM.from_arch(DENSE, smoke=False, cfg=ServeConfig(**fields),
+                        seed=SEED, device="cuda")
+    prompts, params = prefix_workload(llm.engine.model.cfg.vocab)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    handles = [llm.submit(prompts[0], params[0])]
+    if first_alone:
+        while llm.engine.requests[0].state != "active":
+            llm.step()
+    handles += [llm.submit(p, sp) for p, sp in zip(prompts[1:], params[1:])]
+    first = {}
+    while any(not h.finished for h in handles):
+        llm.step()
+        for h in handles:
+            if h.token_ids and h.request_id not in first:
+                first[h.request_id] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = llm.stats()
+    streams = [h.result().token_ids for h in handles]
+    if any(len(t) != PREFIX_NEW for t in streams):
+        raise AssertionError(f"prefix {label}: stream lengths "
+                             f"{[len(t) for t in streams]}")
+    L = llm.engine.model.cfg.n_layers
+    if (launches["paged_prefill"] != L * st["prefill_dispatches"]
+            or launches["paged_attention"] < L * st["decode_dispatches"]
+            or launches["paged_prefill"] == 0):
+        raise AssertionError(f"prefix {label}: launches {launches} for "
+                             f"{st['prefill_dispatches']} prefill and "
+                             f"{st['decode_dispatches']} decode passes")
+    ttft = sorted(first.values())
+    log(f"prefix {label}: saved_prefill_tokens "
+        f"{st['saved_prefill_tokens']}, prefill_tokens "
+        f"{st['prefill_tokens']}, prefill passes "
+        f"{st['prefill_dispatches']}, paged_prefill launches "
+        f"{launches['paged_prefill']}, paged_attention launches "
+        f"{launches['paged_attention']}, pages migrated "
+        f"{st['swap_ins'] + st['swap_outs']} ({st['swap_ins']} in, "
+        f"{st['swap_outs']} out), prefix hits "
+        f"{st.get('prefix_hit_requests', 0)}, cached pages "
+        f"{st.get('prefix_cached_pages', 0)}, reclaimed "
+        f"{st.get('prefix_evicted_pages', 0)}; "
+        f"{PREFIX_REQ * PREFIX_NEW / wall:.2f} generated tokens/s in "
+        f"{wall:.3f} s, first token after {ttft[0]:.3f} s (first request) "
+        f"and {sum(ttft) / len(ttft):.3f} s (mean of {len(ttft)}) "
+        f"{card.tag()}")
+    del llm, handles
+    free_card()
+    return streams, st, launches
+
+
+def serve_prefix(card) -> None:
+    """Phase 8a: the prefix cache on dense serving, bitwise."""
+    off, _, _ = prefix_run(card, "cache off", False)
+    on, st, _ = prefix_run(card, "cache on", True)
+    if on != off:
+        raise AssertionError("prefix cache on: streams differ from the "
+                             "cache-off run")
+    want = (PREFIX_REQ - 1) * PREFIX_SHARED
+    if st["saved_prefill_tokens"] != want and not st["prefix_evicted_pages"]:
+        raise AssertionError(f"prefix cache on: saved "
+                             f"{st['saved_prefill_tokens']} prompt tokens, "
+                             f"expected {want}")
+    log(f"prefix cache on == off: {PREFIX_REQ} streams of {PREFIX_NEW} "
+        f"tokens bitwise equal; {st['saved_prefill_tokens']} prompt tokens "
+        f"served from the cache (expected {want} unless a prefix was "
+        f"reclaimed: {st['prefix_evicted_pages']} pages reclaimed)")
+    chunked, cst, _ = prefix_run(card, "cache on, prefill_chunk_tokens=64",
+                                 True, first_alone=True,
+                                 prefill_chunk_tokens=64)
+    if chunked != on:
+        raise AssertionError("prefix cache on, chunked prefill: streams "
+                             "differ from the one-shot run")
+    if not cst["saved_prefill_tokens"]:
+        raise AssertionError("prefix cache on, chunked prefill: no hit")
+    log(f"prefix cache, chunked (64-token chunks) == one-shot: streams "
+        f"bitwise equal, {cst['saved_prefill_tokens']} prompt tokens from "
+        f"the cache")
+
+
+def serve_tiered(card, kernel_rows) -> None:
+    """Phase 8b: phase 5's workload with the expert weights in pinned host
+    memory and EXPERT_CACHE blocks on the card, bitwise equal to phase 5's
+    resident run, then double buffering off == on."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import LLM, ServeConfig
+
+    fields, n_req, n_prompt, n_new, seed = SERVING[MOE]
+    cfg = ServeConfig(**fields, expert_offchip=True,
+                      expert_cache_size=EXPERT_CACHE)
+    llm, prompts, params, wall, launches = main_run(
+        card, MOE, cfg, n_req, n_prompt, n_new,
+        np.random.default_rng(seed), label="tiered")
+    tiered, resident = RUNS["tiered"], RUNS[MOE]
+    if tiered["streams"] != resident["streams"]:
+        raise AssertionError("tiered experts: streams differ from phase 5's "
+                             "resident run")
+    name = "moe_grouped_ffn"
+    if launches[name] != resident["launches"][name]:
+        raise AssertionError(f"tiered experts: {launches[name]} grouped-FFN "
+                             f"launches, resident {resident['launches'][name]}")
+    store = llm.engine.expert_store
+    st = llm.stats()
+    drop = resident["built"] - tiered["built"]
+    need = (store.n_layers * store.n_experts - EXPERT_CACHE) \
+        * store.block_bytes
+    if drop < need:
+        raise AssertionError(f"tiered experts: the engine took {drop} fewer "
+                             f"device bytes than the resident one, less than "
+                             f"the {need} of the blocks off the card")
+    passes = st["decode_dispatches"] + st["prefill_dispatches"]
+    log(f"tiered experts == resident: {n_req} streams bitwise equal, "
+        f"{launches[name]} grouped-FFN launches in both; cache "
+        f"{EXPERT_CACHE} of {store.n_layers * store.n_experts} blocks of "
+        f"{store.block_bytes} bytes; memory_allocated after build "
+        f"{tiered['built']} vs resident {resident['built']}: {drop} bytes "
+        f"less (>= {need}) {card.tag()}")
+    log(f"tiered experts: demand fetches {st['expert_demand_fetches']}, "
+        f"prefetches {st['expert_prefetch_fetches']}, prefetch hits "
+        f"{st['expert_prefetch_hits']}, dropped prefetches "
+        f"{st['expert_dropped_prefetches']}, evictions "
+        f"{st['expert_evictions']}, bytes fetched "
+        f"{st['expert_bytes_fetched']}; host syncs "
+        f"{st['expert_host_syncs']} ({st['expert_host_syncs'] / passes:.1f} "
+        f"a pass over {passes} passes, "
+        f"{st['expert_host_syncs'] / st['steps']:.1f} an engine step); "
+        f"{tiered['tokens'] / wall:.2f} generated tokens/s against the "
+        f"resident run's {resident['tokens'] / resident['wall']:.2f} "
+        f"{card.tag()}")
+    del llm, store
+    free_card()
+    streams, walls = {}, {}
+    for db in (False, True):
+        cfg = ServeConfig(**fields, expert_offchip=True,
+                          expert_cache_size=EXPERT_CACHE,
+                          expert_double_buffer=db)
+        llm = LLM.from_arch(MOE, smoke=False, cfg=cfg, seed=SEED,
+                            device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = llm.generate(prompts[:2], params[:2])
+        torch.cuda.synchronize()
+        t = walls[db] = time.perf_counter() - t0
+        streams[db] = [o.token_ids for o in outs]
+        st = llm.stats()
+        log(f"tiered experts, 2 requests, double buffer {db}: "
+            f"{2 * n_new / t:.2f} generated tokens/s in {t:.3f} s, demand "
+            f"fetches {st['expert_demand_fetches']}, prefetch hits "
+            f"{st['expert_prefetch_hits']}, host syncs "
+            f"{st['expert_host_syncs']} {card.tag()}")
+        del llm
+        free_card()
+    if streams[False] != streams[True] \
+            or streams[True] != resident["streams"][:2]:
+        raise AssertionError("tiered experts: double buffer on, off and the "
+                             "resident run differ")
+    log("tiered experts: double buffer off == on == resident, bitwise")
+    # Where the time goes, on the 2-request run (the profiler's cost grows
+    # with the 3 copies a fetched block takes: 8 requests took 96 s).
+    where_time_goes(card, MOE, cfg, prompts[:2], params[:2], walls[True],
+                    [("grouped-expert", "moe_"),
+                     ("host-to-device copy", "Memcpy HtoD")],
+                    label=f"{MOE} tiered, 2 requests")
+
+
+def serve_shared_tiers(card, kernel_rows) -> None:
+    """Phase 8: prefix sharing on dense serving (8a), expert tiering on MoE
+    serving (8b)."""
+    serve_prefix(card)
+    serve_tiered(card, kernel_rows)
 
 
 # ---------------------------------------------------------------- training
@@ -2055,12 +2370,17 @@ def main() -> int:
     for name, text in logs.items():
         log(f"--- ptxas report for csrc/{name}.cu\n{text.strip()}")
 
+    t0 = time.perf_counter()
     kernel_rows = check_paged_kernels(card)
     kernel_rows["moe_grouped_ffn"] = check_moe_kernel(card)
     kernel_rows.update(check_flash_kernel(card))
     kernel_rows["ssd_scan"] = check_ssd_kernel(card)
-    for phase in (serve_dense, serve_moe, train_dense, serve_hybrid):
+    log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
+    for phase in (serve_dense, serve_moe, serve_shared_tiers, train_dense,
+                  serve_hybrid):
+        t0 = time.perf_counter()
         phase(card, kernel_rows)
+        log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
         if torch.backends.cuda.matmul.allow_tf32:
             raise AssertionError(f"{phase.__name__} turned TF32 matmuls on")
     log(card.smi)

@@ -122,7 +122,9 @@ def moe_grouped_ffn_reference(x, w_gate, w_up, w_down, group_sizes,
     ``(silu(x_r Wg[e]) * (x_r Wu[e])) Wd[e]`` with e the group's expert,
     x and the weights read as f32, h kept in f32, the down product in f32
     and the result cast to x's dtype.  Rows past ``sum(group_sizes)`` are
-    zeros.
+    zeros.  A group whose expert is out of range (-1: an expert cache's
+    absent block) gives NaN rows, as the kernel does: it never wraps to
+    another weight row.
 
     Each segment runs through ``tiles.linear`` (fixed ROW_TILE-row
     products), so a row's result depends on that row and its expert alone,
@@ -148,6 +150,10 @@ def moe_grouped_ffn_reference(x, w_gate, w_up, w_down, group_sizes,
         if n <= 0:
             continue
         e = experts[g]
+        if not 0 <= e < w_gate.shape[0]:
+            out[start:start + n] = float("nan")
+            start += n
+            continue
         rows, _ = row_tiles(x[start:start + n].to(F32))
         h = F.silu(linear(rows, w_gate[e].to(F32))) * linear(
             rows, w_up[e].to(F32))

@@ -1,5 +1,6 @@
-"""Serving of the port: the ``LLM`` front door over the dense ``Engine``,
-its two-tier paged KV pool and the guided placement of its pages."""
+"""Serving of the port: the ``LLM`` front door over the ``Engine``, its
+two-tier paged KV pool, the shared-prefix cache, the tiered expert store,
+and the guided placement of pages, prefixes and expert blocks."""
 
 from .api import DEFAULT_MAX_TOKENS, LLM, RequestHandle, RequestOutput
 from .engine import Engine, PagedKVBackend, Request, RequestTicket, ServeConfig
@@ -9,7 +10,9 @@ from .eviction import (
     make_eviction_policy,
     register_eviction_policy,
 )
+from .expert_store import ExpertBackend, ExpertCacheMissError, ExpertStore
 from .kvcache import Page, PageExport, PagedKVPool
+from .prefix_cache import PrefixBackend, PrefixCache, PrefixNode, block_hash
 from .sampling import SamplingParams
 from .scheduler import (
     SCHEDULER_POLICIES,
@@ -28,12 +31,18 @@ __all__ = [
     "DrrPolicy",
     "Engine",
     "EvictionPolicy",
+    "ExpertBackend",
+    "ExpertCacheMissError",
+    "ExpertStore",
     "FifoPolicy",
     "LLM",
     "Page",
     "PageExport",
     "PagedKVBackend",
     "PagedKVPool",
+    "PrefixBackend",
+    "PrefixCache",
+    "PrefixNode",
     "PriorityPolicy",
     "Request",
     "RequestHandle",
@@ -44,6 +53,7 @@ __all__ = [
     "SchedulerPolicy",
     "ServeConfig",
     "StepBudget",
+    "block_hash",
     "make_eviction_policy",
     "make_scheduler_policy",
     "register_eviction_policy",

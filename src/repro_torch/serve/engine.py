@@ -20,13 +20,20 @@ site; its pages are the chunks.  The request lifecycle is the reference's:
   (``kernels.ops.paged_prefill``).  ``prefill="chunked"`` steps the prompt
   through decode one token at a time and stays as the bitwise oracle;
   ``prefill_chunk_tokens > 0`` interleaves budgeted chunks with decode.
+  With ``enable_prefix_cache`` the radix prefix cache
+  (``serve/prefix_cache.py``) is consulted first: matched full-page blocks
+  attach by reference and the pass runs only over the uncovered suffix at
+  its absolute positions; a full hit dispatches nothing.
 * **Decoding** samples inside the step (``kernels.ops.sample_tokens``);
   the per-row key folds the token's absolute stream position, so
   preemption by recompute and one-shot-vs-chunked prefill replay identical
   streams, and ``temperature=0`` rows are bitwise argmax.
-* **Page placement** is Algorithm 1 run by ``core.GuidanceRuntime`` over
-  ``PagedKVBackend``: profile -> age-fragmented thermos -> ski-rental ->
-  batched page migration between the tiers.
+* **Placement** is Algorithm 1 run by ``core.GuidanceRuntime`` over up to
+  three tier objects, ticked in a fixed order each step: KV pages
+  (``PagedKVBackend``), shared prefixes (``PrefixBackend``) and, with
+  ``expert_offchip``, MoE expert weight blocks (``ExpertBackend`` over
+  ``serve/expert_store.py``): profile -> age-fragmented thermos ->
+  ski-rental -> batched migration between the tiers.
 
 Where the JAX engine returns new pools from a jitted scan over layers, this
 one loops over layers in Python and writes K/V in place into
@@ -36,17 +43,26 @@ duplicate indices of that write are harmless; nothing accumulates through
 ``index_add_`` or a scatter-add, which are not deterministic on CUDA.
 
 The bitwise invariants (one-shot == chunked == interleaved, preemption by
-recompute) need every row's result to depend on that row alone.  The
-paged-attention kernel reduces each row in an order fixed by the row; the
-projections and norms run in fixed-size row tiles (``tiles.ROW_TILE``)
-so that a decode batch and a prefill bucket go through the same GEMM and reduction shapes.  An MoE layer routes every
-row of the pass, padded and inactive rows too (they are masked after), as
-one ``(1, R, d)`` set through ``models.moe.moe_decode``: per-token routing
-and the grouped-expert kernel's per-row order keep those invariants.
+recompute, prefix-cached == uncached, tiered experts == resident) need
+every row's result to depend on that row alone.  The paged-attention
+kernel reduces each row in an order fixed by the row; the projections and
+norms run in fixed-size row tiles (``tiles.ROW_TILE``) so that a decode
+batch and a prefill bucket go through the same GEMM and reduction shapes.
+An MoE layer routes every row of the pass, padded and inactive rows too
+(they are masked after), as one ``(1, R, d)`` set through
+``models.moe.moe_decode``: per-token routing and the grouped-expert
+kernel's per-row order keep those invariants.
 
-Not in this slice: the prefix cache, expert tiering and live migration
-between replicas.  A ``ServeConfig`` that asks for one raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+With ``expert_offchip`` the engine moves the model's expert stacks into
+the store's host tier (pinned host memory on the card) and serves the FFN
+out of a bounded cache on the device.  Each layer is then ``_ffn_half``
+split in three: ``route_tokens``, a host read of the picks (the store
+makes them resident), and ``apply_dropless_flat`` over the cache with the
+slot map as ``group_experts`` — the same ops in the same order, so the
+streams equal the resident path's whenever a dispatch's working set fits.
+
+Not in this slice: live migration between replicas (``import_request``,
+ROADMAP.md queue A item 8).
 """
 
 from __future__ import annotations
@@ -66,10 +82,12 @@ from ..core.runtime import MigrationPlan
 from ..kernels.ops import paged_attention, paged_prefill, sample_tokens
 from ..models.layers import (embed, linear, lm_head, mlp, rmsnorm, rope,
                              rope_freqs)
-from ..models.moe import moe_decode
+from ..models.moe import apply_dropless_flat, moe_decode, route_tokens
 from ..models.transformer import Model
 from .eviction import make_eviction_policy
+from .expert_store import ExpertBackend, ExpertStore
 from .kvcache import PagedKVPool
+from .prefix_cache import PrefixBackend, PrefixCache
 from .sampling import DEFAULT_MAX_TOKENS, SamplingParams
 from .scheduler import make_scheduler_policy
 
@@ -96,18 +114,30 @@ class ServeConfig:
     # > 0 caps the prompt tokens ingested per engine step (interleaved
     # prefill, one_shot mode only); 0 prefills a whole prompt at admission.
     prefill_chunk_tokens: int = 0
-    # Not ported yet (ROADMAP.md queue A item 7): setting one raises.
+    # Cross-request radix prefix cache (serve/prefix_cache.py): prompts
+    # that start with the same full-page token blocks share those pages by
+    # reference and prefill only the uncovered suffix.  Off by default:
+    # cached pages outlive their requests.
     enable_prefix_cache: bool = False
-    expert_offchip: bool = False
+    # A prefix enters the cache only when it spans at least this many full
+    # pages.
+    min_prefix_pages: int = 1
     # Debug: copy every scheduled row's logits to the host into
     # ``engine.last_logits`` (a full (B, vocab) copy per step).
     keep_logits: bool = False
-
-
-_NOT_PORTED = {
-    "enable_prefix_cache": "the prefix cache (ROADMAP.md queue A item 7)",
-    "expert_offchip": "expert tiering (ROADMAP.md queue A item 7)",
-}
+    # -------- guided expert-weight tiering (serve/expert_store.py) -------
+    # Keep the MoE expert weights in host memory and serve the FFN out of a
+    # bounded expert cache on the device.  Each layer reads its router's
+    # picks on the host; the streams equal the resident path's whenever
+    # each dispatch's working set fits the cache.
+    expert_offchip: bool = False
+    # Cache capacity in (layer, expert) blocks, shared by the layers; 0
+    # holds every block.  It must hold one decode dispatch's working set,
+    # min(n_experts, max_batch * top_k).
+    expert_cache_size: int = 0
+    # Stage the next layer's forecast experts on a side stream while this
+    # layer's FFN runs.  Off: every miss is a demand fetch (same results).
+    expert_double_buffer: bool = True
 
 
 @dataclasses.dataclass
@@ -177,7 +207,11 @@ class PagedKVBackend:
         page_bytes = self.pool.page_bytes
         step = self.clock()
         for rid in self.requests:
-            pages = self.pool.request_pages(rid)
+            # Shared prefix pages are the PrefixBackend's tier objects:
+            # profiling them here too would govern one page by two
+            # controllers (and count its accesses twice).
+            pages = [p for p in self.pool.request_pages(rid)
+                     if not p.shared]
             if not pages:
                 continue
             fast_pages = sum(1 for p in pages if p.hbm_slot is not None)
@@ -200,9 +234,11 @@ class PagedKVBackend:
 
     def reweight(self, decay: float) -> None:
         # Float counters: int(1 * 0.5) would zero any page with a single
-        # access per interval, erasing the recency ordering.
+        # access per interval, erasing the recency ordering.  Shared pages
+        # decay under the PrefixBackend instead.
         for p in self.pool.pages.values():
-            p.accesses = p.accesses * decay
+            if not p.shared:
+                p.accesses = p.accesses * decay
 
     def on_plan(self, plan: MigrationPlan) -> None:
         # Track the plan every interval (even when the break-even rule says
@@ -253,11 +289,6 @@ class Engine:
                 f"families), not {model.cfg.family!r}: the hybrid family "
                 f"serves through Model.init_cache/prefill/decode, as in the "
                 f"JAX package")
-        for knob, what in _NOT_PORTED.items():
-            if getattr(cfg, knob):
-                raise NotImplementedError(
-                    f"ServeConfig.{knob} asks for {what}, which the PyTorch "
-                    f"port does not serve yet")
         if cfg.prefill not in ("one_shot", "chunked"):
             raise ValueError(
                 f"ServeConfig.prefill must be 'one_shot' or 'chunked', "
@@ -266,6 +297,8 @@ class Engine:
             raise ValueError(
                 f"ServeConfig.prefill_chunk_tokens must be >= 0, got "
                 f"{cfg.prefill_chunk_tokens}")
+        if cfg.expert_offchip:
+            self._check_offchip(model, cfg)
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -285,26 +318,42 @@ class Engine:
         # A fresh policy instance per engine: stateful policies (DRR
         # deficits) must not bleed across engines.
         self.scheduler = make_scheduler_policy(cfg.scheduler)
+        # Prefix-cache chains matched at admission for requests still in
+        # ``prefilling``: insertion waits until the whole prompt is in.
+        self._pending_chains: Dict[int, list] = {}
         # Reserve one HBM slot as the write target for masked rows, so the
         # batched K/V write never collides with a real page.
         self.scratch_slot = self.pool.free_hbm.pop(0)
+        self.prefix_cache: Optional[PrefixCache] = None
+        if cfg.enable_prefix_cache:
+            self.prefix_cache = PrefixCache(
+                self.pool, cfg.page_size, min_pages=cfg.min_prefix_pages)
+        # The store exists whenever the experts are off the card (its LRU
+        # demand management works under any policy); its controller rides
+        # only under gdt, like the KV and prefix controllers.
+        self.expert_store: Optional[ExpertStore] = None
+        if cfg.expert_offchip:
+            self.expert_store = self._offload_experts()
         self.kv_backend: Optional[PagedKVBackend] = None
+        self.prefix_backend: Optional[PrefixBackend] = None
+        self.expert_backend: Optional[ExpertBackend] = None
         self.runtime: Optional[GuidanceRuntime] = None
+        self.prefix_runtime: Optional[GuidanceRuntime] = None
+        self.expert_runtime: Optional[GuidanceRuntime] = None
         if cfg.policy == "gdt":
-            self.kv_backend = PagedKVBackend(
-                self.pool, self.requests, clock=lambda: self.step_count)
-            self.runtime = GuidanceRuntime(
-                self.kv_backend, self.hw,
-                GuidanceConfig(
-                    strategy=cfg.strategy,
-                    # The reserved scratch slot is not placeable capacity.
-                    fast_capacity_bytes=(cfg.hbm_pages - 1)
-                    * self.pool.page_bytes,
-                    interval_steps=cfg.interval_steps,
-                    decay=cfg.access_decay,
-                    num_fragments=cfg.num_fragments,
-                    skip_empty_intervals=True),
-                clock=lambda: self.step_count)
+            clock = lambda: self.step_count            # noqa: E731
+            # The reserved scratch slot is not placeable capacity.
+            kv_bytes = (cfg.hbm_pages - 1) * self.pool.page_bytes
+            self.kv_backend = PagedKVBackend(self.pool, self.requests, clock)
+            self.runtime = self._runtime(self.kv_backend, kv_bytes)
+            if self.prefix_cache is not None:
+                self.prefix_backend = PrefixBackend(self.prefix_cache, clock)
+                self.prefix_runtime = self._runtime(self.prefix_backend,
+                                                    kv_bytes)
+            if self.expert_store is not None:
+                self.expert_backend = ExpertBackend(self.expert_store, clock)
+                self.expert_runtime = self._runtime(
+                    self.expert_backend, self.expert_store.cache_bytes)
         self.last_logits: Dict[int, np.ndarray] = {}
         # --------------------------------------------------- counters
         self.prefill_dispatches = 0    # passes spent on prefill
@@ -316,14 +365,83 @@ class Engine:
         self.preemptions = 0           # requests evicted wholesale
         self.starved_steps = 0         # request-steps skipped for capacity
         self.truncations = 0           # requests finished early for capacity
+        self.saved_prefill_tokens = 0  # prompt tokens served from the cache
+        self.expert_host_syncs = 0     # host reads of the tiered path
         self.finish_counts: Dict[str, int] = {
             "stop": 0, "length": 0, "truncated": 0, "cancelled": 0}
+
+    def _runtime(self, backend, capacity_bytes: int) -> GuidanceRuntime:
+        cfg = self.cfg
+        return GuidanceRuntime(
+            backend, self.hw,
+            GuidanceConfig(
+                strategy=cfg.strategy, fast_capacity_bytes=capacity_bytes,
+                interval_steps=cfg.interval_steps, decay=cfg.access_decay,
+                num_fragments=cfg.num_fragments, skip_empty_intervals=True),
+            clock=lambda: self.step_count)
+
+    @staticmethod
+    def _check_offchip(model: Model, cfg: ServeConfig) -> None:
+        """The JAX engine's checks of ``expert_offchip``, same texts."""
+        mc = model.cfg
+        if mc.family != "moe":
+            raise ValueError(
+                "ServeConfig.expert_offchip requires a MoE model: "
+                f"family={mc.family!r} has no expert weights to tier")
+        if model.moe_cfg.parallelism == "ep":
+            raise ValueError(
+                "ServeConfig.expert_offchip drives the flat dropless "
+                "dispatch; ep parallelism already shards experts across "
+                "the mesh — pick one placement mechanism")
+        E = model.moe_cfg.padded_experts
+        floor = min(E, cfg.max_batch * model.moe_cfg.top_k)
+        size = cfg.expert_cache_size or mc.n_layers * E
+        if cfg.expert_cache_size < 0 or 0 < size < floor:
+            raise ValueError(
+                f"ServeConfig.expert_cache_size={cfg.expert_cache_size} "
+                f"cannot hold one dispatch's expert working set: a decode "
+                f"batch of max_batch={cfg.max_batch} rows with "
+                f"top_k={model.moe_cfg.top_k} picks can route up to "
+                f"min(n_experts={E}, max_batch*top_k)={floor} distinct "
+                f"experts in one layer; raise expert_cache_size to at "
+                f"least {floor} (0 = fully resident cache) or lower "
+                f"max_batch")
+
+    def _offload_experts(self) -> ExpertStore:
+        """Build the expert store and move the model's expert stacks into
+        its host tier: each layer's ``w_gate``/``w_up``/``w_down`` becomes a
+        view of the store's flat host arrays, so the card keeps only the
+        router and the cache."""
+        model, cfg = self.model, self.cfg
+        mc = model.cfg
+        E = model.moe_cfg.padded_experts
+        layers = model.layers
+        names = ("w_gate", "w_up", "w_down")
+        # Overlap window of the modeled prefetch clock: the attention
+        # weight bytes each layer reads before the next FFN needs experts.
+        attn_bytes = (4 * mc.d_model * mc.n_heads * model.head_dim
+                      * layers[0].moe.w_gate.element_size())
+        store = ExpertStore(
+            {n: [getattr(lp.moe, n) for lp in layers] for n in names},
+            mc.n_layers, E, cfg.expert_cache_size or mc.n_layers * E,
+            double_buffer=cfg.expert_double_buffer, hw=self.hw,
+            window_bytes=attn_bytes, device=self.device)
+        for l, lp in enumerate(layers):
+            for n in names:
+                getattr(lp.moe, n).data = store.host_weights(n, l)
+        return store
 
     # ------------------------------------------------- telemetry shims
     @property
     def last_recs(self) -> Dict[int, bool]:
-        """Latest planned placement — what guided eviction consults."""
-        return self.kv_backend.last_recs if self.kv_backend else {}
+        """Latest planned placement across both KV controllers (request
+        pages and shared prefixes) — what guided eviction consults.  Page
+        ids are unique in the pool, so the merge cannot collide."""
+        recs: Dict[int, bool] = {}
+        for backend in (self.kv_backend, self.prefix_backend):
+            if backend is not None:
+                recs.update(backend.last_recs)
+        return recs
 
     @property
     def usable_hbm_pages(self) -> int:
@@ -371,8 +489,11 @@ class Engine:
             d = mlp(lp.mlp.w_gate, lp.mlp.w_up, lp.mlp.w_down, h2)
         return x + torch.where(row_mask[:, None], d, 0)
 
-    def _layers(self, x, positions, write_slot, write_off, row_mask, attend):
-        """Every layer over R rows; ``attend(q, kp, vp)``."""
+    def _layers(self, x, positions, write_slot, write_off, row_mask, attend,
+                mask, wrap_prefetch):
+        """Every layer over R rows; ``attend(q, kp, vp)``.  ``mask`` is
+        ``row_mask`` on the host, for the tiered FFN; ``wrap_prefetch``: at
+        the last layer, stage layer 0's experts by recency."""
         pool = self.pool
         for l, lp in enumerate(self.model.layers):
             kp, vp = pool.k_hbm[l], pool.v_hbm[l]
@@ -380,25 +501,90 @@ class Engine:
                 lp, x, kp, vp, positions=positions, write_slot=write_slot,
                 write_off=write_off, row_mask=row_mask,
                 attend=lambda q: attend(q, kp, vp))
-            x = self._ffn_half(lp, x, h2, row_mask)
+            if self.expert_store is None:
+                x = self._ffn_half(lp, x, h2, row_mask)
+            else:
+                x = self._tiered_ffn(l, lp, x, h2, row_mask, mask,
+                                     wrap_prefetch)
         return x
+
+    # ================================================ tiered expert path
+    def _tiered_ffn(self, l, lp, x, h2, row_mask, mask, wrap_prefetch):
+        """``_ffn_half`` out of the expert cache: route, read the picks on
+        the host, make the layer's routed experts resident (commit the
+        staged prefetch, demand-fetch the misses, evict LRU), run the FFN
+        over the cache with the slot map as ``group_experts``, then stage
+        the next layer's forecast experts while this FFN runs.
+
+        ``mask`` (host bool per row) keeps padded prefill rows and inactive
+        decode rows out of the working set: ``row_mask`` zeroes their FFN
+        output in both paths and every row's result is its own, so their
+        picks may hit absent experts (slot -1, NaN rows from the kernel)
+        without touching a live row's bits.  Same ops, same order as
+        ``_ffn_half``."""
+        store = self.expert_store
+        cfg = self.model.moe_cfg
+        gates, experts = route_tokens(lp.moe.router, h2, cfg)
+        picks = experts.cpu().numpy()
+        self.expert_host_syncs += 1
+        counts = np.bincount(picks[mask].reshape(-1),
+                             minlength=cfg.padded_experts)
+        slot_map = store.dispatch(l, counts, self.step_count)
+        nb = store.take_rental_bytes()
+        if nb and self.expert_runtime is not None:
+            self.expert_runtime.record_rental(nb, source="expert_miss")
+        d = apply_dropless_flat(
+            gates, experts, h2[None], store.w_gate_cache, store.w_up_cache,
+            store.w_down_cache, cfg, expert_slots=store.upload(slot_map))[0]
+        x = x + torch.where(row_mask[:, None], d, 0)
+        nl = (l + 1) % self.model.cfg.n_layers
+        if nl:
+            self._spec_prefetch(nl, x, mask)
+        elif wrap_prefetch:
+            store.prefetch(0, self.step_count)
+        return x
+
+    def _spec_prefetch(self, l, x, mask):
+        """Forecast layer ``l``'s routed experts from the residual stream
+        ``x`` (speculative gating: layer l's own pre-FFN norm and router one
+        attention delta early) and stage the likeliest absent ones.  The
+        forecast covers the live rows' top-k picks plus a margin of two by
+        router mass; it never touches results (a miss is a demand fetch).
+        Reads the (R, E) probabilities on the host once."""
+        store = self.expert_store
+        cfg = self.model.moe_cfg
+        live = int(mask.sum())
+        if not live or not store.can_prefetch(l):
+            return
+        lp = self.model.layers[l]
+        h2 = rmsnorm(lp.ln2.scale, x)
+        probs = torch.softmax(linear(h2.to(torch.float32), lp.moe.router),
+                              dim=-1).cpu().numpy()
+        self.expert_host_syncs += 1
+        mass = probs[mask].sum(axis=0)
+        order = np.argsort(-mass, kind="stable")
+        cap = min(cfg.padded_experts, live * cfg.top_k + 2)
+        store.prefetch(l, self.step_count,
+                       predicted=[int(e) for e in order[:cap]])
 
     # ============================================================ decode
     @torch.no_grad()
     def _decode(self, tokens, page_table, lengths, write_slot, write_off,
-                active, seeds, temperature, top_k, top_p, use_sampler):
+                active, seeds, temperature, top_k, top_p, use_sampler,
+                mask):
         """One batched decode pass.  tokens: (B,); page_table: (B, MP) HBM
         slots or -1; lengths: (B,) incl. the new token; write_slot/off:
         (B,) where the new token's K/V goes; active: (B,) bool — inactive
-        rows compute deterministic zeros.  The sampler's PRNG folds
-        ``lengths`` (the next token's stream position).  Returns (logits
-        (B, V) f32, next tokens (B,) int32)."""
+        rows compute deterministic zeros; mask: ``active`` on the host.
+        The sampler's PRNG folds ``lengths`` (the next token's stream
+        position).  Returns (logits (B, V) f32, next tokens (B,) int32)."""
         window = self.model.cfg.window
         x = embed(self.model.embed.tok, tokens)                  # (B, d)
         x = self._layers(
             x, lengths - 1, write_slot, write_off, active,
             lambda q, kp, vp: paged_attention(q, kp, vp, page_table, lengths,
-                                              window=window))
+                                              window=window),
+            mask, wrap_prefetch=False)
         x = rmsnorm(self.model.final_ln.scale, x)
         logits = lm_head(self.model.head.w, x)
         logits = torch.where(active[:, None], logits, 0.0)
@@ -407,6 +593,11 @@ class Engine:
                                 top_p)
         else:
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if self.expert_store is not None and self.expert_store.double_buffer:
+            # The sampled token is the next step's layer-0 input, so the
+            # wrap-around dispatch gets a forecast too (a forecast, not an
+            # oracle: the batch may change between steps).
+            self._spec_prefetch(0, embed(self.model.embed.tok, nxt), mask)
         return logits, nxt
 
     # =========================================================== prefill
@@ -415,9 +606,10 @@ class Engine:
                  start: int) -> None:
         """One-shot ingestion of S (padded) tokens of one sequence.
         tokens/slots/offs: (S,), padded rows target the scratch slot;
-        page_table: (MP,) the request's pages; rows attend by ABSOLUTE
-        length over the table, so a chunk at ``start`` replays the
-        whole-prompt computation bitwise."""
+        page_table: (MP,) the request's pages (cache-covered prefix
+        included); rows attend by ABSOLUTE length over the table, so a chunk
+        or a suffix at ``start`` replays the whole-prompt computation
+        bitwise."""
         S = tokens.shape[0]
         local = torch.arange(S, dtype=torch.int32, device=self.device)
         positions = start + local
@@ -428,7 +620,8 @@ class Engine:
         self._layers(
             x, positions, slots, offs, valid,
             lambda q, kp, vp: paged_prefill(q, kp, vp, page_table, lengths,
-                                            window=window))
+                                            window=window),
+            np.arange(S) < n_real, wrap_prefetch=True)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -577,7 +770,13 @@ class Engine:
                 self._finish(req, reason="truncated")
                 continue
             # One page of growth slack, capped at the lifetime need.
-            if min(n_pages + 1, pages_total) > self.free_logical_pages():
+            need = min(n_pages + 1, pages_total)
+            if need > self.free_logical_pages():
+                # Cold cached prefixes yield their logical pages before any
+                # live request is preempted.
+                if (self.prefix_cache is not None and self.prefix_cache
+                        .reclaim(need - self.free_logical_pages())):
+                    continue
                 if not self._preempt_one():
                     return              # head waits; order preserved
                 continue
@@ -598,22 +797,33 @@ class Engine:
         req.last_scheduled = self.step_count
 
     def _begin_prefill(self, req: Request) -> None:
-        """Start an interleaved prefill: allocate the whole prompt's pages
-        now (admission budgeted them) and park the request in
-        ``prefilling``."""
-        n_ingest = len(req.context) - 1
+        """Start an interleaved prefill: consult the prefix cache, allocate
+        the whole uncovered suffix's pages now (admission budgeted them)
+        and park the request in ``prefilling``.  An empty ingest or a full
+        cache hit goes straight to ``active``."""
+        context = req.context
+        n_ingest = len(context) - 1
         if n_ingest == 0:
             req.pos = 0
             req.state = "active"
             return
+        P = self.cfg.page_size
         rid = req.request_id
-        n_pages = -(-n_ingest // self.cfg.page_size)
+        chain = self._match_prefix(req, context, n_ingest)
+        covered = len(chain) * P
+        if covered == n_ingest:
+            req.pos = n_ingest           # full hit: nothing to dispatch
+            req.state = "active"
+            return
+        n_prefix_pages = covered // P
+        n_pages = -(-n_ingest // P) - n_prefix_pages
         self._ensure_free_hbm(
             n_pages, needed=[p.page_id for p in self.pool.request_pages(rid)])
         for idx in range(n_pages):
-            self.pool.allocate(rid, idx, self.step_count)
-        req.pos = 0
+            self.pool.allocate(rid, n_prefix_pages + idx, self.step_count)
+        req.pos = covered
         req.state = "prefilling"
+        self._pending_chains[rid] = chain
 
     def _advance_prefills(self) -> None:
         """Spend this step's prefill token budget across ``prefilling``
@@ -634,6 +844,8 @@ class Engine:
             budget -= n
             self.scheduler.on_tokens(req, n, self)
             if req.pos >= n_ingest:
+                chain = self._pending_chains.pop(req.request_id, [])
+                self._insert_prefix(req, req.context, n_ingest, chain)
                 req.state = "active"
                 req.last_scheduled = self.step_count
 
@@ -681,7 +893,8 @@ class Engine:
                           start)
         req.pos = start + n
         for idx in written:
-            by_index[idx].accesses += 1   # the chunk's write set
+            if not by_index[idx].shared:
+                by_index[idx].accesses += 1   # the chunk's write set
         self.prefill_dispatches += 1
         self.prefill_chunks += 1
         self.prefill_tokens += n
@@ -720,9 +933,12 @@ class Engine:
 
     def _reclaim_logical_pages(self):
         """Nothing schedulable while active requests exist — logical pages
-        are exhausted.  Preempt a paused page-holder first, else the
-        policy's running victim (it re-enters the wait queue and recomputes
-        later).  A request alone against the whole pool is truncated."""
+        are exhausted.  Reclaim a cold cached prefix first, then preempt a
+        paused page-holder, else the policy's running victim (it re-enters
+        the wait queue and recomputes later).  A request alone against the
+        whole pool is truncated."""
+        if self.prefix_cache is not None and self.prefix_cache.reclaim(1):
+            return
         if self._preempt_one():
             return
         cands = [r for r in self.requests.values()
@@ -739,14 +955,59 @@ class Engine:
         victim.pos = 0
         victim.state = "waiting"
         victim.queued_step = self.step_count
+        self._pending_chains.pop(victim.request_id, None)
         self.wait_queue.append(victim.request_id)
         self.preemptions += 1
 
     # -------------------------------------------------------- prefill
+    def _match_prefix(self, req: Request, context: List[int],
+                      n_ingest: int) -> list:
+        """Consult the prefix cache and attach every matched full-page block
+        to the request by reference.  Returns the matched node chain (empty
+        without a cache or on a miss).  Matched pages are made HBM-resident
+        here: the suffix pass (or the first decode, on a full hit) attends
+        over them."""
+        if self.prefix_cache is None:
+            return []
+        chain = self.prefix_cache.match(context[:n_ingest], self.step_count)
+        if not chain:
+            return []
+        hit_ids = [n.page_id for n in chain]
+        missing = [pid for pid in hit_ids
+                   if self.pool.pages[pid].hbm_slot is None]
+        if missing:
+            self._ensure_free_hbm(len(missing), needed=hit_ids)
+            self.pool.swap_in_many(missing)
+            # A hit on a demoted prefix is rent paid on the PREFIX
+            # controller's ledger (it made the demotion call).
+            if self.prefix_runtime is not None:
+                self.prefix_runtime.record_rental(
+                    self.pool.page_bytes * len(missing), source="prefix_hit")
+        for node in chain:
+            self.pool.attach(req.request_id, node.page_id, self.step_count)
+        self.saved_prefill_tokens += len(chain) * self.cfg.page_size
+        return chain
+
+    def _insert_prefix(self, req: Request, context: List[int],
+                       n_ingest: int, chain: list) -> None:
+        """Adopt the request's freshly written full-page PROMPT blocks into
+        the cache (generated tokens never extend a shareable prefix).
+        ``chain`` is what ``_match_prefix`` covered; the radix walk goes on
+        from there."""
+        if self.prefix_cache is None:
+            return
+        self.prefix_cache.insert(
+            context[:n_ingest], self.pool.request_pages(req.request_id),
+            limit=min(n_ingest, len(req.tokens)), step=self.step_count,
+            chain=chain)
+
     def _prefill_request(self, req: Request):
         """Ingest ``req.context[:-1]`` (the last token is fed by the first
-        decode step): one pass in one_shot mode; the chunked oracle steps
-        the tokens through decode."""
+        decode step).  The prefix cache is consulted first: matched blocks
+        attach by reference and only the uncovered suffix is ingested — one
+        pass at absolute start ``covered`` in one_shot mode (a full hit
+        dispatches nothing); the chunked oracle steps the suffix tokens
+        through decode."""
         context = req.context
         n_ingest = len(context) - 1
         if n_ingest == 0:
@@ -754,34 +1015,46 @@ class Engine:
             return
         P = self.cfg.page_size
         rid = req.request_id
-        if self.cfg.prefill == "chunked":
-            req.pos = 0
-            for t in context[:-1]:
-                self._decode_one(req, t)
-            self.prefill_tokens += n_ingest
+        chain = self._match_prefix(req, context, n_ingest)
+        covered = len(chain) * P
+        n_suffix = n_ingest - covered
+        if n_suffix == 0:
+            req.pos = n_ingest     # full hit: every ingested token is shared
             return
-        n_pages = -(-n_ingest // P)
+        if self.cfg.prefill == "chunked":
+            req.pos = covered
+            for t in context[covered:-1]:
+                self._decode_one(req, t)
+            self.prefill_tokens += n_suffix
+            self._insert_prefix(req, context, n_ingest, chain)
+            return
+        n_prefix_pages = covered // P
+        n_pages = -(-n_ingest // P) - n_prefix_pages
         self._ensure_free_hbm(
             n_pages, needed=[p.page_id for p in self.pool.request_pages(rid)])
-        pages = [self.pool.allocate(rid, idx, self.step_count)
+        pages = [self.pool.allocate(rid, n_prefix_pages + idx,
+                                    self.step_count)
                  for idx in range(n_pages)]
         # Pad the token axis to a power-of-two bucket (>= one page).
-        S = max(P, 1 << (n_ingest - 1).bit_length())
+        S = max(P, 1 << (n_suffix - 1).bit_length())
         tokens = np.zeros((S,), np.int32)
-        tokens[:n_ingest] = context[:n_ingest]
+        tokens[:n_suffix] = context[covered:n_ingest]
         slots = np.full((S,), self.scratch_slot, np.int32)
         offs = np.zeros((S,), np.int32)
-        for t in range(n_ingest):
+        # ``covered`` is page-aligned: suffix token t lands at page t // P,
+        # offset t % P of the private tail.
+        for t in range(n_suffix):
             slots[t] = pages[t // P].hbm_slot
             offs[t] = t % P
-        self._run_prefill(tokens, self._table(pages), slots, offs, n_ingest,
-                          0)
+        self._run_prefill(tokens, self._table(self.pool.request_pages(rid)),
+                          slots, offs, n_suffix, covered)
         req.pos = n_ingest
         for i, p in enumerate(pages):
-            p.accesses += 1         # the pass's access set: every page
-            p.tokens_used = min(P, n_ingest - i * P)
+            p.accesses += 1         # the pass's access set: every new page
+            p.tokens_used = min(P, n_suffix - i * P)
         self.prefill_dispatches += 1
-        self.prefill_tokens += n_ingest
+        self.prefill_tokens += n_suffix
+        self._insert_prefix(req, context, n_ingest, chain)
 
     # ------------------------------------------------------- page mgmt
     def _note_swap_in(self, n_pages: int):
@@ -792,9 +1065,15 @@ class Engine:
 
     def _page_for_write(self, req: Request) -> Tuple[int, int]:
         """(hbm_slot, offset) for the next token; ``_prepare_batch`` has
-        made every page resident and allocated the write page."""
+        made every page resident and allocated the write page.  Sharing is
+        full-page granular, so the write target is never shared on the
+        normal path; if it is, the request gets a private copy
+        (copy-on-write) rather than changing every holder's K/V."""
         idx, off = divmod(req.pos, self.cfg.page_size)
         page = self.pool.request_pages(req.request_id)[idx]
+        if page.refcount > 1 or page.shared:
+            page = self.pool.copy_page(page.page_id, req.request_id,
+                                       self.step_count)
         page.tokens_used = off + 1
         return page.hbm_slot, off
 
@@ -909,16 +1188,20 @@ class Engine:
         return out
 
     def _tick_controllers(self) -> None:
-        """MaybeMigrate for every guidance controller, in a fixed order
-        (this slice has one: KV pages)."""
-        if self.runtime is not None:
-            self.runtime.on_step()
+        """MaybeMigrate for every guidance controller, in a FIXED order:
+        KV pages -> shared prefixes -> expert weights.  The order is part
+        of the replay contract (it decides which controller sees the
+        interval's free HBM first); new controllers go at the end."""
+        for rt in (self.runtime, self.prefix_runtime, self.expert_runtime):
+            if rt is not None:
+                rt.on_step()
 
     def _finish(self, req: Request, reason: str = "length"):
         """Free pages, prune the live tables, park the result in
         ``finished`` with its ``finish_reason``."""
         if reason not in self.finish_counts:
             raise ValueError(f"unknown finish reason {reason!r}")
+        self._pending_chains.pop(req.request_id, None)
         self._release_pages(req.request_id)
         req.state = "finished"
         req.finish_reason = reason
@@ -974,7 +1257,7 @@ class Engine:
         logits, toks = self._decode(
             t(tokens), t(table), t(lengths), t(wslot).long(), t(woff).long(),
             t(active), t(seeds), t(temperature), t(top_k), t(top_p),
-            use_sampler=not greedy)
+            use_sampler=not greedy, mask=active)
         self.decode_dispatches += 1
         if self.cfg.keep_logits:
             logits_np = logits.cpu().numpy()
@@ -985,7 +1268,36 @@ class Engine:
 
     # --------------------------------------------------------- telemetry
     def stats(self) -> Dict[str, float]:
+        pc = self.prefix_cache
+        prefix = {
+            "prefix_lookups": pc.lookups,
+            "prefix_hit_requests": pc.hit_requests,
+            "prefix_hit_pages": pc.hit_pages,
+            "prefix_hit_rate": pc.hit_rate,
+            "prefix_cached_pages": len(pc),
+            "prefix_inserted_pages": pc.inserted_pages,
+            "prefix_evicted_pages": pc.evicted_pages,
+        } if pc is not None else {}
+        es = self.expert_store
+        expert = {
+            "expert_cache_slots": es.cache_slots,
+            "expert_resident_blocks": sum(
+                1 for b in es.blocks.values() if b.slot is not None),
+            "expert_demand_fetches": es.demand_fetches,
+            "expert_prefetch_fetches": es.prefetch_fetches,
+            "expert_prefetch_hits": es.prefetch_hits,
+            "expert_dropped_prefetches": es.dropped_prefetches,
+            "expert_evictions": es.evictions,
+            "expert_bytes_fetched": es.bytes_fetched,
+            "expert_transfer_events": es.transfer_events,
+            # Host reads of the device on the tiered path: the picks of
+            # every layer, and each forecast's router probabilities.
+            "expert_host_syncs": self.expert_host_syncs,
+        } if es is not None else {}
         return {
+            **prefix,
+            **expert,
+            "saved_prefill_tokens": self.saved_prefill_tokens,
             "steps": self.step_count,
             "swap_ins": self.pool.swaps_in,
             "swap_outs": self.pool.swaps_out,

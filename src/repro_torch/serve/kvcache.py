@@ -30,6 +30,8 @@ only; the request->pages association lives in the pool's per-request
 sequence table (``request_pages``/``attach``/``release_request``), and
 ``free`` releases physical slots only at refcount zero.  A page with
 refcount > 1 is immutable (``copy_page`` gives a writer a private copy).
+``acquire`` adds the prefix cache's bare reference and marks the page
+``shared``.
 Every change to the sequence table also updates a page -> holders index,
 so ``holders`` (which eviction asks for every candidate page) costs the
 page's few holders, not a scan of every sequence.
@@ -76,7 +78,14 @@ class Page:
     # Float: ReweightProfile decays counters every interval.
     accesses: float = 0.0
     tokens_used: int = 0
+    # One reference per attached request, plus one for the prefix cache
+    # when the page is a shared-prefix block.
     refcount: int = 1
+    # True once the prefix cache holds a reference: such pages are
+    # profiled and placed by the PrefixBackend, not the per-request one.
+    shared: bool = False
+    # Step of the last attach or access: the eviction clock of pages whose
+    # only holder is the cache.
     last_used: int = 0
 
 
@@ -177,6 +186,15 @@ class PagedKVPool:
             self.free_host.append(page.host_slot)
 
     # ----------------------------------------------------------- sharing
+    def acquire(self, page_id: int, shared: bool = False) -> Page:
+        """Add one bare reference (the prefix cache's hold on a block).
+        ``shared=True`` marks the page as cache-governed for profiling."""
+        page = self.pages[page_id]
+        page.refcount += 1
+        if shared:
+            page.shared = True
+        return page
+
     def attach(self, request_id: int, page_id: int, step: int) -> Page:
         """Reference an existing page from ``request_id``'s sequence, in
         index order."""

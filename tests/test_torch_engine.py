@@ -359,10 +359,6 @@ def test_llm_generate_and_streaming(port_model):
 
 
 def test_out_of_slice_options_raise(port_model):
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        Engine(port_model, ServeConfig(enable_prefix_cache=True))
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        Engine(port_model, ServeConfig(expert_offchip=True))
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         LLM(port_model, replicas=2)
     xlstm = config_from_reference(get_smoke("xlstm_350m"))

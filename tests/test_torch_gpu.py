@@ -636,3 +636,123 @@ def test_guided_training_on_the_card_offloads_and_is_lossless(cuda):
     on_host = [n for n, p in tr.params.items() if not p.is_cuda]
     assert on_host and all(tr.params[n].is_pinned() for n in on_host)
     assert any(not t.is_cuda for t in tr.opt_state.v.values())
+
+
+# ------------------------------------------- expert cache and prefix cache
+def test_expert_prefetch_lands_after_queued_readers(cuda):
+    """The write-after-read hazard of a cache written in place: a prefetch
+    evicts the slots a grouped FFN still queued behind a long kernel reads.
+    Its copy on the side stream must land after that launch, and the
+    launch after it reads the prefetched slots after the copy: both
+    outputs equal the synchronous path's, bitwise."""
+    from repro_torch.core import h100
+    from repro_torch.serve import ExpertStore
+
+    L, E, d, f, T = 2, 4, 128, 64, 64
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = {name: (torch.randn((L, E) + shape, generator=gen, device=cuda)
+                / shape[0] ** 0.5).to(torch.bfloat16)
+         for name, shape in (("w_gate", (d, f)), ("w_up", (d, f)),
+                             ("w_down", (f, d)))}
+    x = torch.randn((T, d), generator=gen, device=cuda).to(torch.bfloat16)
+    first = torch.tensor([32, 32, 0, 0], dtype=torch.int32, device=cuda)
+    second = torch.tensor([0, 0, 32, 32], dtype=torch.int32, device=cuda)
+
+    def ffn(store, sizes, slot_map):
+        return mg.moe_grouped_ffn_cuda(
+            x, store.w_gate_cache, store.w_up_cache, store.w_down_cache,
+            sizes, store.upload(slot_map))
+
+    outs = {}
+    for db in (False, True):
+        store = ExpertStore(w, L, E, 4, hw=h100(), double_buffer=db,
+                            device=cuda)
+        m0 = store.dispatch(0, first.cpu().numpy(), step=1)
+        torch.cuda.synchronize()
+        if db:
+            torch.cuda._sleep(1 << 30)         # holds the queue ~0.5 s
+        y0 = ffn(store, first, m0)
+        store.dispatch(1, first.cpu().numpy(), step=1)
+        if db:
+            assert store.prefetch(1, step=1, predicted=[2, 3]) == 2
+            evicted = {store.blocks[(0, e)].slot for e in (0, 1)}
+            assert evicted == {None}, "the prefetch took layer 0's slots"
+            assert sorted(store._reserved) == sorted(m0[:2].tolist())
+        m1 = store.dispatch(1, second.cpu().numpy(), step=2)
+        y1 = ffn(store, second, m1)
+        torch.cuda.synchronize()
+        outs[db] = (y0, y1)
+        if db:
+            assert store.prefetch_hits == 2 and store.demand_fetches == 4
+    assert torch.equal(outs[True][0], outs[False][0])
+    assert torch.equal(outs[True][1], outs[False][1])
+    want = mg.moe_grouped_ffn_cuda(x, w["w_gate"][0], w["w_up"][0],
+                                   w["w_down"][0], first)
+    assert torch.equal(outs[True][0], want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [32, 2048])
+def test_moe_grouped_ffn_through_a_320_row_cache(cuda, dtype, T):
+    """granite's widths: the 40 experts at scattered rows of a 320-row
+    array give rows bitwise equal to the 40-row resident call; groups at
+    slot -1 give NaN rows and leave every other row untouched; the kernel
+    equals the plain version, NaN rows included."""
+    E, k, d, f, rows = 40, 8, 1536, 512, 320
+    sizes = routed(T // k, E, k, seed=T)
+    x, wg, wu, wd, gs = ffn_case(cuda, dtype, T, E, d, f, sizes, seed=T)
+    gen = torch.Generator(device=cuda).manual_seed(T + 1)
+    where = torch.randperm(rows, generator=gen, device=cuda)[:E]
+    bank = []
+    for wt in (wg, wu, wd):
+        b = torch.randn((rows,) + wt.shape[1:], generator=gen,
+                        device=cuda).to(dtype)
+        b[where] = wt
+        bank.append(b)
+    slots = where.to(torch.int32)
+    resident = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs)
+    assert torch.equal(mg.moe_grouped_ffn_cuda(x, *bank, gs, slots),
+                       resident)
+    absent = [g for g in range(E) if sizes[g]][::4]
+    holes = slots.clone()
+    holes[absent] = -1
+    got = mg.moe_grouped_ffn_cuda(x, *bank, gs, holes)
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    dead = torch.zeros(T, dtype=torch.bool, device=cuda)
+    for g in absent:
+        dead[int(bounds[g]):int(bounds[g + 1])] = True
+    assert torch.isnan(got[dead].float()).all()
+    assert torch.equal(got[~dead], resident[~dead])
+    want = ref.moe_grouped_ffn_reference(x, *bank, gs, holes)
+    assert torch.allclose(got.float(), want.float(), atol=TOL[dtype],
+                          rtol=TOL[dtype], equal_nan=True)
+
+
+def test_tiered_and_prefix_cached_serving_on_the_card(cuda):
+    """Smoke widths on the card: tiered experts (double buffering on and
+    off) == resident, and prefix-cached == uncached, bitwise streams."""
+    from repro_torch.serve import LLM, SamplingParams, ServeConfig
+
+    base = dict(max_batch=2, page_size=4, hbm_pages=32, host_pages=64,
+                max_pages_per_seq=16, interval_steps=4)
+    shared = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8]
+    prompts = [shared + [20 + i] for i in range(3)]
+    params = [SamplingParams(max_tokens=6),
+              SamplingParams(max_tokens=6, temperature=0.8, seed=7),
+              SamplingParams(max_tokens=6)]
+
+    def run(arch, **kw):
+        llm = LLM.from_arch(arch, cfg=ServeConfig(**base, **kw), seed=0,
+                            device=cuda)
+        outs = llm.generate(prompts, params)
+        return [o.token_ids for o in outs], llm.stats()
+
+    want, _ = run("granite_moe_3b_a800m")
+    for db in (False, True):
+        got, st = run("granite_moe_3b_a800m", expert_offchip=True,
+                      expert_cache_size=8, expert_double_buffer=db)
+        assert got == want and st["expert_evictions"] > 0
+        assert (st["expert_prefetch_hits"] > 0) == db
+    want, _ = run("llama3_2_1b")
+    got, st = run("llama3_2_1b", enable_prefix_cache=True)
+    assert got == want and st["saved_prefill_tokens"] == 24
