@@ -115,6 +115,28 @@ Phases, each of which raises on failure:
    bitwise equal, and a synchronised breakdown and a profiled pass of
    the 2-request run (the host-to-device copies' share of the busy time).
 
+9. Cluster serving, run after phase 8 (before training): ``llama3_2_1b``
+   at its published widths behind ``LLM(model, cfg, replicas=N)``, phase
+   4's workload and ServeConfig with 80 HBM pages a replica (about two of
+   its sessions), the launch counters zeroed just before each main run
+   and read just after, each run's paged launches, wall time and
+   ``serving_summary`` logged.  9a: three replicas == one replica
+   bitwise, and one replica == phase 4's streams.  9b: replica 0 fails
+   after 2 steps (heartbeat timeout 2): its requests are rebuilt cold on
+   the survivors, streams bitwise equal.  9c: replica 0 drained after 3
+   steps and removed: every move warm, pages from the host tier among
+   the exports, streams bitwise equal; then a rolling restart of all
+   three replicas under load, nothing lost, streams equal.  9d: a
+   two-tenant trace from ``synthesize`` replayed by ``TraceReplayer`` on
+   two replicas, eagerly under the priority policy and with 256-token
+   interleaved prefill under DRR: equal streams; the modeled TTFT, TPOT
+   and goodput and the wall clock's generated tokens/s logged.  9e:
+   ``python -m repro_torch.launch.serve --arch llama3_2_1b --replicas 2
+   --rolling-restart ...`` exits 0 with 2 restarts and nothing lost.
+   Phases 4, 5 and 8 time their breakdown on the single replica's
+   ``Engine`` (``llm.engine`` is the ``Router``); a layer that records no
+   time raises.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -1198,14 +1220,71 @@ def forward_reference(model, tokens):
     return (x[-1] @ model.head.w).to(f32)
 
 
+def breakdown(card, label, engines, run, idle_ok=()) -> None:
+    """Run ``run()`` with each engine's layers of work timed on the host
+    clock, the device synchronised around each (which slows the run a
+    little), summed over ``engines``; eviction is the ranking of pages to
+    demote, host work only.  The wrappers go on the ``Engine`` objects
+    themselves (``llm.engine`` is the ``Router``, which an engine never
+    calls through); a layer that records no time raises unless
+    ``idle_ok`` names it (a run that moves no page)."""
+    import torch
+
+    spent = {}
+    inside = []
+    wrapped = set()
+
+    def timed(obj, attr, what):
+        fn = getattr(obj, attr)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            inside.append(what)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                inside.pop()
+                dt = time.perf_counter() - t
+                spent[what] = spent.get(what, 0.0) + dt
+                if what == "migration" and "guidance" in inside:
+                    spent["guidance"] = spent.get("guidance", 0.0) - dt
+
+        setattr(obj, attr, wrapper)
+        wrapped.add(what)
+
+    for eng in engines:
+        timed(eng, "_prefill", "prefill forward")
+        timed(eng, "_decode", "decode forward")
+        for attr in ("exchange", "swap_in_many", "swap_out_many"):
+            timed(eng.pool, attr, "migration")
+        timed(eng.runtime, "on_step", "guidance")
+        timed(eng.eviction, "pick_many", "eviction")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    idle = sorted(w for w in wrapped if spent.get(w, 0.0) <= 0.0)
+    if set(idle) - set(idle_ok):
+        raise AssertionError(f"breakdown {label}: {idle} recorded no time: "
+                             f"the wrappers were not on the serving path")
+    rest = wall - sum(spent.values())
+    parts = ", ".join(f"{k} {v:.3f} s ({100 * v / wall:.1f}%)"
+                      for k, v in sorted(spent.items(), key=lambda kv: -kv[1]))
+    log(f"breakdown {label} (synchronised run, {wall:.3f} s): {parts}, rest "
+        f"of the engine {rest:.3f} s ({100 * rest / wall:.1f}%) "
+        f"{card.tag()}")
+
+
 def where_time_goes(card, arch, cfg, prompts, params, main_wall,
-                    shares, label=None) -> None:
-    """The serving workload twice more on fresh engines.  First with the
-    engine's layers of work timed on the host clock, the device
-    synchronised around each (which slows the run a little); eviction is
-    the ranking of pages to demote, host work only.  Then under
-    ``torch.profiler`` for the device's time by kernel; the device's busy
-    time over the main run's wall time gives its idle share there (the
+                    shares, label=None, idle_ok=()) -> None:
+    """The serving workload twice more on fresh engines.  First through
+    ``breakdown`` on the single replica's engine (``idle_ok`` passes on).
+    Then under ``torch.profiler`` for the device's time by kernel; the
+    device's busy time over the main run's wall time gives its idle share
+    there (the
     profiler slows the host, not the kernels).  ``shares``: (what, needle)
     pairs, each kernel family whose device time, launches and share of the
     busy time are logged.  ``label`` names the run in the log (default
@@ -1222,47 +1301,9 @@ def where_time_goes(card, arch, cfg, prompts, params, main_wall,
                              device="cuda")
 
     llm = fresh()
-    eng = llm.engine
-    spent = {}
-    inside = []
-
-    def timed(obj, attr, label):
-        fn = getattr(obj, attr)
-
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            inside.append(label)
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                torch.cuda.synchronize()
-                inside.pop()
-                dt = time.perf_counter() - t
-                spent[label] = spent.get(label, 0.0) + dt
-                if label == "migration" and "guidance" in inside:
-                    spent["guidance"] = spent.get("guidance", 0.0) - dt
-
-        setattr(obj, attr, wrapper)
-
-    timed(eng, "_prefill", "prefill forward")
-    timed(eng, "_decode", "decode forward")
-    for attr in ("exchange", "swap_in_many", "swap_out_many"):
-        timed(eng.pool, attr, "migration")
-    timed(eng.runtime, "on_step", "guidance")
-    timed(eng.eviction, "pick_many", "eviction")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    llm.generate(prompts, params)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rest = wall - sum(spent.values())
-    parts = ", ".join(f"{k} {v:.3f} s ({100 * v / wall:.1f}%)"
-                      for k, v in sorted(spent.items(), key=lambda kv: -kv[1]))
-    log(f"breakdown {label} (synchronised run, {wall:.3f} s): {parts}, rest "
-        f"of the engine {rest:.3f} s ({100 * rest / wall:.1f}%) "
-        f"{card.tag()}")
-    del llm, eng
+    breakdown(card, label, [llm.cluster.replicas[0].engine],
+              lambda: llm.generate(prompts, params), idle_ok)
+    del llm
 
     llm = fresh()
     torch.cuda.synchronize()
@@ -1762,7 +1803,8 @@ def serve_tiered(card, kernel_rows) -> None:
     where_time_goes(card, MOE, cfg, prompts[:2], params[:2], walls[True],
                     [("grouped-expert", "moe_"),
                      ("host-to-device copy", "Memcpy HtoD")],
-                    label=f"{MOE} tiered, 2 requests")
+                    label=f"{MOE} tiered, 2 requests",
+                    idle_ok=("migration", "eviction"))
 
 
 def serve_shared_tiers(card, kernel_rows) -> None:
@@ -1770,6 +1812,330 @@ def serve_shared_tiers(card, kernel_rows) -> None:
     serving (8b)."""
     serve_prefix(card)
     serve_tiered(card, kernel_rows)
+
+
+# ------------------------------------------------------- cluster serving
+# Phase 9: phase 4's workload and ServeConfig with CLUSTER_HBM pages per
+# replica, so that each replica's HBM holds about two of its sessions.
+CLUSTER_HBM = 80
+# Phase 9d's two-tenant trace: its arrival window in engine steps.
+TRACE_HORIZON = 64
+
+
+def cluster_workload(vocab: int):
+    """Phase 4's prompts and SamplingParams (the same generator and draws
+    as ``main_run``'s), so phase 9's streams can be held to phase 4's."""
+    import numpy as np
+
+    from repro_torch.serve import SamplingParams
+
+    _, n_req, n_prompt, n_new, seed = SERVING[DENSE]
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab, n_prompt).tolist()
+               for _ in range(n_req)]
+    params = [SamplingParams(max_tokens=n_new) for _ in range(n_req)]
+    params[3] = SamplingParams(max_tokens=n_new, temperature=0.8, top_k=40,
+                               top_p=0.9, seed=7)
+    return prompts, params
+
+
+def cluster_cfg(**extra):
+    from repro_torch.serve import ServeConfig
+
+    return ServeConfig(**dict(SERVING[DENSE][0], hbm_pages=CLUSTER_HBM,
+                              **extra))
+
+
+def log_cluster_run(card, label, llm, wall, n_tokens, launches) -> dict:
+    """Check a phase 9 run's paged launches against its passes (a removed
+    replica's passes leave the stats, so at least) and log them with the
+    wall time and ``serving_summary``'s cluster and migration keys."""
+    from repro_torch.launch.analysis import serving_summary
+
+    summary = serving_summary(llm.engine)
+    L = llm.cluster.replicas[0].engine.model.cfg.n_layers
+    for name, key in (("paged_attention", "engine_decode_dispatches"),
+                      ("paged_prefill", "engine_prefill_dispatches")):
+        if launches[name] == 0 or launches[name] < L * summary[key]:
+            raise AssertionError(f"cluster {label}: {launches[name]} "
+                                 f"{name} launches for {summary[key]} "
+                                 f"passes of {L} layers")
+    keys = ("cluster_replicas", "cluster_migrations_warm",
+            "cluster_migrations_cold", "cluster_failovers",
+            "cluster_restarts", "cluster_requests_lost", "engine_steps",
+            "engine_prefill_dispatches", "engine_decode_dispatches",
+            "engine_swap_ins", "engine_swap_outs", "engine_exported_pages",
+            "engine_imported_pages", "engine_preemptions", "intervals",
+            "migrations")
+    shown = ", ".join(f"{k} {summary[k]:g}" for k in keys if k in summary)
+    log(f"cluster {label}: {n_tokens / wall:.2f} generated tokens/s in "
+        f"{wall:.3f} s; paged_attention {launches['paged_attention']}, "
+        f"paged_prefill {launches['paged_prefill']} launches; "
+        f"serving_summary: {shown} {card.tag()}")
+    return summary
+
+
+def cluster_run(card, model, label, replicas, drive=None, **kw):
+    """Phase 4's workload through ``LLM(model, cfg, replicas=N)``, the
+    launch counters zeroed just before and read just after.  ``drive``
+    submits (and may step, fail, drain or restart) and returns the
+    handles; the run then steps to the end.  Returns (streams, llm,
+    summary)."""
+    import torch
+
+    from repro_torch.serve import LLM
+
+    prompts, params = cluster_workload(model.cfg.vocab)
+    llm = LLM(model, cluster_cfg(), replicas=replicas, **kw)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    if drive is None:
+        handles = [llm.submit(p, sp, request_id=i)
+                   for i, (p, sp) in enumerate(zip(prompts, params))]
+    else:
+        handles = drive(llm, prompts, params)
+    while any(not h.finished for h in handles):
+        llm.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    streams = [h.result().token_ids for h in handles]
+    n_new = SERVING[DENSE][3]
+    if any(len(t) != n_new for t in streams):
+        raise AssertionError(f"cluster {label}: stream lengths "
+                             f"{[len(t) for t in streams]}")
+    summary = log_cluster_run(card, label, llm, wall,
+                              sum(map(len, streams)), launches)
+    return streams, llm, summary
+
+
+def cluster_chaos(card, model, want) -> dict:
+    """Phases 9b and 9c: a crash, a drain, a rolling restart, each held to
+    the single replica's streams.  Returns each run's summary."""
+    out = {}
+    seen = {}
+
+    def crash(llm, prompts, params):
+        handles = [llm.submit(p, sp, request_id=i)
+                   for i, (p, sp) in enumerate(zip(prompts, params))]
+        for _ in range(2):
+            llm.step()
+        seen["orphaned"] = sorted(rid for rid, rep in
+                                  llm.cluster.owner.items()
+                                  if rep.replica_id == 0)
+        llm.cluster.fail(0)
+        return handles
+
+    streams, llm, out["crash"] = cluster_run(card, model, "9b crash", 3,
+                                             crash, heartbeat_timeout=2.0)
+    c = llm.cluster
+    if streams != want or c.failovers != 1 \
+            or c.migrations_cold != len(seen["orphaned"]) \
+            or c.requests_lost:
+        raise AssertionError(f"cluster crash: streams equal "
+                             f"{streams == want}, failovers {c.failovers}, "
+                             f"cold {c.migrations_cold} for "
+                             f"{seen['orphaned']}, lost {c.requests_lost}")
+    log(f"cluster 9b: replica 0 failed after 2 steps, detected after the "
+        f"2-tick heartbeat timeout; {c.migrations_cold} requests "
+        f"{seen['orphaned']} rebuilt cold on survivors; streams bitwise "
+        f"equal to one replica")
+    del llm, c
+    free_card()
+
+    def drain(llm, prompts, params):
+        handles = [llm.submit(p, sp, request_id=i)
+                   for i, (p, sp) in enumerate(zip(prompts, params))]
+        for _ in range(3):
+            llm.step()
+        src = llm.cluster.replicas[0].engine
+        owned = sorted(src.requests)
+        pages = [p for rid in owned for p in src.pool.request_pages(rid)]
+        seen.update(owned=owned, pages=len(pages),
+                    host=sum(p.hbm_slot is None for p in pages))
+        seen["moved"] = llm.cluster.drain(0)
+        llm.cluster.remove_replica(0)
+        return handles
+
+    streams, llm, out["drain"] = cluster_run(card, model, "9c drain", 3,
+                                             drain)
+    c = llm.cluster
+    imported = out["drain"]["engine_imported_pages"]
+    if streams != want or c.migrations_cold or seen["moved"] != len(
+            seen["owned"]) or c.migrations_warm != seen["moved"] \
+            or imported <= 0 or seen["host"] <= 0:
+        raise AssertionError(f"cluster drain: streams equal "
+                             f"{streams == want}, {seen}, warm "
+                             f"{c.migrations_warm}, cold "
+                             f"{c.migrations_cold}, imported {imported}")
+    log(f"cluster 9c: replica 0 drained after 3 steps: {seen['moved']} "
+        f"requests {seen['owned']} moved warm with {seen['pages']} pages "
+        f"({seen['host']} from the host tier), {imported:g} imported; "
+        f"streams bitwise equal to one replica")
+    del llm, c
+    free_card()
+
+    def rolling(llm, prompts, params):
+        handles = [llm.submit(p, sp, request_id=i)
+                   for i, (p, sp) in enumerate(zip(prompts[:5], params))]
+        for _ in range(2):
+            llm.step()
+        for i, rep_id in enumerate([r.replica_id
+                                    for r in llm.cluster.replicas]):
+            llm.cluster.restart_replica(rep_id)
+            # Submissions keep landing while the restart sweeps.
+            handles.append(llm.submit(prompts[5 + i], params[5 + i],
+                                      request_id=5 + i))
+            llm.step()
+        return handles
+
+    streams, llm, out["rolling"] = cluster_run(card, model,
+                                               "9c rolling restart", 3,
+                                               rolling)
+    c = llm.cluster
+    if streams != want or c.restarts != 3 or c.requests_lost:
+        raise AssertionError(f"cluster rolling restart: streams equal "
+                             f"{streams == want}, restarts {c.restarts}, "
+                             f"lost {c.requests_lost}")
+    log(f"cluster 9c: rolling restart of all 3 replicas under load, "
+        f"{c.migrations_warm} warm and {c.migrations_cold} cold moves, "
+        f"nothing lost; streams bitwise equal to one replica")
+    del llm, c
+    free_card()
+    return out
+
+
+def cluster_trace(card, model) -> None:
+    """Phase 9d: a two-tenant trace from ``synthesize`` replayed through
+    ``TraceReplayer`` on two replicas, eagerly under the priority policy
+    and with 256-token interleaved prefill under DRR: equal streams."""
+    import torch
+
+    from repro_torch.serve import (LLM, SLO, TenantSpec, TraceReplayer,
+                                   WorkloadConfig, synthesize)
+
+    trace = synthesize(WorkloadConfig(tenants=(
+        TenantSpec(name="chat", arrival="poisson", rate=0.25,
+                   prompt_mix=((128, 2.0), (512, 1.0)),
+                   output_mix=((32, 1.0),), temperature=0.7),
+        TenantSpec(name="batch", arrival="bursty", rate=0.2,
+                   burst_factor=4.0, burst_period=32, burst_duty=0.25,
+                   priority=1, prompt_mix=((768, 1.0),),
+                   output_mix=((16, 1.0),), deadline_steps=64),
+    ), horizon_steps=TRACE_HORIZON, vocab=model.cfg.vocab, seed=0))
+    tenants = {t: sum(r.tenant == t for r in trace.requests)
+               for t in ("chat", "batch")}
+    log(f"cluster 9d: trace of {len(trace)} requests ({tenants}) over "
+        f"{TRACE_HORIZON} steps, "
+        f"{sum(len(r.prompt) for r in trace.requests)} prompt tokens")
+    runs = {}
+    for label, extra in (("eager, priority", dict(scheduler="priority")),
+                         ("prefill_chunk_tokens=256, drr",
+                          dict(scheduler="drr", prefill_chunk_tokens=256))):
+        llm = LLM(model, cluster_cfg(**extra), replicas=2)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        report = TraceReplayer(llm, trace).run(max_steps=4096)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        n_tokens = sum(map(len, report.token_ids.values()))
+        log_cluster_run(card, f"9d replay {label}", llm, wall, n_tokens,
+                        launches)
+        s = report.summary(slo=SLO())
+        if s["finished"] != len(trace):
+            raise AssertionError(f"cluster replay {label}: {s}")
+        log(f"cluster 9d replay {label}: {report.steps_run} steps, modeled "
+            f"{report.modeled_ms:.1f} ms; modeled TTFT p50 "
+            f"{s['p50_ttft_ms']:.1f} / p99 {s['p99_ttft_ms']:.1f} ms, TPOT "
+            f"p50 {s['p50_tpot_ms']:.1f} / p99 {s['p99_tpot_ms']:.1f} ms, "
+            f"goodput {s['goodput_slo']:.3f} (SLO {SLO().ttft_ms:g} / "
+            f"{SLO().tpot_ms:g} ms modeled); wall clock "
+            f"{n_tokens / wall:.2f} generated tokens/s ({n_tokens} tokens "
+            f"in {wall:.3f} s) {card.tag()}")
+        runs[label] = report.token_ids
+        del llm
+        free_card()
+    a, b = runs.values()
+    if a != b:
+        raise AssertionError("cluster replay: eager and interleaved streams "
+                             "differ")
+    log(f"cluster 9d: the two replays' token_ids are equal "
+        f"({len(a)} requests)")
+
+
+def cluster_launcher(card) -> None:
+    """Phase 9e: the serving launcher with two replicas and a rolling
+    restart, as a user would run it."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", DENSE,
+           "--replicas", "2", "--rolling-restart", "--sessions", "8",
+           "--rounds", "8", "--prompt-len", "512"]
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=HERE, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"launcher exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    stats = json.loads(out.stdout)
+    if stats["cluster_restarts"] != 2 or stats["cluster_requests_lost"]:
+        raise AssertionError(f"launcher: restarts "
+                             f"{stats['cluster_restarts']}, lost "
+                             f"{stats['cluster_requests_lost']}")
+    log(f"cluster 9e: {' '.join(cmd[1:])} exited 0 in "
+        f"{time.perf_counter() - t0:.1f} s: restarts "
+        f"{stats['cluster_restarts']:g}, lost "
+        f"{stats['cluster_requests_lost']:g}, warm "
+        f"{stats['cluster_migrations_warm']:g}, cold "
+        f"{stats['cluster_migrations_cold']:g}, imported pages "
+        f"{stats['engine_imported_pages']:g}, "
+        f"{stats['tokens_per_second']} tokens/s {card.tag()}")
+
+
+def serve_cluster(card, kernel_rows) -> None:
+    """Phase 9: ``llama3_2_1b`` at its published widths served by a
+    ``Router`` of engine replicas on the card: N=3 == N=1, a crash, a
+    drain, a rolling restart, a trace replay and the launcher."""
+    from repro_torch.serve import LLM
+
+    llm = LLM.from_arch(DENSE, smoke=False, cfg=cluster_cfg(), seed=SEED,
+                        device="cuda")
+    model = llm.engine.model
+    del llm
+    free_card()
+    want, llm, _ = cluster_run(card, model, "9a one replica", 1)
+    del llm
+    free_card()
+    if DENSE in RUNS:
+        if RUNS[DENSE]["streams"] != want:
+            raise AssertionError("cluster, one replica: streams differ from "
+                                 "phase 4's")
+        log(f"cluster 9a: one replica at {CLUSTER_HBM} HBM pages == phase "
+            f"4's run at {SERVING[DENSE][0]['hbm_pages']}, bitwise")
+    got, llm, _ = cluster_run(card, model, "9a three replicas", 3)
+    if got != want:
+        raise AssertionError("cluster: three replicas' streams differ from "
+                             "one replica's")
+    log("cluster 9a: three replicas == one replica, bitwise")
+    del llm
+    free_card()
+    # Where 9a's time goes, at one replica and at three (summed over the
+    # replicas' engines, which step one after another).
+    prompts, params = cluster_workload(model.cfg.vocab)
+    for n in (1, 3):
+        llm = LLM(model, cluster_cfg(), replicas=n)
+        breakdown(card, f"cluster 9a, {n} replica(s)",
+                  [r.engine for r in llm.cluster.replicas],
+                  lambda: llm.generate(prompts, params))
+        del llm
+        free_card()
+    cluster_chaos(card, model, want)
+    cluster_trace(card, model)
+    del model
+    free_card()
+    cluster_launcher(card)
 
 
 # ---------------------------------------------------------------- training
@@ -2376,8 +2742,8 @@ def main() -> int:
     kernel_rows.update(check_flash_kernel(card))
     kernel_rows["ssd_scan"] = check_ssd_kernel(card)
     log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
-    for phase in (serve_dense, serve_moe, serve_shared_tiers, train_dense,
-                  serve_hybrid):
+    for phase in (serve_dense, serve_moe, serve_shared_tiers, serve_cluster,
+                  train_dense, serve_hybrid):
         t0 = time.perf_counter()
         phase(card, kernel_rows)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

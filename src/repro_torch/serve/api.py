@@ -12,8 +12,9 @@ Algorithm-1 page placement happen behind it.
   iterable of ``(token, finish_reason)`` deltas produced as the engine
   steps; ``finish_reason`` is ``None`` until the final delta.
 
-This slice drives one ``Engine`` directly; the multi-replica ``Router``
-comes with the cluster slice (ROADMAP.md queue A item 8).
+The front door drives a ``serve.cluster.Router`` over ``replicas`` engines
+(one by default): requests dispatch least-loaded, and a replica's failure
+or drain migrates its in-flight streams bitwise instead of dropping them.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 from .._device import DeviceLike
 from ..core import HardwareModel
 from ..models.transformer import Model
+from .cluster import ReplicaLostError, Router
 from .engine import Engine, ServeConfig
 from .sampling import DEFAULT_MAX_TOKENS, SamplingParams
 
@@ -93,6 +95,13 @@ class RequestHandle:
                 continue
             req = self._llm.engine.requests.get(self.request_id)
             if req is None:
+                # The owning replica left the cluster with no survivor to
+                # rebuild the request: a named error, never a hang.
+                lost = self._llm.cluster.lost_requests
+                if self.request_id in lost:
+                    raise ReplicaLostError(
+                        f"request {self.request_id} was lost: "
+                        f"{lost[self.request_id]}; resubmit to retry")
                 raise RuntimeError(
                     f"request {self.request_id} left the engine without "
                     f"its result reaching this handle (was "
@@ -118,24 +127,35 @@ class RequestHandle:
 
 
 class LLM:
-    """Generation front end over one serving engine.
+    """Generation front end over a cluster of serving engine replicas.
 
     Construct from a model whose parameters are loaded (``LLM(model)``) or
     from the architecture registry (``LLM.from_arch("llama3_2_1b")``).  The
-    model's device is where everything runs: the card unless the caller
-    built the model with ``device="cpu"``.  Tiering and scheduling knobs
-    stay on ``ServeConfig``, per-request behaviour on ``SamplingParams``.
+    model's device is where everything runs, every replica included: the
+    card unless the caller built the model with ``device="cpu"``.  Tiering
+    and scheduling knobs stay on ``ServeConfig``, per-request behaviour on
+    ``SamplingParams``.  ``replicas=N`` puts N engines behind the same
+    front door (``serve.cluster.Router``); at the default ``replicas=1``
+    ``llm.engine`` delegates engine attributes to the single engine.
     """
 
     def __init__(self, model: Model, cfg: Optional[ServeConfig] = None,
-                 hw: Optional[HardwareModel] = None, replicas: int = 1):
-        if replicas != 1:
-            raise NotImplementedError(
-                f"replicas={replicas}: multi-replica serving behind a Router "
-                f"is not ported yet (ROADMAP.md queue A item 8)")
-        self.engine = Engine(model, cfg or ServeConfig(), hw)
+                 hw: Optional[HardwareModel] = None, replicas: int = 1,
+                 heartbeat_timeout: float = 8.0):
+        cfg = cfg or ServeConfig()
+        self.cluster = Router(
+            lambda: Engine(model, cfg, hw),
+            n_replicas=replicas, heartbeat_timeout=heartbeat_timeout)
         self._handles: Dict[int, RequestHandle] = {}
         self._next_id = 0
+
+    @property
+    def engine(self) -> Router:
+        """The engine-shaped control surface (the ``Router``): merged
+        ``requests``/``finished`` views, cluster ``stats()``, and — on a
+        one-replica cluster — delegation of single-engine attributes
+        (``engine.pool``, ``engine.prefix_cache``, ...)."""
+        return self.cluster
 
     @classmethod
     def from_arch(cls, arch: str, smoke: bool = True,
@@ -152,12 +172,15 @@ class LLM:
     # ------------------------------------------------------------ submit
     def submit(self, prompt: Prompt,
                params: Optional[SamplingParams] = None,
-               request_id: Optional[int] = None) -> RequestHandle:
-        """Enqueue one request and return its streaming handle."""
+               request_id: Optional[int] = None,
+               replica_id: Optional[int] = None) -> RequestHandle:
+        """Enqueue one request and return its streaming handle.  Dispatch
+        is least-loaded across alive replicas; ``replica_id`` pins it."""
         params = params if params is not None else SamplingParams()
         rid = request_id if request_id is not None else self._next_id
         self._next_id = max(self._next_id, rid + 1)
-        self.engine.add_request(rid, [int(t) for t in prompt], params=params)
+        self.cluster.add_request(rid, [int(t) for t in prompt],
+                                 params=params, replica_id=replica_id)
         handle = RequestHandle(self, rid, prompt, params)
         self._handles[rid] = handle
         return handle
@@ -187,7 +210,8 @@ class LLM:
 
     # ----------------------------------------------------------- driving
     def step(self) -> Dict[int, int]:
-        """Advance the engine one step and route deltas to their handles."""
+        """Advance every replica one step and route deltas to their
+        handles."""
         out = self.engine.step()
         for rid in out:
             h = self._handles.get(rid)

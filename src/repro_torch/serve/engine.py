@@ -61,8 +61,9 @@ makes them resident), and ``apply_dropless_flat`` over the cache with the
 slot map as ``group_experts`` — the same ops in the same order, so the
 streams equal the resident path's whenever a dispatch's working set fits.
 
-Not in this slice: live migration between replicas (``import_request``,
-ROADMAP.md queue A item 8).
+Live migration between replicas (``serve/cluster.py``) goes through
+``export_request`` / ``remove_request`` / ``import_request``: cold by
+recompute from the ticket, warm by the source pool's exported pages.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ from ..models.moe import apply_dropless_flat, moe_decode, route_tokens
 from ..models.transformer import Model
 from .eviction import make_eviction_policy
 from .expert_store import ExpertBackend, ExpertStore
-from .kvcache import PagedKVPool
+from .kvcache import PageExport, PagedKVPool
 from .prefix_cache import PrefixBackend, PrefixCache
 from .sampling import DEFAULT_MAX_TOKENS, SamplingParams
 from .scheduler import make_scheduler_policy
@@ -433,6 +434,12 @@ class Engine:
 
     # ------------------------------------------------- telemetry shims
     @property
+    def decisions(self):
+        """Deprecated: ski-rental decisions live on the runtime's event
+        stream (``engine.runtime.events``)."""
+        return self.runtime.decisions if self.runtime is not None else []
+
+    @property
     def last_recs(self) -> Dict[int, bool]:
         """Latest planned placement across both KV controllers (request
         pages and shared prefixes) — what guided eviction consults.  Page
@@ -451,6 +458,27 @@ class Engine:
         """Unallocated pages across both tiers — what admission/allocation
         budgets against."""
         return len(self.pool.free_hbm) + len(self.pool.free_host)
+
+    def queue_delay_estimate(self) -> float:
+        """Deterministic estimate (in engine steps) of how long a NEW
+        request would wait before decoding: the un-ingested prompt-token
+        backlog (waiting + mid-prefill) over the per-step prefill capacity,
+        plus current decode occupancy.  The Router's dispatch key."""
+        backlog = 0
+        n_active = 0
+        for r in self.requests.values():
+            if r.state == "waiting":
+                backlog += max(len(r.context) - 1, 1)
+            elif r.state == "prefilling":
+                backlog += max(len(r.context) - 1 - r.pos, 0)
+            elif r.state == "active":
+                n_active += 1
+        per_step = self.scheduler.step_budget(self).prefill_tokens
+        if per_step <= 0:
+            # Eager prefill ingests a whole prompt per admission; the
+            # page-sized batch capacity is the natural per-step unit.
+            per_step = self.cfg.page_size * self.cfg.max_batch
+        return backlog / per_step + n_active / self.cfg.max_batch
 
     # ================================================== the layer body
     def _attn_half(self, lp, x, kp, vp, *, positions, write_slot, write_off,
@@ -686,6 +714,79 @@ class Engine:
             request_id=req.request_id, prompt=list(req.tokens),
             max_new=req.max_new, params=req.params,
             generated=list(req.generated))
+
+    def remove_request(self, request_id: int) -> Request:
+        """Withdraw a live request wholesale — live migration moved it to
+        another engine.  Frees pages and prunes the live tables WITHOUT
+        marking the request finished (its stream continues elsewhere);
+        stale wait-queue entries self-clean in ``_admit_waiting``."""
+        req = self.requests.pop(request_id, None)
+        if req is None:
+            raise ValueError(
+                f"cannot remove request {request_id}: unknown or finished "
+                f"id")
+        self._release_pages(request_id)
+        self._pending_chains.pop(request_id, None)
+        self.last_logits.pop(request_id, None)
+        return req
+
+    def import_request(self, ticket: RequestTicket,
+                       kv: Optional[PageExport] = None) -> Request:
+        """Continue another engine's request on THIS engine.
+
+        Cold (``kv=None``): the ticket enters the wait queue with its
+        generated tokens preloaded, and admission re-prefills
+        prompt+generated as it would a preempted request (bitwise: one-shot
+        prefill == decode, and sampling folds absolute positions).  Warm
+        (``kv`` from the source pool's ``export_pages``): re-attach the
+        leading blocks this engine's prefix cache already holds (equal
+        chain hashes mean equal pages), import the remaining pages into
+        the local pool, and resume decoding with zero recompute.  A warm
+        import that cannot fit raises ``MemoryError`` with all partial
+        state rolled back, so the caller can retry cold."""
+        rid = ticket.request_id
+        if rid in self.requests or rid in self.finished:
+            raise ValueError(f"duplicate request_id {rid}")
+        self._validate_budget(rid, ticket.prompt, ticket.max_new)
+        req = Request(request_id=rid, tokens=list(ticket.prompt),
+                      max_new=ticket.max_new, params=ticket.params,
+                      generated=list(ticket.generated),
+                      queued_step=self.step_count)
+        if kv is None:
+            self.requests[rid] = req
+            self.wait_queue.append(rid)
+            self._admit_waiting()
+            return req
+        context = req.context
+        n_ingest = len(context) - 1
+        self.requests[rid] = req
+        try:
+            chain = []
+            if self.prefix_cache is not None:
+                chain = self.prefix_cache.match(
+                    context[:n_ingest], self.step_count, count=False)
+                hit_ids = [n.page_id for n in chain]
+                missing = [pid for pid in hit_ids
+                           if self.pool.pages[pid].hbm_slot is None]
+                if missing:
+                    self._ensure_free_hbm(len(missing), needed=hit_ids)
+                    self.pool.swap_in_many(missing)
+                for node in chain:
+                    self.pool.attach(rid, node.page_id, self.step_count)
+            self.pool.import_pages(kv.select_from(len(chain)), rid,
+                                   self.step_count)
+        except MemoryError:
+            self._release_pages(rid)
+            self.requests.pop(rid, None)
+            raise
+        req.pos = n_ingest
+        req.state = "active"
+        req.last_scheduled = self.step_count
+        # Adopt the migrated prompt's full-page blocks into the local cache
+        # under their (identical) chain hashes, so sharing survives the
+        # membership change.
+        self._insert_prefix(req, context, n_ingest, chain)
+        return req
 
     # The lifecycle contract: transitions outside it raise a named
     # ValueError instead of silently mutating queue state.

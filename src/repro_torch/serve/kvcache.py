@@ -66,6 +66,21 @@ class PageExport:
     def __len__(self) -> int:
         return len(self.page_ids)
 
+    def select_from(self, first_index: int) -> "PageExport":
+        """Sub-export of the pages at ``index_in_seq >= first_index`` —
+        what remains to import after the destination's prefix cache already
+        covered the leading blocks."""
+        rows = [i for i, idx in enumerate(self.index_in_seq)
+                if idx >= first_index]
+        return PageExport(
+            page_ids=[self.page_ids[i] for i in rows],
+            index_in_seq=[self.index_in_seq[i] for i in rows],
+            tokens_used=[self.tokens_used[i] for i in rows],
+            accesses=[self.accesses[i] for i in rows],
+            fast=[self.fast[i] for i in rows],
+            k=self.k[:, rows], v=self.v[:, rows],
+            n_layers=self.n_layers, shape=self.shape)
+
 
 @dataclasses.dataclass
 class Page:
@@ -451,8 +466,8 @@ class PagedKVPool:
             raise ValueError(
                 f"cannot import pages shaped {export.n_layers}x"
                 f"{tuple(export.shape)} into a pool shaped "
-                f"{self.n_layers}x{tuple(self.shape)}: engines must share "
-                f"one model/page geometry")
+                f"{self.n_layers}x{tuple(self.shape)}: replica engines "
+                f"must share one model/page geometry")
         n = len(export)
         if n == 0:
             return []
@@ -461,7 +476,7 @@ class PagedKVPool:
                 f"cannot import {n} pages: only {len(self.free_hbm)} free "
                 f"HBM + {len(self.free_host)} free host slots on the "
                 f"destination pool (hbm_pages={self.hbm_pages}, "
-                f"host_pages={self.host_pages}); recompute instead")
+                f"host_pages={self.host_pages}); cold-migrate instead")
         room_fast, room_slow = len(self.free_hbm), len(self.free_host)
         fast_rows: List[int] = []
         slow_rows: List[int] = []
@@ -501,6 +516,14 @@ class PagedKVPool:
                 self._hold(request_id, p)
         self.imported_pages += n
         return [p for p in new_pages if p is not None]
+
+    def swap_out(self, page_id: int):
+        """HBM -> host (single page; the batched path with M=1)."""
+        self.swap_out_many([page_id])
+
+    def swap_in(self, page_id: int):
+        """host -> HBM (single page; the batched path with M=1)."""
+        self.swap_in_many([page_id])
 
     # --------------------------------------------------------- queries
     def resident(self, page_id: int) -> bool:

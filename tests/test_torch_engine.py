@@ -39,6 +39,7 @@ from repro_torch.serve import (  # noqa: E402
     LLM,
     Engine,
     PagedKVPool,
+    Router,
     SamplingParams,
     ServeConfig,
 )
@@ -359,8 +360,10 @@ def test_llm_generate_and_streaming(port_model):
 
 
 def test_out_of_slice_options_raise(port_model):
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        LLM(port_model, replicas=2)
+    # Multi-replica serving is ported: the front door fronts a Router.
+    cluster = LLM(port_model, replicas=2).engine
+    assert isinstance(cluster, Router)
+    assert [r.state for r in cluster.replicas] == ["alive", "alive"]
     xlstm = config_from_reference(get_smoke("xlstm_350m"))
     with pytest.raises(NotImplementedError, match="queue A item 10"):
         Model(xlstm, device="cpu")

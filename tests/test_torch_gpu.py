@@ -756,3 +756,46 @@ def test_tiered_and_prefix_cached_serving_on_the_card(cuda):
     want, _ = run("llama3_2_1b")
     got, st = run("llama3_2_1b", enable_prefix_cache=True)
     assert got == want and st["saved_prefill_tokens"] == 24
+
+
+def test_cluster_replicas_crash_and_drain_on_the_card(cuda):
+    """Smoke widths on the card: three replicas == one, a crash (cold
+    migration) and a drain (warm migration through CPU staging) ==
+    the unkilled one-replica run, bitwise streams."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model
+    from repro_torch.serve import LLM, SamplingParams, ServeConfig
+
+    model = Model(get_smoke("llama3_2_1b"), device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    cfg = ServeConfig(max_batch=2, page_size=4, hbm_pages=16,
+                      host_pages=32)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 256, 6).tolist() for _ in range(6)]
+
+    def run(replicas, chaos=None, **kw):
+        llm = LLM(model, cfg, replicas=replicas, **kw)
+        handles = [llm.submit(p, SamplingParams(
+            max_tokens=8, temperature=0.8, top_k=40, seed=100 + i),
+            request_id=i) for i, p in enumerate(prompts)]
+        if chaos is not None:
+            for _ in range(3):
+                llm.step()
+            chaos(llm.cluster)
+        while any(not h.finished for h in handles):
+            llm.step()
+        return [h.token_ids for h in handles], llm.cluster
+
+    want, _ = run(1)
+    assert run(3)[0] == want
+    got, cluster = run(3, lambda c: c.fail(0), heartbeat_timeout=2.0)
+    assert got == want and cluster.failovers == 1
+    assert cluster.migrations_cold > 0
+
+    def drain(c):
+        c.drain(0)
+        c.remove_replica(0)
+
+    got, cluster = run(3, drain)
+    assert got == want and cluster.migrations_warm > 0
+    assert cluster.stats()["imported_pages"] > 0
