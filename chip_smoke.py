@@ -33,7 +33,15 @@ Phases, each of which raises on failure:
    kernel equal to the plain version under ``equal_nan``; the route each
    dtype takes (bf16 on tensor cores, f32 on SIMT);
    timed by CUDA events and by the profiler's device time; no single
-   PyTorch call computes a grouped SwiGLU, so it has no yardstick.
+   PyTorch call computes a grouped SwiGLU, so it has no yardstick.  Its
+   backward at granite's widths and training's 32768 routed rows, bf16
+   and f32: dx, dWg, dWu, dWd against the plain backward (2e-2 / 1e-4 of
+   each output's largest entry), two launches bitwise equal, with empty
+   groups, a map of 48 groups with repeats and groups at slot -1 (NaN dx
+   rows, the other rows and experts untouched); the route each dtype
+   takes; the forward at the same 32768 rows against its plain version;
+   both timed (events and profiler) beside the bound and the plain
+   version.
    Flash attention, forward and backward: bf16 and f32 at the training
    shape (B=2, S=2048, 32/8 heads, dh 64, causal), with a window of 256,
    Sq < Sk, non-causal, dh 128, S=1000 and Sq > Sk; dq, dk, dv against
@@ -137,6 +145,21 @@ Phases, each of which raises on failure:
    ``Engine`` (``llm.engine`` is the ``Router``); a layer that records no
    time raises.
 
+10. MoE training, after dense training: ``Trainer`` on
+   ``granite_moe_3b_a800m`` at the published widths (32 layers, 40
+   experts top-8, nothing cut) in bf16 with remat and phase 6's AdamW on
+   ``SyntheticLM(seed=0)`` batches of 2 x 2048: MOE_TRAIN_STEPS steps
+   unguided, then guided with 60% of the parameter and moment bytes on
+   HBM (losses equal to rtol 1e-5, slow bytes > 0); the counters zeroed
+   just before each run and read just after (a step: 64
+   ``moe_grouped_ffn``, 32 ``moe_grouped_ffn_bwd``, 64 flash forward, 32
+   flash backward launches); step times, tokens/s and peak memory; two
+   profiled steps (device time by kernel, the grouped-expert kernels'
+   share, the idle share); layer 0's MoE backward at full width twice,
+   bitwise equal; and an f32 copy cut to 2 layers against a plain path
+   (plain routing, grouped FFN and its backward, combine, attention) to
+   1e-4.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -179,6 +202,7 @@ SOURCES = {"ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "paged_prefill": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "moe_grouped_ffn": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+           "moe_grouped_ffn_bwd": "src/repro_torch/kernels/csrc/moe_gemm.cu",
            "flash_attention_fwd":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_bwd":
@@ -187,6 +211,7 @@ SOURCES["flash_attention_fwd_dh112"] = SOURCES["flash_attention_fwd"]
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:113",
             "paged_prefill": "src/repro/kernels/paged_attention.py:95",
             "moe_grouped_ffn": "src/repro/kernels/moe_gemm.py:221",
+            "moe_grouped_ffn_bwd": "src/repro/kernels/moe_gemm.py:203",
             "flash_attention_fwd": "src/repro/kernels/flash_attention.py:153",
             "flash_attention_bwd": "src/repro/kernels/flash_attention.py:166",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:65"}
@@ -194,8 +219,8 @@ REPLACES["flash_attention_fwd_dh112"] = REPLACES["flash_attention_fwd"]
 # flash_attention_fwd_dh112 is the flash forward at zamba2's head dim, its
 # launches those of the hybrid prefill.
 KERNELS = ("paged_attention", "paged_prefill", "moe_grouped_ffn",
-           "flash_attention_fwd", "flash_attention_bwd", "ssd_scan",
-           "flash_attention_fwd_dh112")
+           "moe_grouped_ffn_bwd", "flash_attention_fwd",
+           "flash_attention_bwd", "ssd_scan", "flash_attention_fwd_dh112")
 F32_CHECK_LAYERS = 2
 DENSE, MOE, HYBRID = "llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b"
 # The SSD kernel against its plain version: as a fraction of max|y| (the
@@ -203,6 +228,11 @@ DENSE, MOE, HYBRID = "llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b"
 # f32 in another order; bf16 inputs are exact and the weights reach the
 # tensor cores as a bf16 hi/lo pair (about 16 bits).
 SSD_TOL = 1e-4
+# The grouped-expert backward against its plain version, as a fraction of
+# each output's largest entry: bf16 outputs round once and its f32
+# intermediates reach the tensor cores as bf16 hi/lo pairs; f32 sums in
+# other orders.
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 def log(msg: str) -> None:
@@ -765,6 +795,176 @@ def check_moe_kernel(card) -> dict:
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     return row
 
+
+
+def moe_bwd_bound_ms(x, wg, sizes, experts, dtype_name) -> tuple:
+    """The least time for the backward: x and dy read, dx written, the
+    weights of every expert with rows read and every weight gradient
+    written, over HBM bandwidth; the 16 rows d f operations of the rows in
+    the segments (recompute 2, da 1, dx 2, dW 3) over the dtype's peak.
+    Returns (ms, bound_by)."""
+    T, d = x.shape
+    E, _, f = wg.shape
+    item = x.element_size()
+    used = {experts[g] for g, n in enumerate(sizes)
+            if n > 0 and 0 <= experts[g] < E}
+    nbytes = 3 * T * d * item + (len(used) + E) * 3 * d * f * item
+    rows = min(sum(n for g, n in enumerate(sizes)
+                   if 0 <= experts[g] < E), T)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 16 * rows * d * f / PEAK_OPS_PER_S[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality that holds for NaNs too."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+def check_moe_backward(card) -> dict:
+    """Phase 3, the grouped-expert backward at granite's widths (d 1536, f
+    512, 40 experts) and training's routed rows (MOE_TRAIN_ROWS), bf16 and
+    f32: dx, dWg, dWu, dWd against ``ref.moe_grouped_ffn_bwd_reference``
+    (BWD_TOL of each output's largest entry), two launches bitwise equal,
+    with 6 empty groups, 48 groups over 40 experts through a map with
+    repeats, and groups at slot -1 (their dx rows NaN, every other dx row
+    and every other expert's weight gradient bitwise as without the holes,
+    their experts' zero); the route each dtype takes; the forward kernel at
+    the same rows against its plain version; then both timed.  Returns the
+    backward's kernel row (launches filled in by phase 10)."""
+    import torch
+
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    host = torch.Generator().manual_seed(SEED + 3)
+    E, k, d, f, R = 40, 8, 1536, 512, MOE_TRAIN_ROWS
+    train = routed_sizes(host, R // k, E, k)
+    empty = list(train)
+    for g in (0, 7, 13, 21, 30, 39):
+        empty[(g + 1) % E] += empty[g]
+        empty[g] = 0
+    mapped = routed_sizes(host, R // k, 48, k)
+    map48 = torch.randint(0, E, (48,), generator=host).tolist()
+    holes = list(range(E))
+    absent = [g for g in range(E) if train[g] > 0][1::5]
+    for g in absent:
+        holes[g] = -1
+    cases = [("train", train, None), ("6 empty groups", empty, None),
+             ("G=48 > E=40 map", mapped, map48), ("-1 slots", train, holes)]
+    routes = {"bfloat16": "mma", "float32": "simt"}
+    worst = 0.0
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        tol = BWD_TOL[dtype_name]
+        for label, sizes, experts in cases:
+            x, wg, wu, wd = moe_case(gen, R, E, d, f, dtype)
+            dy = torch.randn((R, d), generator=gen, device="cuda").to(dtype)
+            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            ge = None if experts is None else torch.tensor(
+                experts, dtype=torch.int32, device="cuda")
+            got = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, ge, dy)
+            again = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, ge, dy)
+            want = ref.moe_grouped_ffn_bwd_reference(x, wg, wu, wd, gs, ge,
+                                                     dy)
+            torch.cuda.synchronize()
+            if not all(same_bits(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"moe backward {label} {dtype_name}: "
+                                     f"two launches differ")
+            dead = torch.zeros(R, dtype=torch.bool, device="cuda")
+            if experts is holes:
+                base = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None,
+                                                   dy)
+                bounds = [0]
+                for n in sizes:
+                    bounds.append(bounds[-1] + n)
+                for g in absent:
+                    dead[bounds[g]:bounds[g + 1]] = True
+                live = [e for e in range(E) if e not in absent]
+                if not (torch.isnan(got[0][dead].float()).all()
+                        and same_bits(got[0][~dead], base[0][~dead])
+                        and all(same_bits(a[live], b[live]) and
+                                bool((a[absent] == 0).all())
+                                for a, b in zip(got[1:], base[1:]))):
+                    raise AssertionError(
+                        f"moe backward -1 slots {dtype_name}: dx rows not "
+                        f"NaN, or other rows or experts touched")
+            errs = []
+            for name, a, b in zip(("dx", "dWg", "dWu", "dWd"), got, want):
+                if name == "dx":
+                    a, b = a[~dead], b[~dead]
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"moe backward {label} "
+                                         f"{dtype_name}: {name} not finite")
+                err = float((a.float() - b.float()).abs().max())
+                scale = float(b.float().abs().max())
+                if err > tol * scale:
+                    raise AssertionError(
+                        f"moe backward {label} {dtype_name}: {name} max abs "
+                        f"err {err:.3e} > {tol} x max|plain| {scale:.3e}")
+                errs.append(f"{name} {err:.3e} ({err / scale:.2e} of max)")
+                if label == "train" and dtype == torch.bfloat16:
+                    worst = max(worst, err)
+            log(f"kernel check moe_grouped_ffn_bwd {label} {dtype_name} "
+                f"R={R}: {', '.join(errs)} (tol {tol} of max); two launches "
+                f"bitwise equal")
+            del x, wg, wu, wd, dy, got, again, want
+        route = mg.plan_bwd(R, d, f, E, E, dtype).route
+        if route != routes[dtype_name]:
+            raise AssertionError(f"moe backward {dtype_name} takes route "
+                                 f"{route}, expected {routes[dtype_name]}")
+        log(f"route moe_grouped_ffn_bwd {dtype_name}: {route}")
+        # The forward at training's row count (its grid's largest).
+        x, wg, wu, wd = moe_case(gen, R, E, d, f, dtype)
+        gs = torch.tensor(train, dtype=torch.int32, device="cuda")
+        got = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs)
+        want = ref.moe_grouped_ffn_reference(x, wg, wu, wd, gs)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        tol = TOL[dtype_name]
+        if not bool((diff <= tol + tol * want.float().abs()).all()):
+            raise AssertionError(f"moe forward R={R} {dtype_name}: max abs "
+                                 f"err {float(diff.max())} outside "
+                                 f"atol=rtol={tol}")
+        log(f"kernel check moe_grouped_ffn R={R} {dtype_name}: max abs err "
+            f"{float(diff.max()):.3e} (atol=rtol={tol})")
+    free_card()
+
+    x, wg, wu, wd = moe_case(gen, R, E, d, f, torch.bfloat16)
+    dy = torch.randn((R, d), generator=gen, device="cuda").to(torch.bfloat16)
+    gs = torch.tensor(train, dtype=torch.int32, device="cuda")
+
+    def bwd():
+        return mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy)
+
+    ms = time_ms(bwd, iters=20)
+    dev = device_ms(bwd, iters=10)
+    plain_ms = time_ms(lambda: ref.moe_grouped_ffn_bwd_reference(
+        x, wg, wu, wd, gs, None, dy), iters=5, warmup=2)
+    b_ms, b_by = moe_bwd_bound_ms(x, wg, train, list(range(E)), "bfloat16")
+    f_ms = time_ms(lambda: mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs),
+                   iters=20)
+    f_dev = device_ms(lambda: mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs),
+                      iters=10)
+    f_bound, f_by = moe_bound_ms(x, wg, train, list(range(E)))
+    log(f"time moe_grouped_ffn_bwd R={R} bf16 ({sum(n > 0 for n in train)} "
+        f"experts with rows): kernel {ms:.4f} ms (events), device "
+        f"{dev:.4f} ms (profiler), plain {plain_ms:.4f} ms, library none, "
+        f"bound {b_ms:.5f} ms ({b_by}) {card.tag()}")
+    log(f"time moe_grouped_ffn R={R} bf16: kernel {f_ms:.4f} ms (events), "
+        f"device {f_dev:.4f} ms (profiler), bound {f_bound:.5f} ms ({f_by}) "
+        f"{card.tag()}")
+    del x, wg, wu, wd, dy
+    free_card()
+    return {"name": "moe_grouped_ffn_bwd", "route": "cuda",
+            "source": SOURCES["moe_grouped_ffn_bwd"],
+            "replaces": REPLACES["moe_grouped_ffn_bwd"], "launches": 0,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def flash_bound_ms(B, Sq, Sk, H, K, dh, causal, item, backward) -> tuple:
@@ -2140,10 +2340,24 @@ def serve_cluster(card, kernel_rows) -> None:
 
 # ---------------------------------------------------------------- training
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 2, 2048
+# Phase 10: MoE training steps a run; granite's routed rows a layer.
+MOE_TRAIN_STEPS = 6
+MOE_TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ * 8
+
+
+def per_step_launches(cfg, steps: int) -> dict:
+    """Kernel launches a training run makes under remat: each layer's
+    forward twice (the step's and the recompute's) and its backward once."""
+    out = {"flash_attention_fwd": 2 * cfg.n_layers * steps,
+           "flash_attention_bwd": cfg.n_layers * steps}
+    if cfg.family == "moe":
+        out.update({"moe_grouped_ffn": 2 * cfg.n_layers * steps,
+                    "moe_grouped_ffn_bwd": cfg.n_layers * steps})
+    return out
 
 
 def train_run(card, label, cfg, batches, gdt):
-    """One ``Trainer.run`` of TRAIN_STEPS steps from the seeded init, the
+    """One ``Trainer.run`` of one step a batch from the seeded init, the
     launch counters zeroed just before and read just after.  Each step ends
     in the host reading its loss, so the times between steps are
     synchronised step times.  Returns (losses, launches, trainer)."""
@@ -2153,9 +2367,10 @@ def train_run(card, label, cfg, batches, gdt):
     from repro_torch.optim import AdamW, cosine_schedule
     from repro_torch.train import Trainer, TrainerConfig
 
+    steps = len(batches)
     model = Model(cfg, device="cuda")
-    opt = AdamW(lr=cosine_schedule(3e-4, warmup=1, total=TRAIN_STEPS))
-    trainer = Trainer(model, opt, TrainerConfig(steps=TRAIN_STEPS,
+    opt = AdamW(lr=cosine_schedule(3e-4, warmup=1, total=steps))
+    trainer = Trainer(model, opt, TrainerConfig(steps=steps,
                                                 log_every=1, gdt=gdt,
                                                 seed=SEED))
     stamps = []
@@ -2172,33 +2387,29 @@ def train_run(card, label, cfg, batches, gdt):
     stamps.append(time.perf_counter())
     launches = read_launches()
     losses = [m["loss"] for m in trainer.metrics_log]
-    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x)
-                                             for x in losses):
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"training {label}: losses {losses}")
     step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
     wall = stamps[-1] - stamps[0]
-    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    tokens = steps * TRAIN_BATCH * TRAIN_SEQ
     log(f"training {label}: losses "
         f"{', '.join(f'{x:.6f}' for x in losses)}")
-    steady = 1e3 * (TRAIN_STEPS - 1) * TRAIN_BATCH * TRAIN_SEQ / sum(
-        step_ms[1:])
+    steady = 1e3 * (steps - 1) * TRAIN_BATCH * TRAIN_SEQ / sum(step_ms[1:])
     log(f"training {label}: step ms {', '.join(f'{t:.1f}' for t in step_ms)}"
-        f"; {wall:.3f} s for {TRAIN_STEPS} steps, {tokens / wall:.1f} "
+        f"; {wall:.3f} s for {steps} steps, {tokens / wall:.1f} "
         f"training tokens/s ({steady:.1f} after the first step) "
         f"{card.tag()}")
     log(f"training {label}: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {card.tag()}")
-    per_step = {"flash_attention_fwd": 2 * cfg.n_layers * TRAIN_STEPS,
-                "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    per_step = per_step_launches(cfg, steps)
     for name, n in per_step.items():
         if launches[name] != n:
             raise AssertionError(f"training {label} {name}: "
                                  f"{launches[name]} launches, expected {n} "
                                  f"(remat: 2 forwards and 1 backward per "
                                  f"layer and step)")
-    log(f"training {label}: launches flash_attention_fwd "
-        f"{launches['flash_attention_fwd']}, flash_attention_bwd "
-        f"{launches['flash_attention_bwd']}")
+    log(f"training {label}: launches "
+        f"{', '.join(f'{n} {launches[n]}' for n in per_step)}")
     if gdt is not None:
         log(f"training {label}: migrations {result['migrations']}, "
             f"bytes_migrated {result['bytes_migrated']}, transfer_bytes "
@@ -2212,7 +2423,8 @@ def train_run(card, label, cfg, batches, gdt):
 def plain_loss(model, params, batch):
     """The loss by a plain path: embedding by indexing, explicit rmsnorm,
     einsum projections, attention through ``mha_reference`` (autograd for
-    its gradient), one cross entropy over the whole logits."""
+    its gradient), MoE layers through ``plain_moe_train``, one cross
+    entropy over the whole logits."""
     import torch
     import torch.nn.functional as F
 
@@ -2242,6 +2454,9 @@ def plain_loss(model, params, batch):
         o = ref.mha_reference(q, k, v, causal=True, window=cfg.window)
         x = x + torch.einsum("bshk,hkd->bsd", o, p["attn.wo"])
         h2 = norm(p["ln2.scale"], x)
+        if model.moe_cfg is not None:
+            x = x + plain_moe_train(p, h2, model.moe_cfg)
+            continue
         g = torch.einsum("bsd,df->bsf", h2, p["mlp.w_gate"])
         u = torch.einsum("bsd,df->bsf", h2, p["mlp.w_up"])
         x = x + torch.einsum("bsf,fd->bsd",
@@ -2253,28 +2468,69 @@ def plain_loss(model, params, batch):
                            labels.reshape(-1))
 
 
-def train_f32_check(batch) -> None:
+def plain_moe_train(p, h, cfg):
+    """A plain MoE layer for training: f32 router logits by one product,
+    softmax, ``torch.topk``, renormalised gates; the picks sorted by
+    expert, the plain grouped FFN with its plain backward; the
+    gate-weighted rows summed per token by ``index_add``."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    class PlainFFN(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, wg, wu, wd, sizes):
+            ctx.save_for_backward(x, wg, wu, wd, sizes)
+            return ref.moe_grouped_ffn_reference(x, wg, wu, wd, sizes)
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, wg, wu, wd, sizes = ctx.saved_tensors
+            return (*ref.moe_grouped_ffn_bwd_reference(
+                x, wg, wu, wd, sizes, None, dy), None)
+
+    f32 = torch.float32
+    B, S, d = h.shape
+    T, k = B * S, cfg.top_k
+    hf = h.reshape(T, d)
+    probs = (hf.to(f32) @ p["moe.router"]).softmax(-1)
+    gates, experts = probs.topk(k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    order = torch.argsort(experts.reshape(-1), stable=True)
+    tok = order // k
+    sizes = torch.bincount(experts.reshape(-1),
+                           minlength=cfg.n_experts).to(torch.int32)
+    ys = PlainFFN.apply(hf[tok], p["moe.w_gate"], p["moe.w_up"],
+                        p["moe.w_down"], sizes)
+    contrib = ys.to(f32) * gates.reshape(-1)[order][:, None]
+    y = torch.zeros((T, d), dtype=f32, device=h.device).index_add(
+        0, tok, contrib)
+    return y.to(h.dtype).reshape(B, S, d)
+
+
+def train_f32_check(batch, arch: str = DENSE) -> None:
     """The f32 model cut to F32_CHECK_LAYERS layers: the kernel path's
     loss and gradients (``train.step.value_and_grad``: ``Model.loss``,
-    flash kernels, remat) against ``plain_loss``'s, each gradient leaf
-    within 1e-4 of the plain one in norm."""
+    flash and grouped-expert kernels, remat) against ``plain_loss``'s,
+    each gradient leaf within 1e-4 of the plain one in norm."""
     import torch
 
     from repro_torch.configs import get
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import Model
     from repro_torch.train import value_and_grad
 
-    model = Model(dataclasses.replace(get(DENSE), n_layers=F32_CHECK_LAYERS,
+    model = Model(dataclasses.replace(get(arch), n_layers=F32_CHECK_LAYERS,
                                       dtype=torch.float32), device="cuda")
     model.init(torch.Generator(device="cuda").manual_seed(SEED + 5))
     params = dict(model.named_parameters())
-    before = dict(fa.LAUNCHES)
+    before = read_launches()
     loss, grads = value_and_grad(model, params, batch)
     torch.cuda.synchronize()
-    if fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"]:
-        raise AssertionError("f32 training check: the kernel path launched "
-                             "no flash backward")
+    after = read_launches()
+    for name in per_step_launches(model.cfg, 1):
+        if after[name] == before[name]:
+            raise AssertionError(f"f32 training check ({arch}): the kernel "
+                                 f"path launched no {name}")
     leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
     want = plain_loss(model, leaves, batch)
     want_grads = dict(zip(leaves, torch.autograd.grad(
@@ -2293,7 +2549,7 @@ def train_f32_check(batch) -> None:
         raise AssertionError(
             f"f32 training check: loss rel err {rel_loss:.3e}, worst "
             f"gradient {worst_name} rel err {worst:.3e} (tol 1e-4)")
-    log(f"f32 kernel-path loss and gradients vs plain path ({DENSE}, "
+    log(f"f32 kernel-path loss and gradients vs plain path ({arch}, "
         f"{F32_CHECK_LAYERS} layers, B={TRAIN_BATCH} S={TRAIN_SEQ}): loss "
         f"{float(loss):.6f} vs {want:.6f} (rel {rel_loss:.3e}), worst "
         f"gradient {worst_name} rel err {worst:.3e} in norm (tol 1e-4)")
@@ -2301,10 +2557,12 @@ def train_f32_check(batch) -> None:
     free_card()
 
 
-def profile_training(card, trainer, batches) -> None:
+def profile_training(card, trainer, batches,
+                     shares=(("flash attention", "flash_"),)) -> None:
     """Two more unguided steps under ``torch.profiler``: the device's busy
-    time by kernel, and its idle share over the two steps' wall time (the
-    profiler slows the host, not the kernels)."""
+    time by kernel, its idle share over the two steps' wall time (the
+    profiler slows the host, not the kernels), and the share of each
+    ``(label, kernel name part)`` of ``shares``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2325,8 +2583,8 @@ def profile_training(card, trainer, batches) -> None:
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         log(f"  device {dev_us(e) / 1e3:10.2f} ms  calls {e.count:7d}  "
             f"{e.key[:90]}")
-    log_kernel_share(card, "training", events, busy, "flash attention",
-                     "flash_")
+    for what, needle in shares:
+        log_kernel_share(card, "training", events, busy, what, needle)
 
 
 def train_dense(card, kernel_rows) -> None:
@@ -2374,6 +2632,95 @@ def train_dense(card, kernel_rows) -> None:
     del trainer
     free_card()
     train_f32_check(batches[0])
+
+
+def moe_layer_backward_twice(model, params) -> None:
+    """Layer 0's MoE block at full width on TRAIN_BATCH x TRAIN_SEQ random
+    rows: two backward passes of a random projection give the same bits
+    in the input's and every parameter's gradient."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.models.moe import moe
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model)
+    h = torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype)
+    proj = torch.randn(shape, generator=gen, device="cuda")
+    names = ("router", "w_gate", "w_up", "w_down")
+    runs = []
+    for _ in range(2):
+        leaves = [params[f"layers.0.moe.{w}"].detach().requires_grad_(True)
+                  for w in names]
+        x = h.clone().requires_grad_(True)
+        y = moe(SimpleNamespace(**dict(zip(names, leaves))), x,
+                model.moe_cfg)
+        runs.append(torch.autograd.grad((y.float() * proj).sum(),
+                                        [x, *leaves]))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("x", *names), *runs):
+        if not same_bits(a, b):
+            raise AssertionError(f"MoE layer backward: two passes differ in "
+                                 f"the gradient of {name}")
+    log(f"MoE layer 0 backward at full width ({TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, {MOE_TRAIN_ROWS} routed rows): two passes bitwise equal "
+        f"in x, router, w_gate, w_up, w_down gradients")
+
+
+def train_moe(card, kernel_rows) -> None:
+    """Phase 10: MoE training at the published widths, unguided then
+    guided, a profiled pair of steps, the full-width layer backward twice,
+    and the 2-layer f32 check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.core import GuidanceConfig
+    from repro_torch.data import SyntheticLM
+
+    cfg = get(MOE)                         # bf16, remat on
+    src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda")
+                for k, v in src.batch_np(i).items()}
+               for i in range(MOE_TRAIN_STEPS)]
+    log(f"model {MOE} training: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, {cfg.n_experts} "
+        f"experts top-{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}, remat {cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{MOE_TRAIN_STEPS} steps a run")
+    losses, launches, trainer = train_run(card, "moe unguided", cfg,
+                                          batches, None)
+    kernel_rows["moe_grouped_ffn_bwd"]["launches"] = \
+        launches["moe_grouped_ffn_bwd"]
+    profile_training(card, trainer, batches[:2],
+                     (("flash attention", "flash_"),
+                      ("grouped-expert (forward and backward)", "moe_"),
+                      ("grouped-expert backward", "moe_bwd")))
+    moe_layer_backward_twice(trainer.model, trainer.params)
+    n_params = sum(p.numel() for p in trainer.params.values())
+    state = sum(p.numel() * p.element_size()
+                for p in trainer.params.values()) + 2 * 4 * n_params
+    log(f"training state ({MOE}): {n_params} parameters, {state} bytes of "
+        f"parameters and f32 moments")
+    del trainer
+    free_card()
+    gdt = GuidanceConfig(enabled=True, fast_capacity_bytes=int(state * 0.6),
+                         interval_steps=2, promotion_threshold=64 * 1024)
+    guided, _, trainer = train_run(card, "moe guided", cfg, batches, gdt)
+    if not np.allclose(guided, losses, rtol=1e-5, atol=0):
+        raise AssertionError(f"MoE guided losses {guided} != unguided "
+                             f"{losses} (rtol 1e-5)")
+    if trainer.placer.slow_bytes() <= 0:
+        raise AssertionError("MoE guided training kept nothing on pinned "
+                             "host")
+    log(f"MoE guided == unguided losses (rtol 1e-5), max rel diff "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(guided, losses)):.3e}; "
+        f"{trainer.placer.slow_bytes()} bytes on pinned host")
+    del trainer
+    free_card()
+    train_f32_check(batches[0], MOE)
 
 
 # --------------------------------------------------------- hybrid serving
@@ -2739,11 +3086,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_rows = check_paged_kernels(card)
     kernel_rows["moe_grouped_ffn"] = check_moe_kernel(card)
+    kernel_rows["moe_grouped_ffn_bwd"] = check_moe_backward(card)
     kernel_rows.update(check_flash_kernel(card))
     kernel_rows["ssd_scan"] = check_ssd_kernel(card)
     log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
     for phase in (serve_dense, serve_moe, serve_shared_tiers, serve_cluster,
-                  train_dense, serve_hybrid):
+                  train_dense, train_moe, serve_hybrid):
         t0 = time.perf_counter()
         phase(card, kernel_rows)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

@@ -6,9 +6,9 @@ and MoE decoders end to end: ``serve.api.LLM`` -> ``serve.engine``
 (continuous batching over a two-tier paged KV pool whose page placement
 ``core.GuidanceRuntime`` decides) -> ``models`` -> ``kernels``
 (hand-written CUDA paged attention and grouped-expert SwiGLU).  It trains
-dense decoders: ``launch.train`` -> ``train.Trainer`` (parameter and
-moment groups placed between HBM and pinned host by the same runtime,
+dense and MoE decoders: ``launch.train`` -> ``train.Trainer`` (parameter
+and moment groups placed between HBM and pinned host by the same runtime,
 ``core.placement``) -> ``models`` (``Model.loss``) -> the hand-written
-CUDA flash attention forward and backward.  Entry points run on the card
-unless the caller passes ``device="cpu"``.
+CUDA flash attention and grouped-expert SwiGLU, forward and backward.
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -13,12 +13,22 @@ and its expert alone: the order of every reduction is fixed by (d, f,
 dtype).  ``plan`` picks the route, tiles and shared memory; the source
 note in the ``.cu`` file states the design and the bound.
 
-The entry point checks what the kernel takes and raises on anything else,
-never reads the group sizes on the host (they stay on the device, so a
-layer does not wait for the card), launches on PyTorch's current stream,
+The backward (``moe_grouped_ffn_bwd_cuda``) replaces the TPU kernel's
+custom VJP ``_ffn_bwd`` (an exact recompute through the JAX oracle): three
+launches over the same logical tiles (rows: recompute g and u, form da,
+dg, du and the activation a in f32; dx; the weights, one block per output
+tile and expert walking that expert's groups in order), no atomics, each
+output's bits fixed by the shapes, the dtype and the rows it sums.  It is
+bound by its 16 T d f operations at training's shapes.  ``plan_bwd``
+picks its route and launches.  ``GroupedFFN`` joins the two for autograd,
+recomputing h in the backward as ``_ffn_bwd`` does.
+
+Each entry point checks what the kernel takes and raises on anything
+else, never reads the group sizes on the host (they stay on the device, so
+a layer does not wait for the card), launches on PyTorch's current stream,
 raises if a launch is refused, and adds one to ``LAUNCHES``.  It never
-falls back to the plain version: ``kernels.ops`` sends CPU tensors there
-and CUDA tensors here.
+falls back to the plain version: ``GroupedFFN`` and ``kernels.ops`` send
+CPU tensors there and CUDA tensors here.
 """
 
 from __future__ import annotations
@@ -30,11 +40,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from . import _build
+from . import _build, ref
 
-# Launches of the entry point — a run reads this to show that its path
-# went through the kernel.  ``reset_launches`` zeroes it.
-LAUNCHES: Dict[str, int] = {"moe_grouped_ffn": 0}
+# Launches of the entry points — a run reads this to show that its path
+# went through the kernels.  ``reset_launches`` zeroes it.
+LAUNCHES: Dict[str, int] = {"moe_grouped_ffn": 0, "moe_grouped_ffn_bwd": 0}
 
 MAX_GROUPS = 1024                # kMaxGroups in csrc/moe_gemm.cu
 MAX_TILES = 65535                # gridDim.y: logical tiles
@@ -49,6 +59,13 @@ MMA_LAUNCHES = {"decode": ((16, 32, 4, 3), (16, 128, 4, 3)),
 # float32 (SIMT): 16-row tiles, 64 columns (one thread each) a block,
 # the reduction staged 128 elements at a time.
 SIMT_ROWS, SIMT_COLS, SIMT_CHUNK = 16, 64, 128
+# The backward's (M tile, N tile, warps, stages) of its rows, dx and
+# weights launches.  bf16: tensor cores, 64-deep k steps, 2-stage rings.
+# float32: SIMT, 16-row tiles of 64 columns staged 64 elements at a time,
+# and 64 x 64 weight tiles of 256 threads staged 16 rows at a time.
+BWD_MMA = ((64, 64, 4, 2), (64, 128, 8, 2), (64, 64, 4, 2))
+BWD_SIMT = ((16, 64, 2, 1), (16, 64, 2, 1), (64, 64, 8, 1))
+BWD_SIMT_CHUNK = 64
 
 
 def reset_launches() -> None:
@@ -164,6 +181,58 @@ def plan(T: int, d: int, f: int, E: int, G: int, dtype: torch.dtype) -> Plan:
     return Plan(route, k_step, *launches)
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How a backward call runs: the route ("mma" or "simt"), the k step
+    of the rows and dx launches, and the three launches.  ``weights.grid``
+    is (output tiles of dWg, dWu and dWd, experts); the others are
+    (column tiles, logical tiles)."""
+
+    route: str
+    k_step: int
+    rows: Launch
+    dx: Launch
+    weights: Launch
+
+
+def weight_tiles(d: int, f: int, m: int, n: int) -> int:
+    """Output tiles of the weights launch: dWg and dWu (d, f), then dWd
+    (f, d), each in (m, n) tiles."""
+    return 2 * _tiles(d, m) * _tiles(f, n) + _tiles(f, m) * _tiles(d, n)
+
+
+def plan_bwd(T: int, d: int, f: int, E: int, G: int,
+             dtype: torch.dtype) -> BwdPlan:
+    """The backward's launch plan from the shapes and dtype alone.  Takes
+    what the forward takes (``plan`` raises the same errors by name)."""
+    fwd = plan(T, d, f, E, G, dtype)
+    if fwd.route == "simt":
+        cfg, k_step = BWD_SIMT, BWD_SIMT_CHUNK
+        smem = (0, 0, 0)
+    else:
+        cfg, k_step = BWD_MMA, K_STEP
+        (rm, rn, _, s1), (xm, xn, _, s2), (wm, wn, _, s3) = cfg
+        lk, item = k_step + PAD, 2
+        smem = (s1 * item * (2 * rm * lk + 2 * k_step * (rn + PAD) + rn * lk),
+                s2 * item * (4 * xm * lk + 2 * xn * lk),
+                s3 * item * (2 * k_step * (wm + PAD)
+                             + 2 * k_step * (wn + PAD)))
+    launches = []
+    for (m, n, warps, stages), nbytes, width in zip(cfg, smem, (f, d, None)):
+        if nbytes > SMEM_LIMIT:
+            raise ValueError(f"grouped FFN backward: {nbytes} bytes of "
+                             f"shared memory exceed the {SMEM_LIMIT} a block "
+                             f"may use")
+        grid = ((_tiles(width, n), max_tiles(T, G, m)) if width is not None
+                else (weight_tiles(d, f, m, n), E))
+        if grid[1] > MAX_TILES:
+            raise ValueError(f"grouped FFN backward: T={T} over G={G} "
+                             f"groups needs {grid[1]} logical tiles of {m} "
+                             f"rows, more than {MAX_TILES}")
+        launches.append(Launch(m, n, warps, stages, nbytes, grid))
+    return BwdPlan(fwd.route, k_step, *launches)
+
+
 class _Args(ctypes.Structure):
     """``MoeArgs`` of the ``.cu`` file: one call's shapes and plan."""
 
@@ -184,6 +253,26 @@ def _args(T: int, d: int, f: int, E: int, G: int,
                                 "smem")))
 
 
+class _BwdArgs(ctypes.Structure):
+    """``MoeBwdArgs`` of the ``.cu`` file."""
+
+    _fields_ = [(name, ctypes.c_longlong) for name in (
+        "rows", "d", "f", "E", "G", "dtype", "k_step",
+        *(f"{launch}_{field}" for launch in ("rows", "dx", "w")
+          for field in ("m", "n", "warps", "stages", "smem")))]
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_args(T: int, d: int, f: int, E: int, G: int,
+              dtype: torch.dtype) -> _BwdArgs:
+    p = plan_bwd(T, d, f, E, G, dtype)
+    return _BwdArgs(T, d, f, E, G, _DTYPES[dtype], p.k_step,
+                    *(getattr(launch, name)
+                      for launch in (p.rows, p.dx, p.weights)
+                      for name in ("m_tile", "n_tile", "warps", "stages",
+                                   "smem")))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared."""
@@ -192,6 +281,10 @@ def _lib() -> ctypes.CDLL:
     lib.moe_grouped_ffn_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp, ctypes.POINTER(_Args), vp]
     lib.moe_grouped_ffn_launch.restype = ctypes.c_int
+    lib.moe_grouped_ffn_bwd_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        ctypes.POINTER(_BwdArgs), vp]
+    lib.moe_grouped_ffn_bwd_launch.restype = ctypes.c_int
     return lib
 
 
@@ -278,3 +371,70 @@ def moe_grouped_ffn_cuda(x, w_gate, w_up, w_down, group_sizes,
                            f"{err}")
     LAUNCHES["moe_grouped_ffn"] += 1
     return out
+
+
+def moe_grouped_ffn_bwd_cuda(x, w_gate, w_up, w_down, group_sizes,
+                             group_experts, dy):
+    """The gradient of ``moe_grouped_ffn_cuda``'s output against ``dy``
+    (T, d), like x: (dx, dWg, dWu, dWd) in the inputs' shapes and dtype.
+    Rows past ``sum(group_sizes)`` get zero dx, a group whose expert is out
+    of range NaN dx rows and no weight gradient; an expert without rows
+    gets zero weight gradients."""
+    _check(x, w_gate, w_up, w_down, group_sizes, group_experts)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"grouped FFN backward: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} on {dy.device} must be a contiguous "
+                         f"tensor like x {tuple(x.shape)} {x.dtype}")
+    if x.dtype == torch.bfloat16 and dy.data_ptr() % 16:
+        raise ValueError("grouped FFN backward (bf16): dy must start on a "
+                         "16-byte boundary")
+    T, d = x.shape
+    E, _, f = w_gate.shape
+    if T == 0:
+        return (torch.empty_like(x),
+                *(torch.zeros_like(w) for w in (w_gate, w_up, w_down)))
+    dx = torch.empty_like(x)
+    grads = [torch.empty_like(w) for w in (w_gate, w_up, w_down)]
+    args = _bwd_args(T, d, f, E, group_sizes.shape[0], x.dtype)
+    # a, dg, du: f32, or each as bf16 hi and lo planes (the same bytes).
+    scratch = torch.empty((3, T, f), dtype=torch.float32, device=x.device)
+    err = _lib().moe_grouped_ffn_bwd_launch(
+        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
+        group_sizes.data_ptr(),
+        None if group_experts is None else group_experts.data_ptr(),
+        dy.data_ptr(), scratch.data_ptr(), dx.data_ptr(),
+        *(g.data_ptr() for g in grads), args,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"grouped FFN backward launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["moe_grouped_ffn_bwd"] += 1
+    return (dx, *grads)
+
+
+class GroupedFFN(torch.autograd.Function):
+    """The grouped SwiGLU with its gradient: on CUDA tensors the forward
+    and backward kernels, on CPU tensors their plain versions
+    (``ref.moe_grouped_ffn_reference`` and
+    ``ref.moe_grouped_ffn_bwd_reference``).  The forward saves its inputs
+    only; the backward recomputes h, as the JAX package's ``_ffn_bwd``
+    does."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, group_sizes, group_experts):
+        ctx.save_for_backward(x, w_gate, w_up, w_down, group_sizes,
+                              group_experts)
+        fwd = (ref.moe_grouped_ffn_reference if x.device.type == "cpu"
+               else moe_grouped_ffn_cuda)
+        return fwd(x, w_gate, w_up, w_down, group_sizes, group_experts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_gate, w_up, w_down, group_sizes, group_experts = \
+            ctx.saved_tensors
+        bwd = (ref.moe_grouped_ffn_bwd_reference if x.device.type == "cpu"
+               else moe_grouped_ffn_bwd_cuda)
+        grads = bwd(x, w_gate, w_up, w_down, group_sizes, group_experts,
+                    dy.contiguous())
+        return (*grads, None, None)

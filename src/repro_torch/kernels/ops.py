@@ -69,14 +69,13 @@ def moe_grouped_ffn(x, w_gate, w_up, w_down, group_sizes,
     dispatch).  x: (T, d) sorted by group; w_gate/w_up: (E, d, f); w_down:
     (E, f, d); group_sizes: (G,) int32; group_experts: optional (G,) int32
     group -> weight-row map (None means G == E).  Both versions give each
-    row bits that depend on the row and its expert alone."""
-    if x.device.type == "cpu":
-        return ref.moe_grouped_ffn_reference(x, w_gate, w_up, w_down,
-                                             group_sizes, group_experts)
-    from .moe_gemm import moe_grouped_ffn_cuda
+    row bits that depend on the row and its expert alone.  Differentiable
+    in x and the weights (``moe_gemm.GroupedFFN``): a CPU tensor takes the
+    plain forward and backward, a CUDA tensor the kernels."""
+    from .moe_gemm import GroupedFFN
 
-    return moe_grouped_ffn_cuda(x, w_gate, w_up, w_down, group_sizes,
-                                group_experts)
+    return GroupedFFN.apply(x, w_gate, w_up, w_down, group_sizes,
+                            group_experts)
 
 
 def ssd_scan(x, dt, A, Bm, Cm) -> torch.Tensor:

@@ -9,7 +9,9 @@ Paged attention:
 q ``(B, H, dh)``, pools ``(N, P, K, dh)``, page table ``(B, MP)`` int32
 with -1 for an unused slot, lengths ``(B,)``; scores, softmax and the
 weighted sum run in f32.  Grouped-expert FFN: x ``(T, d)`` sorted by group,
-weights ``(E, d, f)`` / ``(E, f, d)``, everything after the inputs in f32.
+weights ``(E, d, f)`` / ``(E, f, d)``, everything after the inputs in f32;
+its gradient (``moe_grouped_ffn_bwd_reference``) is written out segment by
+segment, as the backward kernel computes it.
 SSD (Mamba2) intra-chunk block: x ``(B, Q, H, P)``, dt ``(B, Q, H)`` f32,
 A ``(H,)`` f32, B/C ``(B, Q, N)``; y ``(B, Q, H, P)`` f32.
 """
@@ -160,6 +162,62 @@ def moe_grouped_ffn_reference(x, w_gate, w_up, w_down, group_sizes,
         out[start:start + n] = linear(h, w_down[e].to(F32))[:n]
         start += n
     return out.to(x.dtype)
+
+
+def moe_grouped_ffn_bwd_reference(x, w_gate, w_up, w_down, group_sizes,
+                                  group_experts, dy):
+    """The gradient of ``moe_grouped_ffn_reference`` against ``dy`` (T, d):
+    (dx, dWg, dWu, dWd), computed segment by segment in f32 from x, dy and
+    the weights read as f32, as the JAX package's ``_ffn_bwd`` computes it
+    through its oracle.  Per row of a group with expert e::
+
+        g = x Wg[e], u = x Wu[e], s = sigmoid(g), a = g s u
+        da = dy Wd[e]^T, dg = da u s (1 + g (1 - s)), du = da g s
+        dx = dg Wg[e]^T + du Wu[e]^T
+        dWg[e] += x^T dg, dWu[e] += x^T du, dWd[e] += a^T dy
+
+    the dW sums taken over e's groups in ascending group order.  dx comes
+    back in x's dtype, the dW's in the weights' dtype.  Rows past
+    ``sum(group_sizes)`` get zero dx; a group whose expert is out of range
+    gets NaN dx rows (its forward rows are NaN) and adds to no dW.  Reads
+    the group sizes on the host: the plain version, not a path for CUDA
+    tensors."""
+    T, d = x.shape
+    E = w_gate.shape[0]
+    G = group_sizes.shape[0]
+    if group_experts is None:
+        if G != E:
+            raise ValueError(f"{G} groups over {E} experts need a "
+                             f"group_experts map")
+        experts = list(range(G))
+    else:
+        experts = [int(e) for e in group_experts.tolist()]
+    dx = torch.zeros((T, d), dtype=F32, device=x.device)
+    dw = [torch.zeros(w.shape, dtype=F32, device=x.device)
+          for w in (w_gate, w_up, w_down)]
+    start = 0
+    for g, n in enumerate(int(n) for n in group_sizes.tolist()):
+        if n <= 0:
+            continue
+        e, rows = experts[g], slice(start, start + n)
+        start += n
+        if not 0 <= e < E:
+            dx[rows] = float("nan")
+            continue
+        xr, dyr = x[rows].to(F32), dy[rows].to(F32)
+        wg, wu, wd = (w[e].to(F32) for w in (w_gate, w_up, w_down))
+        gr, u = xr @ wg, xr @ wu
+        s = torch.sigmoid(gr)
+        silu = gr * s
+        da = dyr @ wd.t()
+        dg = da * u * s * (1 + gr * (1 - s))
+        du = da * silu
+        dx[rows] = dg @ wg.t() + du @ wu.t()
+        dw[0][e] += xr.t() @ dg
+        dw[1][e] += xr.t() @ du
+        dw[2][e] += (silu * u).t() @ dyr
+    return (dx.to(x.dtype),) + tuple(
+        g.to(w.dtype) for g, w in zip(dw, (w_gate, w_up, w_down)))
 
 
 def ssd_reference(x, dt, A, Bm, Cm) -> torch.Tensor:

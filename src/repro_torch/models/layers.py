@@ -6,8 +6,10 @@ angles are f32, and logits are cast to f32 after the head product.
 Row invariance.  ``linear`` and ``rmsnorm`` run every call as tiles of
 exactly ``ROW_TILE`` rows (``repro_torch.tiles``), so a row rounds the same
 in a 4-row decode batch and a 512-row prefill.  Elementwise ops need no
-such care.  They write through ``out=``, which autograd refuses, and row
-invariance is a serving invariant that training does not need.
+such care.  ``rmsnorm`` writes through ``out=``, which autograd refuses:
+row invariance is a serving invariant that training does not need.
+``linear`` has a gradient, for the MoE router, which routes through it
+in training as in serving.
 
 Training forms.  ``norm``, ``project``, ``attention``, ``swiglu``,
 ``cross_entropy`` and ``chunked_lm_loss`` (``repro/models/layers.py``

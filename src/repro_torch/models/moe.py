@@ -18,6 +18,14 @@ package's ``.at[tok_idx].add`` adds them), and they are summed in f32 by
 a loop over k starting from zero.  Group sizes come from the sorted picks
 by ``searchsorted``, on the device: nothing here waits for the card.
 
+Training differentiates the whole layer: the router through ``linear``
+and the softmax, the experts through the grouped FFN's backward kernel.
+The dispatch gather and the combine are ``autograd.Function``s whose
+backwards are each other's forwards: the gather's gradient sums a token's
+k sorted-pick gradients by the same fixed-order loop, and the combine's
+gradient gathers each pick's token row.  So no backward accumulates by
+index either, and two backward passes give the same bits.
+
 Not ported yet, each raising ``NotImplementedError``: the per-row layout
 and ep over a multi-device mesh (ROADMAP.md queue A item 11), and
 ``dispatch="capacity"`` (item 11 as well).  One card with
@@ -67,7 +75,8 @@ def route_tokens(router: torch.Tensor, x2d: torch.Tensor, cfg: MoEConfig
     (gates (T, k) f32, experts (T, k) int32).  The logits go through
     ``linear``'s fixed row tiles; softmax, argmax and the renormalisation
     are per row, so a token's picks and gates do not depend on how the
-    stream is cut into calls."""
+    stream is cut into calls.  The gates are differentiable in x2d and
+    the router (through ``linear``, the softmax and the picks' gathers)."""
     E = cfg.padded_experts
     logits = linear(x2d.to(F32), router)
     if E != cfg.n_experts:              # dead ep padding experts
@@ -98,6 +107,55 @@ def _sort_picks_by_expert(experts: torch.Tensor, k: int
     return order, order // k
 
 
+def _sum_picks(rows: torch.Tensor, where: torch.Tensor) -> torch.Tensor:
+    """(T, d) f32: row t is the sum of ``rows[where[t, j]]`` over j, taken
+    in f32 from zero in the order of j (ascending expert)."""
+    y = torch.zeros((where.shape[0], rows.shape[1]), dtype=F32,
+                    device=rows.device)
+    for j in range(where.shape[1]):
+        y = y + rows[where[:, j]].to(F32)
+    return y
+
+
+class _Dispatch(torch.autograd.Function):
+    """xs = x[tok_idx]: each token's row once per pick, in sorted order.
+    Its gradient sums a token's k pick gradients by ``_sum_picks``."""
+
+    @staticmethod
+    def forward(ctx, x, tok_idx, where):
+        ctx.save_for_backward(where)
+        ctx.dtype = x.dtype
+        return x[tok_idx]
+
+    @staticmethod
+    def backward(ctx, dxs):
+        (where,) = ctx.saved_tensors
+        return _sum_picks(dxs, where).to(ctx.dtype), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y (T, d) f32 = the sum over a token's k picks, in ascending-expert
+    order, of ``ys * gate``: the sorted picks' FFN rows ys (T*k, d) in f32
+    times their gates, ``gates[order]`` of the (T*k,) f32 gates in token
+    order.  The gates' gradient comes back through the inverse
+    permutation."""
+
+    @staticmethod
+    def forward(ctx, ys, gates, order, inverse, where):
+        gs = gates[order]
+        ctx.save_for_backward(ys, gs, order, inverse)
+        ctx.k = where.shape[1]
+        return _sum_picks(ys.to(F32) * gs[:, None], where)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ys, gs, order, inverse = ctx.saved_tensors
+        dcontrib = dy[order // ctx.k]          # each pick's token row
+        dys = (dcontrib * gs[:, None]).to(ys.dtype)
+        dgs = (dcontrib * ys.to(F32)).sum(-1)
+        return dys, dgs[inverse], None, None, None
+
+
 def apply_dropless_flat(gates, experts, x, w_gate, w_up, w_down,
                         cfg: MoEConfig,
                         expert_slots: Optional[torch.Tensor] = None
@@ -116,19 +174,17 @@ def apply_dropless_flat(gates, experts, x, w_gate, w_up, w_down,
     T = B * S
     flat_e = experts.reshape(T * k).to(torch.int64)
     order, tok_idx = _sort_picks_by_expert(flat_e, k)
-    xs = x.reshape(T, d)[tok_idx]                                # (T*k, d)
+    # Sorted position of each pick; per token, ascending = ascending expert.
+    inverse = torch.argsort(order)
+    where = torch.sort(inverse.reshape(T, k), dim=-1).values
+    xs = _Dispatch.apply(x.reshape(T, d), tok_idx, where)        # (T*k, d)
     bounds = torch.searchsorted(
         flat_e[order], torch.arange(E + 1, device=x.device))
     group_sizes = (bounds[1:] - bounds[:-1]).to(torch.int32)
     slots = None if expert_slots is None else expert_slots.to(torch.int32)
     ys = ops.moe_grouped_ffn(xs, w_gate, w_up, w_down, group_sizes, slots)
     # ys is in x's dtype (as in the JAX package) before the gates scale it.
-    contrib = ys.to(F32) * gates.reshape(T * k)[order][:, None]
-    # Sorted position of each pick; per token, ascending = ascending expert.
-    where = torch.sort(torch.argsort(order).reshape(T, k), dim=-1).values
-    y = torch.zeros((T, d), dtype=F32, device=x.device)
-    for j in range(k):
-        y = y + contrib[where[:, j]]
+    y = _Combine.apply(ys, gates.reshape(T * k), order, inverse, where)
     return y.to(x.dtype).reshape(B, S, d)
 
 

@@ -9,9 +9,12 @@ unchanged (``repro_torch.convert``): ``wq (d,H,dh)``, ``wk``/``wv``
 ``moe.w_up (E,d,f)`` and ``moe.w_down (E,f,d)`` in place of ``mlp``.  The
 serving engine (``serve/engine.py``) drives the layers itself under
 ``torch.no_grad``.  ``forward`` and ``loss`` are the training pass of the
-dense family (``repro/models/transformer.py`` ``_dense_body``, ``_trunk``,
-``loss``): whole-tensor layers, every attention through the flash kernels,
-each layer under ``torch.utils.checkpoint`` when ``cfg.remat``.
+dense and MoE families (``repro/models/transformer.py`` ``_dense_body``,
+``_trunk``, ``loss``): whole-tensor layers, every attention through the
+flash kernels, every MoE layer through ``models.moe.moe`` (the grouped-FFN
+forward and backward kernels), each layer under
+``torch.utils.checkpoint`` when ``cfg.remat``.  Routing is per token, so
+the recompute under remat picks the experts the first forward picked.
 
 The hybrid family (zamba2: Mamba2 layers with one shared attention+MLP
 block after every ``attn_every`` of them) holds ``ssm_layers.<i>.ln`` and
@@ -32,6 +35,7 @@ never need to be trainable.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Dict, Mapping, Optional
 
 import torch
@@ -44,13 +48,8 @@ from ..kernels import ops
 from .config import ModelConfig
 from .layers import (attention, attention_decode, chunked_lm_loss, norm,
                      param, project, rope, rope_freqs, swiglu)
-from .moe import CAPACITY_NOT_PORTED, MoEConfig
+from .moe import CAPACITY_NOT_PORTED, MoEConfig, moe
 from .ssm import SSM, SSMConfig, ssm_decode, ssm_forward
-
-MOE_TRAINING_NOT_PORTED = (
-    "training the MoE family is not ported yet: its gradient needs a "
-    "grouped-FFN backward kernel (ROADMAP.md queue B item 6, with MoE "
-    "training)")
 
 HYBRID_TRAINING_NOT_PORTED = (
     "training the hybrid family is not ported yet: its gradient needs an "
@@ -253,20 +252,28 @@ class Model(nn.Module):
         """Layer i's tensors of a state-dict-named mapping, nested as the
         JAX layer tree is."""
         pre = f"layers.{i}."
-        return {
+        out = {
             "ln1": params[pre + "ln1.scale"],
             "attn": {w: params[f"{pre}attn.{w}"]
                      for w in ("wq", "wk", "wv", "wo")},
             "ln2": params[pre + "ln2.scale"],
-            "mlp": {w: params[f"{pre}mlp.{w}"]
-                    for w in ("w_gate", "w_up", "w_down")},
         }
+        if self.moe_cfg is not None:
+            out["moe"] = SimpleNamespace(**{
+                w: params[f"{pre}moe.{w}"]
+                for w in ("router", "w_gate", "w_up", "w_down")})
+        else:
+            out["mlp"] = {w: params[f"{pre}mlp.{w}"]
+                          for w in ("w_gate", "w_up", "w_down")}
+        return out
 
     def _dense_body(self, lp: Mapping, x: torch.Tensor,
                     positions: torch.Tensor,
                     freqs: torch.Tensor) -> torch.Tensor:
         h = x + attention(lp["attn"], norm(lp["ln1"], x), positions, freqs,
                           window=self.cfg.window)
+        if self.moe_cfg is not None:
+            return h + moe(lp["moe"], norm(lp["ln2"], h), self.moe_cfg)
         return h + swiglu(lp["mlp"], norm(lp["ln2"], h))
 
     def forward(self, tokens: torch.Tensor,
@@ -275,8 +282,6 @@ class Model(nn.Module):
         """The trunk: tokens (B, S) -> hidden (B, S, d) after the layer
         stack (before the final norm).  ``params`` maps state-dict names to
         the tensors to use (default: the module's own)."""
-        if self.moe_cfg is not None:
-            raise NotImplementedError(MOE_TRAINING_NOT_PORTED)
         if self.ssm_cfg is not None:
             raise NotImplementedError(HYBRID_TRAINING_NOT_PORTED)
         P = dict(self.named_parameters()) if params is None else params

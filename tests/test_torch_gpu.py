@@ -369,6 +369,120 @@ def test_moe_grouped_ffn_kernel_refuses_what_it_does_not_take(cuda):
         mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs)
 
 
+# ------------------------------------------------ grouped-expert backward
+# Each output against the plain backward, as a fraction of its largest
+# entry: bf16 outputs round once and the scratch operands carry about 16
+# bits (hi/lo pairs); f32 sums in other orders.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def bwd_case(dev, dtype, T, E, d, f, sizes, seed=0):
+    x, wg, wu, wd, gs = ffn_case(dev, dtype, T, E, d, f, sizes, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    dy = torch.randn((T, d), generator=gen, device=dev).to(dtype)
+    return x, wg, wu, wd, gs, dy
+
+
+def assert_bwd_close(got, want, dtype, what):
+    for name, g, w in zip(("dx", "dWg", "dWu", "dWd"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, name)
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        assert err <= BWD_TOL[dtype] * scale, (what, name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,E,d,f,sizes,experts", [
+    (96, 8, 96, 64, [5, 0, 17, 0, 3, 7, 0, 12], None),       # smoke widths
+    (52, 8, 96, 64, [9, 0, 14, 6, 21, 0, 2], [2, 0, 1, 1, 0, 7, 2]),
+    (200, 8, 256, 128, [40, 0, 33, 1, 60, 0, 50, 16], None),
+    (243, 6, 128, 96, EDGES, None),                     # tile edges
+    (4096, 40, 1536, 512, routed(512, 40, 8, 11), None),  # granite
+])
+def test_moe_grouped_ffn_bwd_kernel_matches_plain(cuda, dtype, T, E, d, f,
+                                                  sizes, experts):
+    """dx, dWg, dWu, dWd against ``ref.moe_grouped_ffn_bwd_reference``;
+    empty groups, a map with repeats, rows past the segments (zero dx),
+    segments across the tiles' edges, granite's widths."""
+    x, wg, wu, wd, gs, dy = bwd_case(cuda, dtype, T, E, d, f, sizes)
+    ge = None if experts is None else torch.tensor(
+        experts, dtype=torch.int32, device=cuda)
+    before = mg.LAUNCHES["moe_grouped_ffn_bwd"]
+    got = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, ge, dy)
+    torch.cuda.synchronize()
+    assert mg.LAUNCHES["moe_grouped_ffn_bwd"] == before + 1
+    want = ref.moe_grouped_ffn_bwd_reference(x, wg, wu, wd, gs, ge, dy)
+    assert_bwd_close(got, want, dtype, (T, E, d, f))
+    assert torch.all(got[0][sum(sizes):] == 0), "rows past the segments"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_ffn_bwd_is_bitwise_reproducible(cuda, dtype):
+    """Two launches give the same bits; an expert's weight gradients do not
+    change, bitwise, when another expert's rows do."""
+    sizes = routed(512, 40, 8, 12)
+    x, wg, wu, wd, gs, dy = bwd_case(cuda, dtype, 4096, 40, 1536, 512,
+                                     sizes, 3)
+    first = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy)
+    again = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    x2 = x.clone()
+    x2[:sizes[0]] = -x2[:sizes[0]]                     # expert 0's rows
+    other = mg.moe_grouped_ffn_bwd_cuda(x2, wg, wu, wd, gs, None, dy)
+    for a, b in zip(first[1:], other[1:]):
+        assert torch.equal(a[1:], b[1:])
+        assert not torch.equal(a[0], b[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_grouped_ffn_bwd_out_of_range_expert(cuda, dtype):
+    """A group at slot -1: NaN dx rows, every other dx row and every other
+    expert's weight gradients bitwise unchanged, its expert's zero."""
+    sizes = [70, 0, 90, 140]
+    x, wg, wu, wd, gs, dy = bwd_case(cuda, dtype, 300, 4, 128, 64, sizes, 8)
+    good = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=cuda)
+    bad = torch.tensor([0, 1, 2, -1], dtype=torch.int32, device=cuda)
+    want = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, good, dy)
+    got = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, bad, dy)
+    assert torch.equal(got[0][:160], want[0][:160])
+    assert torch.isnan(got[0][160:].float()).all()
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a[:3], b[:3]) and torch.all(a[3] == 0)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "simt")])
+def test_moe_grouped_ffn_bwd_takes_its_route(cuda, dtype, route):
+    """bf16 on tensor cores, f32 on SIMT; autograd through ``ops`` reaches
+    the backward kernel once a call."""
+    assert mg.plan_bwd(4096, 1536, 512, 40, 40, dtype).route == route
+    x, wg, wu, wd, gs, dy = bwd_case(cuda, dtype, 96, 8, 96, 64,
+                                     [5, 0, 17, 0, 3, 7, 0, 64], 4)
+    leaves = [t.clone().requires_grad_(True) for t in (x, wg, wu, wd)]
+    before = dict(mg.LAUNCHES)
+    y = ops.moe_grouped_ffn(*leaves, gs)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert mg.LAUNCHES["moe_grouped_ffn"] == before["moe_grouped_ffn"] + 1
+    assert mg.LAUNCHES["moe_grouped_ffn_bwd"] == \
+        before["moe_grouped_ffn_bwd"] + 1
+    want = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
+def test_moe_grouped_ffn_bwd_refuses_what_it_does_not_take(cuda):
+    x, wg, wu, wd, gs, dy = bwd_case(cuda, torch.float32, 8, 2, 32, 16,
+                                     [3, 5])
+    with pytest.raises(ValueError, match="dy"):
+        mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy.bfloat16())
+    with pytest.raises(ValueError, match="dy"):
+        mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy[:4])
+    with pytest.raises(ValueError, match="int32"):
+        mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs.long(), None, dy)
+
+
 # ---------------------------------------------------------- flash attention
 def flash_case(dev, dtype, B, Sq, Sk, H, K, dh, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)

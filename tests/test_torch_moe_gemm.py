@@ -7,7 +7,9 @@ are held against the JAX package's ``make_group_metadata`` at the same
 tile height, over ragged sweeps with empty groups and as a ``hypothesis``
 property.  The plan's grids must cover every tile in use, its shared
 memory must fit the card, and its k step must not change with T (the
-order of every reduction, so a row's bits, depends on it)."""
+order of every reduction, so a row's bits, depends on it).  The same for
+the backward's ``plan_bwd``, whose weights launch has a block row per
+expert."""
 
 import numpy as np
 import pytest
@@ -189,3 +191,88 @@ def test_argument_block_carries_the_plan():
     assert (a.down_m, a.down_n, a.down_warps, a.down_stages,
             a.down_smem) == (p.down.m_tile, p.down.n_tile, p.down.warps,
                              p.down.stages, p.down.smem)
+
+
+# ---------------------------------------------------------------- backward
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T", [1, 33, 2048, 32768])
+@pytest.mark.parametrize("d,f", [(1536, 512), (96, 64), (64, 48),
+                                 (256, 128)])
+def test_backward_plan_shared_memory_fits_the_card(T, d, f, dtype):
+    """Each launch's dynamic shared memory fits a block, with the weights
+    launch's static segment lists (two ints a group) beside it."""
+    p = mg.plan_bwd(T, d, f, 8, 8, dtype)
+    static = {"weights": 2 * 4 * mg.MAX_GROUPS + 16}
+    for name in ("rows", "dx", "weights"):
+        launch = getattr(p, name)
+        assert 0 <= launch.smem + static.get(name, 0) <= mg.SMEM_LIMIT
+        assert launch.warps * 32 <= 1024
+    assert p.route == ("mma" if dtype == torch.bfloat16 else "simt")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T", [1, 32, 2048, 32768])
+@pytest.mark.parametrize("G,E", [(1, 1), (8, 8), (40, 40), (48, 40),
+                                 (1024, 8)])
+def test_backward_plan_grids_cover_every_tile_and_expert(T, G, E, dtype):
+    """The rows and dx launches hold every logical tile of their M tile
+    plus a spare row (which zeroes dx past the segments) and cover f and d;
+    the weights launch has a block row per expert and covers dWg, dWu and
+    dWd tile by tile."""
+    d, f = GRANITE["d"], GRANITE["f"]
+    p = mg.plan_bwd(T, d, f, E, G, dtype)
+    assert p.rows.grid[0] * p.rows.n_tile >= f
+    assert p.dx.grid[0] * p.dx.n_tile >= d
+    w = p.weights
+    assert w.grid[1] == E
+    per_matrix = [-(-d // w.m_tile) * -(-f // w.n_tile)] * 2 + \
+        [-(-f // w.m_tile) * -(-d // w.n_tile)]
+    assert w.grid[0] == sum(per_matrix)
+    assert w.m_tile * -(-d // w.m_tile) >= d
+    assert w.n_tile * -(-f // w.n_tile) >= f
+    rng = np.random.default_rng(T + G)
+    for _ in range(5):
+        cuts = np.sort(rng.integers(0, T + 1, G - 1))
+        sizes = np.diff(np.concatenate([[0], cuts, [T]]))
+        sizes[rng.random(G) < 0.3] = 0
+        for launch in (p.rows, p.dx):
+            used = len(mg.schedule(sizes.tolist(), T, launch.m_tile))
+            assert used < launch.grid[1]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,f", [(1536, 512), (96, 64), (64, 48)])
+def test_backward_plan_does_not_depend_on_t(d, f, dtype):
+    """The tiles and k step, so every reduction's order, are the same for
+    every T: a row's and an expert's bits depend on the rows alone."""
+    def shape(T):
+        p = mg.plan_bwd(T, d, f, 40, 40, dtype)
+        return (p.k_step, *((launch.m_tile, launch.n_tile, launch.warps,
+                             launch.stages, launch.smem)
+                            for launch in (p.rows, p.dx, p.weights)))
+
+    assert len({shape(T) for T in (1, 4, 33, 2048, 32768)}) == 1
+
+
+@pytest.mark.parametrize("args,match", [
+    ((32, 1536, 512, 40, 40, torch.float16), "float32 or bfloat16"),
+    ((32, 36, 512, 40, 40, torch.bfloat16), "d=36"),
+    ((32, 1536, 512, 40, 1025, torch.bfloat16), "G=1025"),
+    ((0, 1536, 512, 40, 40, torch.bfloat16), "T=0"),
+])
+def test_backward_plan_refuses_odd_shapes_by_name(args, match):
+    with pytest.raises(ValueError, match=match):
+        mg.plan_bwd(*args)
+
+
+def test_backward_argument_block_carries_the_plan():
+    p = mg.plan_bwd(32768, 1536, 512, 40, 40, torch.bfloat16)
+    a = mg._bwd_args(32768, 1536, 512, 40, 40, torch.bfloat16)
+    assert (a.rows, a.d, a.f, a.E, a.G, a.dtype, a.k_step) == (
+        32768, 1536, 512, 40, 40, 1, p.k_step)
+    for prefix, launch in (("rows", p.rows), ("dx", p.dx),
+                           ("w", p.weights)):
+        assert tuple(getattr(a, f"{prefix}_{field}") for field in (
+            "m", "n", "warps", "stages", "smem")) == (
+            launch.m_tile, launch.n_tile, launch.warps, launch.stages,
+            launch.smem)
