@@ -60,7 +60,15 @@ Phases, each of which raises on failure:
    each chunk alone, bitwise; the route each dtype takes (bf16 on tensor
    cores, f32 on SIMT, the other route refused); timed beside its plain
    version (no single PyTorch call computes it), by CUDA events and by
-   the profiler.
+   the profiler.  The SSD backward: bf16 and f32 against
+   ``ref.ssd_bwd_reference`` at hybrid training's call (32 chunk rows of
+   128, 112 heads of 64, state 64), an odd shape (Q = 72, N = 13) and the
+   largest (Q = 256, N = 128), each output within 1e-2 (bf16 outputs) or
+   1e-4 (f32) of its largest entry, two launches bitwise equal, chunk
+   rows of the 32-row call equal to each row alone in dx, ddt, dB, dC;
+   timed beside the plain backward (no library call computes it).  The
+   flash backward at dh 112 at hybrid training's shape (B=2, S=2048,
+   32/32 heads), checked, bitwise repeated and timed beside SDPA's.
 4. Dense serving: ``LLM.from_arch("llama3_2_1b", smoke=False).generate`` at
    the published widths in bf16 with random weights: 8 requests of 512
    prompt tokens, KV pages migrating between HBM and pinned host memory
@@ -160,6 +168,20 @@ Phases, each of which raises on failure:
    (plain routing, grouped FFN and its backward, combine, attention) to
    1e-4.
 
+11. Hybrid training, after hybrid serving: ``Trainer`` on ``zamba2_7b``
+   at the published widths cut to 24 layers (all 81 need 81.0 GB of
+   training state) in bf16 with remat and phase 6's AdamW on
+   ``SyntheticLM(seed=0)`` batches of 2 x 2048: HYBRID_TRAIN_STEPS steps
+   unguided, then guided with 60% of the parameter and moment bytes on
+   HBM (losses equal to rtol 1e-5, slow bytes > 0); the counters zeroed
+   just before each run and read just after (a step: 48 ``ssd_scan``, 24
+   ``ssd_scan_bwd``, 4 flash forward and 4 flash backward launches at dh
+   112; the shared block is outside the checkpoints); step times,
+   tokens/s and peak memory; two profiled steps (device time by kernel,
+   the SSD and flash kernels' shares, the idle share); an f32 copy cut to
+   7 layers on 256 tokens against a plain path (``ref.ssd_reference`` and
+   ``ref.ssd_bwd_reference`` per chunk, ``ref.mha_reference``) to 1e-4.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -208,6 +230,8 @@ SOURCES = {"ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "flash_attention_bwd":
                "src/repro_torch/kernels/csrc/flash_attention.cu"}
 SOURCES["flash_attention_fwd_dh112"] = SOURCES["flash_attention_fwd"]
+SOURCES["flash_attention_bwd_dh112"] = SOURCES["flash_attention_bwd"]
+SOURCES["ssd_scan_bwd"] = SOURCES["ssd_scan"]
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:113",
             "paged_prefill": "src/repro/kernels/paged_attention.py:95",
             "moe_grouped_ffn": "src/repro/kernels/moe_gemm.py:221",
@@ -216,11 +240,17 @@ REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:113",
             "flash_attention_bwd": "src/repro/kernels/flash_attention.py:166",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:65"}
 REPLACES["flash_attention_fwd_dh112"] = REPLACES["flash_attention_fwd"]
+REPLACES["flash_attention_bwd_dh112"] = REPLACES["flash_attention_bwd"]
+# The SSD backward stands for the autograd the JAX package takes through
+# its jnp ssd_chunked (ssd_scan_pallas has no VJP).
+REPLACES["ssd_scan_bwd"] = "src/repro/models/ssm.py:84"
 # flash_attention_fwd_dh112 is the flash forward at zamba2's head dim, its
-# launches those of the hybrid prefill.
+# launches those of the hybrid prefill; flash_attention_bwd_dh112 the
+# backward at that head dim, its launches those of hybrid training.
 KERNELS = ("paged_attention", "paged_prefill", "moe_grouped_ffn",
            "moe_grouped_ffn_bwd", "flash_attention_fwd",
-           "flash_attention_bwd", "ssd_scan", "flash_attention_fwd_dh112")
+           "flash_attention_bwd", "ssd_scan", "flash_attention_fwd_dh112",
+           "ssd_scan_bwd", "flash_attention_bwd_dh112")
 F32_CHECK_LAYERS = 2
 DENSE, MOE, HYBRID = "llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b"
 # The SSD kernel against its plain version: as a fraction of max|y| (the
@@ -233,6 +263,12 @@ SSD_TOL = 1e-4
 # intermediates reach the tensor cores as bf16 hi/lo pairs; f32 sums in
 # other orders.
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# The SSD backward against its plain version, as a fraction of each
+# output's largest entry, by the output's dtype: every sum runs in f32 in
+# both (bf16 inputs are exact), in other orders; dx, dB and dC in bf16
+# then round once, and two roundings of nearly equal f32 values may differ
+# by one bf16 unit (2^-7 of the value).
+SSD_BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 
 
 def log(msg: str) -> None:
@@ -1184,16 +1220,85 @@ def check_flash_kernel(card) -> dict:
                   "max_abs_err": worst_112, "ms": ms, "plain_ms": plain_ms,
                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
     del q, k, v, qs, ks, vs
+    rows["flash_attention_bwd_dh112"] = check_flash_bwd_112(card, case)
     free_card()
     return rows
+
+
+def check_flash_bwd_112(card, case) -> dict:
+    """The flash backward at hybrid training's shared attention (HYBRID_
+    TRAIN_ATTN, dh 112), bf16: dq, dk, dv against autograd through the
+    plain version, two runs bitwise equal, then timed beside the plain
+    backward and SDPA's.  Returns its kernel row (launches filled in by
+    phase 11)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, S, _, H, K, dh = HYBRID_TRAIN_ATTN
+    q, k, v, do = case(B, S, S, H, K, dh, torch.bfloat16)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    plain_out = ref.mha_reference(qr, kr, vr)
+    want = torch.autograd.grad(plain_out, (qr, kr, vr), do,
+                               retain_graph=True)
+    torch.cuda.synchronize()
+    tol, worst = GRAD_TOL["bfloat16"], 0.0
+    for name, g, a, w in zip(("dq", "dk", "dv"), grads, again, want):
+        diff = (g.float() - w.float()).abs()
+        if not bool((diff <= tol + tol * w.float().abs()).all()):
+            raise AssertionError(f"flash backward dh=112 {HYBRID_TRAIN_ATTN}"
+                                 f": {name} max abs err {float(diff.max())} "
+                                 f"outside atol=rtol={tol}")
+        if not torch.equal(g, a):
+            raise AssertionError(f"flash backward dh=112: two runs differ in "
+                                 f"{name}")
+        worst = max(worst, float(diff.max()))
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+    def kernel():
+        fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+
+    def sdpa():
+        torch.autograd.grad(sdpa_out, (qs, ks, vs), dos, retain_graph=True)
+
+    ms = time_ms(kernel)
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        plain_out, (qr, kr, vr), do, retain_graph=True), iters=10)
+    lib_ms = time_ms(sdpa)
+    b_ms, b_by = flash_bound_ms(B, S, S, H, K, dh, True, 2, True)
+    log(f"kernel check flash_attention_bwd B={B} S={S} {H}/{K} heads "
+        f"dh={dh} causal bf16 (hybrid training): dq/dk/dv max abs err "
+        f"{worst:.3e} (atol=rtol={tol}); two runs bitwise equal")
+    log(f"time flash_attention_bwd B={B} S={S} {H}/{K} heads dh={dh} causal "
+        f"bf16 (hybrid training): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); device "
+        f"(profiler) kernel {device_ms(kernel):.4f} ms, sdpa "
+        f"{device_ms(sdpa):.4f} ms {card.tag()}")
+    del q, k, v, do, out, lse, grads, again, qr, kr, vr, plain_out, want
+    del qs, ks, vs, dos, sdpa_out
+    name = "flash_attention_bwd_dh112"
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
 
 
 # (B, S, S, H, K, dh) of the hybrid prefill's shared attention: 4 prompts
 # of 1024 tokens, zamba2's 32/32 heads of 112.
 HYBRID_ATTN = (4, 1024, 1024, 32, 32, 112)
 # The hybrid prefill's SSD call: 4 x 1024 tokens in chunks of 128, 112
-# heads of 64, state 64.
+# heads of 64, state 64; hybrid training's (2 x 2048 tokens) is the same.
 HYBRID_SSD = (32, 128, 112, 64, 64)
+# (B, S, S, H, K, dh) of hybrid training's shared attention: 2 x 2048.
+HYBRID_TRAIN_ATTN = (2, 2048, 2048, 32, 32, 112)
 
 
 def ssd_case(gen, Bc, Q, H, P, N, dtype):
@@ -1348,6 +1453,117 @@ def check_ssd_kernel(card) -> dict:
             "launches": 0, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+
+
+def ssd_bwd_bound_ms(x, dt, A, bm) -> tuple:
+    """The least time for the backward: x, dt, A, B, C and the f32 dy read
+    once, dx, ddt, dA, dB and dC written once, over HBM bandwidth; and the
+    causal pairs' work over the peak rate of x's type: per chunk row Q(Q+1)
+    /2 pairs, each with the scores (2N), dS B and dS^T C (4N), and per head
+    dW (2P), W^T dY (2P) and the weight and G terms (6).  Returns (ms,
+    bound_by)."""
+    Bc, Q, H, P = x.shape
+    N = bm.shape[-1]
+    item = x.element_size()
+    nbytes = (2 * x.numel() * item + x.numel() * 4 + 2 * dt.numel() * 4
+              + 2 * A.numel() * 4 + 4 * bm.numel() * item)
+    ops = Bc * Q * (Q + 1) // 2 * (6 * N + H * (4 * P + 6))
+    dtype = "bfloat16" if item == 2 else "float32"
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_ssd_backward(card) -> dict:
+    """Phase 3, the SSD backward kernel against ``ref.ssd_bwd_reference``
+    at hybrid training's shape (HYBRID_SSD: 2 x 2048 tokens in chunks of
+    128), an odd one (Q and N not multiples of 16) and the largest chunk
+    and state, bf16 and f32: each output within SSD_BWD_TOL of its largest
+    entry, two launches bitwise equal, and chunk rows of the 32-row call
+    equal to each row alone in every output but dA; the route (SIMT in
+    both dtypes); then timed at hybrid training's shape.  Returns its
+    kernel row (launches filled in by phase 11)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    names = ("dx", "ddt", "dA", "dB", "dC")
+    worst = 0.0
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        for shape in (HYBRID_SSD, (3, 72, 6, 32, 13), (2, 256, 8, 64, 128)):
+            args = ssd_case(gen, *shape, dtype)
+            dy = torch.randn(args[0].shape, generator=gen, device="cuda")
+            got = ss.ssd_scan_bwd_cuda(*args, dy)
+            again = ss.ssd_scan_bwd_cuda(*args, dy)
+            want = ref.ssd_bwd_reference(*args, dy)
+            torch.cuda.synchronize()
+            errs = []
+            for name, g, a, w in zip(names, got, again, want):
+                if g.dtype != w.dtype or not torch.isfinite(g).all():
+                    raise AssertionError(f"ssd backward {shape} {dtype_name}"
+                                         f": {name} is {g.dtype} or not "
+                                         f"finite")
+                if not torch.equal(g, a):
+                    raise AssertionError(f"ssd backward {shape} {dtype_name}"
+                                         f": two launches differ in {name}")
+                tol = SSD_BWD_TOL[str(g.dtype).split(".")[-1]]
+                scale = float(w.float().abs().max()) + 1e-30
+                err = float((g.float() - w.float()).abs().max()) / scale
+                if err > tol:
+                    raise AssertionError(
+                        f"ssd backward {shape} {dtype_name}: {name} max err "
+                        f"{err:.3e} of its max {scale:.3e}, tolerance {tol}")
+                errs.append(err)
+                if shape == HYBRID_SSD and dtype == torch.bfloat16:
+                    worst = max(worst, err * scale)
+            log(f"kernel check ssd_scan_bwd (Bc, Q, H, P, N)={shape} "
+                f"{dtype_name}: "
+                f"{', '.join(f'{n} {e:.2e}' for n, e in zip(names, errs))} "
+                f"of each output's max (tol {SSD_BWD_TOL['bfloat16']} for "
+                f"bf16 outputs, {SSD_BWD_TOL['float32']} for f32); two "
+                f"launches bitwise equal")
+            if shape == HYBRID_SSD:
+                x, dt, A, bm, cm = args
+                for k in (0, x.shape[0] // 2, x.shape[0] - 1):
+                    one = ss.ssd_scan_bwd_cuda(
+                        *(t[k:k + 1].contiguous() for t in (x, dt)), A,
+                        *(t[k:k + 1].contiguous() for t in (bm, cm, dy)))
+                    for i in (0, 1, 3, 4):
+                        if not torch.equal(one[i][0], got[i][k]):
+                            raise AssertionError(
+                                f"ssd backward {dtype_name}: chunk row {k} "
+                                f"alone differs from its rows of the "
+                                f"{x.shape[0]}-row call in {names[i]}")
+                log(f"kernel check ssd_scan_bwd {dtype_name}: rows (0, "
+                    f"{x.shape[0] // 2}, {x.shape[0] - 1}) of the "
+                    f"{x.shape[0]}-row call == each row alone in dx, ddt, dB, "
+                    f"dC, bitwise")
+            del args, dy, got, again, want
+    p = ss.plan_bwd(*HYBRID_SSD, torch.bfloat16)
+    log(f"route ssd_scan_bwd bf16 and f32: SIMT ({p.grid[0]} blocks of "
+        f"{p.head_group} heads, {p.threads} threads, {p.smem} bytes of shared "
+        f"memory; reduce grid {p.reduce_grid}, {p.reduce_smem} bytes)")
+
+    args = ssd_case(gen, *HYBRID_SSD, torch.bfloat16)
+    dy = torch.randn(args[0].shape, generator=gen, device="cuda")
+    ms = time_ms(lambda: ss.ssd_scan_bwd_cuda(*args, dy))
+    dev = device_ms(lambda: ss.ssd_scan_bwd_cuda(*args, dy))
+    plain_ms = time_ms(lambda: ref.ssd_bwd_reference(*args, dy), iters=10)
+    b_ms, b_by = ssd_bwd_bound_ms(*args[:4])
+    log(f"time ssd_scan_bwd (Bc, Q, H, P, N)={HYBRID_SSD} bf16 (hybrid "
+        f"training): kernel {ms:.4f} ms (events), device {dev:.4f} ms "
+        f"(profiler), plain {plain_ms:.4f} ms, library none, bound "
+        f"{b_ms:.5f} ms ({b_by}) {card.tag()}")
+    del args, dy
+    free_card()
+    return {"name": "ssd_scan_bwd", "route": "cuda",
+            "source": SOURCES["ssd_scan_bwd"],
+            "replaces": REPLACES["ssd_scan_bwd"], "launches": 0,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 # ----------------------------------------------------------------- serving
@@ -2347,7 +2563,15 @@ MOE_TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ * 8
 
 def per_step_launches(cfg, steps: int) -> dict:
     """Kernel launches a training run makes under remat: each layer's
-    forward twice (the step's and the recompute's) and its backward once."""
+    forward twice (the step's and the recompute's) and its backward once.
+    The hybrid family's shared block runs outside the checkpoints, as in
+    the JAX package: its flash forward runs once an application."""
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.attn_every
+        return {"ssd_scan": 2 * cfg.n_layers * steps,
+                "ssd_scan_bwd": cfg.n_layers * steps,
+                "flash_attention_fwd": n_attn * steps,
+                "flash_attention_bwd": n_attn * steps}
     out = {"flash_attention_fwd": 2 * cfg.n_layers * steps,
            "flash_attention_bwd": cfg.n_layers * steps}
     if cfg.family == "moe":
@@ -2509,17 +2733,25 @@ def plain_moe_train(p, h, cfg):
 
 
 def train_f32_check(batch, arch: str = DENSE) -> None:
-    """The f32 model cut to F32_CHECK_LAYERS layers: the kernel path's
-    loss and gradients (``train.step.value_and_grad``: ``Model.loss``,
-    flash and grouped-expert kernels, remat) against ``plain_loss``'s,
-    each gradient leaf within 1e-4 of the plain one in norm."""
+    """The f32 model cut to F32_CHECK_LAYERS layers (the hybrid family to
+    HYBRID_CHECK_LAYERS, a segment of 6 and a remainder layer, on
+    HYBRID_CHECK_PROMPT tokens: two SSD chunks): the kernel path's loss
+    and gradients (``train.step.value_and_grad``: ``Model.loss``, the
+    flash, grouped-expert and SSD kernels, remat) against a plain path's
+    (``plain_loss``; for the hybrid family ``Model.loss`` under
+    ``plain_kernels``), each gradient leaf within 1e-4 of the plain one in
+    norm."""
     import torch
 
     from repro_torch.configs import get
     from repro_torch.models import Model
     from repro_torch.train import value_and_grad
 
-    model = Model(dataclasses.replace(get(arch), n_layers=F32_CHECK_LAYERS,
+    hybrid = arch == HYBRID
+    n_layers = HYBRID_CHECK_LAYERS if hybrid else F32_CHECK_LAYERS
+    if hybrid:
+        batch = {k: v[:, :HYBRID_CHECK_PROMPT] for k, v in batch.items()}
+    model = Model(dataclasses.replace(get(arch), n_layers=n_layers,
                                       dtype=torch.float32), device="cuda")
     model.init(torch.Generator(device="cuda").manual_seed(SEED + 5))
     params = dict(model.named_parameters())
@@ -2532,9 +2764,17 @@ def train_f32_check(batch, arch: str = DENSE) -> None:
             raise AssertionError(f"f32 training check ({arch}): the kernel "
                                  f"path launched no {name}")
     leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
-    want = plain_loss(model, leaves, batch)
-    want_grads = dict(zip(leaves, torch.autograd.grad(
-        want, list(leaves.values()))))
+    reset_launches()
+    # The backward recomputes the remat layers: it too runs in the context.
+    with plain_kernels() if hybrid else contextlib.nullcontext():
+        want = (model.loss(batch, leaves) if hybrid
+                else plain_loss(model, leaves, batch))
+        want_grads = dict(zip(leaves, torch.autograd.grad(
+            want, list(leaves.values()))))
+    torch.cuda.synchronize()
+    if any(read_launches().values()):
+        raise AssertionError(f"the plain path launched kernels: "
+                             f"{read_launches()}")
     want = float(want.detach())
     rel_loss = abs(float(loss) - want) / abs(want)
     worst, worst_name = 0.0, ""
@@ -2550,8 +2790,8 @@ def train_f32_check(batch, arch: str = DENSE) -> None:
             f"f32 training check: loss rel err {rel_loss:.3e}, worst "
             f"gradient {worst_name} rel err {worst:.3e} (tol 1e-4)")
     log(f"f32 kernel-path loss and gradients vs plain path ({arch}, "
-        f"{F32_CHECK_LAYERS} layers, B={TRAIN_BATCH} S={TRAIN_SEQ}): loss "
-        f"{float(loss):.6f} vs {want:.6f} (rel {rel_loss:.3e}), worst "
+        f"{n_layers} layers, B={TRAIN_BATCH} S={batch['tokens'].shape[1]}): "
+        f"loss {float(loss):.6f} vs {want:.6f} (rel {rel_loss:.3e}), worst "
         f"gradient {worst_name} rel err {worst:.3e} in norm (tol 1e-4)")
     del model, params, grads, leaves, want_grads
     free_card()
@@ -2740,12 +2980,26 @@ def hybrid_expected(cfg) -> dict:
 @contextlib.contextmanager
 def plain_kernels():
     """Within this context the model's kernel entry points take their plain
-    versions on any device: ``ref.ssd_reference`` per chunk and
-    ``ref.mha_reference``.  The comparison path of the f32 hybrid check."""
+    versions on any device: ``ref.ssd_reference`` per chunk (its gradient
+    ``ref.ssd_bwd_reference``) and ``ref.mha_reference`` (its gradient by
+    autograd).  The comparison path of the f32 hybrid checks."""
+    import torch
+
     from repro_torch.kernels import ops, ref
 
+    class PlainSSD(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, A, bm, cm):
+            ctx.save_for_backward(x, dt, A, bm, cm)
+            return ref.ssd_reference(x, dt, A, bm, cm)
+
+        @staticmethod
+        def backward(ctx, dy):
+            return ref.ssd_bwd_reference(*ctx.saved_tensors,
+                                         dy.contiguous())
+
     saved = ops.ssd_scan, ops.flash_attention
-    ops.ssd_scan = ref.ssd_reference
+    ops.ssd_scan = PlainSSD.apply
     ops.flash_attention = ref.mha_reference
     try:
         yield
@@ -2972,6 +3226,72 @@ def serve_hybrid(card, kernel_rows) -> None:
     hybrid_f32_checks(rng)
 
 
+# -------------------------------------------------------- hybrid training
+# Phase 11: zamba2 at its published widths cut to 24 layers (four full
+# segments of 6, the shared block applied 4 times; 2,306,193,792
+# parameters, 27.7 GB of bf16 parameters and gradients and f32 moments):
+# all 81 layers would need 81.0 GB of that state, more than the card.
+HYBRID_TRAIN_LAYERS = 24
+HYBRID_TRAIN_STEPS = 4
+
+
+def train_hybrid(card, kernel_rows) -> None:
+    """Phase 11: hybrid training at the published widths cut to
+    HYBRID_TRAIN_LAYERS layers, unguided then guided, a profiled pair of
+    steps, and the 7-layer f32 check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.core import GuidanceConfig
+    from repro_torch.data import SyntheticLM
+
+    full = get(HYBRID)                     # bf16, remat on
+    cfg = dataclasses.replace(full, n_layers=HYBRID_TRAIN_LAYERS)
+    src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda")
+                for k, v in src.batch_np(i).items()}
+               for i in range(HYBRID_TRAIN_STEPS)]
+    log(f"model {HYBRID} training: {cfg.n_layers} of {full.n_layers} layers "
+        f"(cut: all {full.n_layers} need 81.0 GB of bf16 parameters and "
+        f"gradients and f32 moments, more than the card's 80 GB), d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads, shared block "
+        f"every {cfg.attn_every} ({cfg.n_layers // cfg.attn_every} "
+        f"applications), vocab {cfg.vocab}, {cfg.dtype}, remat {cfg.remat}; "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {HYBRID_TRAIN_STEPS} steps a run")
+    losses, launches, trainer = train_run(card, "hybrid unguided", cfg,
+                                          batches, None)
+    kernel_rows["ssd_scan_bwd"]["launches"] = launches["ssd_scan_bwd"]
+    kernel_rows["flash_attention_bwd_dh112"]["launches"] = \
+        launches["flash_attention_bwd"]
+    profile_training(card, trainer, batches[:2],
+                     (("flash attention", "flash_"),
+                      ("SSD (forward and backward)", "ssd_"),
+                      ("SSD backward", "ssd_bwd")))
+    n_params = sum(p.numel() for p in trainer.params.values())
+    state = sum(p.numel() * p.element_size()
+                for p in trainer.params.values()) + 2 * 4 * n_params
+    log(f"training state ({HYBRID}, {cfg.n_layers} layers): {n_params} "
+        f"parameters, {state} bytes of parameters and f32 moments")
+    del trainer
+    free_card()
+    gdt = GuidanceConfig(enabled=True, fast_capacity_bytes=int(state * 0.6),
+                         interval_steps=2, promotion_threshold=64 * 1024)
+    guided, _, trainer = train_run(card, "hybrid guided", cfg, batches, gdt)
+    if not np.allclose(guided, losses, rtol=1e-5, atol=0):
+        raise AssertionError(f"hybrid guided losses {guided} != unguided "
+                             f"{losses} (rtol 1e-5)")
+    if trainer.placer.slow_bytes() <= 0:
+        raise AssertionError("hybrid guided training kept nothing on "
+                             "pinned host")
+    log(f"hybrid guided == unguided losses (rtol 1e-5), max rel diff "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(guided, losses)):.3e}; "
+        f"{trainer.placer.slow_bytes()} bytes on pinned host")
+    del trainer
+    free_card()
+    train_f32_check(batches[0], HYBRID)
+
+
 # ------------------------------------------------------------ serving A/B
 AB_ROUNDS = 5
 
@@ -3089,9 +3409,10 @@ def main() -> int:
     kernel_rows["moe_grouped_ffn_bwd"] = check_moe_backward(card)
     kernel_rows.update(check_flash_kernel(card))
     kernel_rows["ssd_scan"] = check_ssd_kernel(card)
+    kernel_rows["ssd_scan_bwd"] = check_ssd_backward(card)
     log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
     for phase in (serve_dense, serve_moe, serve_shared_tiers, serve_cluster,
-                  train_dense, train_moe, serve_hybrid):
+                  train_dense, train_moe, serve_hybrid, train_hybrid):
         t0 = time.perf_counter()
         phase(card, kernel_rows)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

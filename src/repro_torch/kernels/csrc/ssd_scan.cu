@@ -98,6 +98,54 @@
 // kernels/ssd_scan.py `plan` picks the route, head group, warps, grid and
 // shared memory from (Bc, Q, H, P, N, dtype); the launcher refuses a plan
 // that is not this file's.
+//
+// Backward (ssd_scan_bwd_launch).  The JAX package has no kernel here: it
+// takes this gradient by autograd through its jnp ssd_chunked
+// (repro/models/ssm.py:84); ssd_scan_pallas has no VJP.  For each chunk
+// row and head h, with c = cumsum(dt A_h), S = C B^T (shared by the
+// heads), L[i,j] = exp(c_i - c_j) for j <= i, W = S * L, xdt = dt x:
+//
+//   dxdt = W^T dY, dx = dt dxdt, dW = dY xdt^T (j <= i), G = dW * W,
+//   dc = rowsum(G) - colsum(G), da = reverse cumsum(dc),
+//   ddt = x . dxdt + A_h da, dA_h = sum over rows and j of da dt,
+//   dS = sum_h dW * L, dC = dS B, dB = dS^T C.
+//
+// Bound.  At hybrid training's call (Bc = 32, Q = 128, H = 112, P = N =
+// 64, bf16) it reads x (59 MB), the f32 dY (117 MB), dt, B, C and writes
+// dx (59 MB), ddt, dB, dC: about 241 MB, 0.072 ms at 3.35 TB/s, against
+// about 7.9 GFLOP of causal work (0.008 ms at the bf16 tensor-core peak).
+// It is memory-bound, like the forward.
+//
+// Design: both dtypes on SIMT, every sum in f32 (bf16 inputs are exact;
+// dx, dB, dC round once at the end), no atomics, two launches.
+//   - Launch 1, one block per (chunk row, group of G heads), 256 threads
+//     as 16 x 16 over 64 x 64 tiles, each thread a 4 x 4 micro-tile.  Key
+//     tiles J outside: the scores of the key tile's column strip (rows i
+//     >= j) once for all the group's heads; then per head the x tile, and
+//     row tiles I >= J innermost: dW by an f32 product over P, W and L
+//     from the strip and the head's cumsum (L evaluated only where j <= i
+//     < Q: the exponent above the diagonal overflows, and inf * 0 is NaN),
+//     G's row sums by half-warp shuffles and its column sums through
+//     shared memory, dxdt of the key tile in registers over the row tiles,
+//     and the group's dS strip in shared memory over the heads.  After the
+//     heads, the strip goes to a f32 scratch of per-group partials; at the
+//     end each head's da, ddt += A da, and its sum_j da dt per chunk row.
+//   - Launch 2, grid (Bc + 1, 2 ceil(Q / 64)): block (b, t) forms dC of
+//     row tile t or dB of key tile t, each dS tile the sum of the groups'
+//     partials in ascending order; block (Bc, 0) sums dA over the chunk
+//     rows in ascending order.
+//   - The group G is the largest divisor of H up to 16 whose shared memory
+//     fits, chosen from (Q, H, P, N) alone: each chunk row's dx, ddt, dB
+//     and dC depend on that row's inputs and the shapes, never on Bc or
+//     the rest of the call; only dA sums across rows.  Two launches agree
+//     bit for bit.
+//   - A simple kernel: the products run on SIMT FMAs from shared memory,
+//     and one block fills an SM (170 KB of shared memory at the training
+//     shape).  Tensor cores (dY as a bf16 hi/lo pair, as the forward feeds
+//     its weights) are its next step.
+//
+// kernels/ssd_scan.py `plan_bwd` picks the head group, shared memory and
+// grids; the launcher refuses any other plan.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -600,6 +648,404 @@ cudaError_t launch_mma(const void* x, const float* dt, const float* A,
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------ backward
+// The gradient of the block (see "Backward" in the note at the top).  Both
+// dtypes run these SIMT kernels, every sum in f32; bf16 inputs are read
+// exactly and the outputs dx, dB, dC round once to bf16.
+
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Rows row0 .. row0+63 of a (Bc, Q, N) tensor into a (64, ld) f32 tile:
+// columns 0 .. NP-1, zeros past Q and past N.
+template <typename T>
+__device__ __forceinline__ void load_rows_f(float* dst, const T* src,
+                                            long long base, int row0, int Q,
+                                            int N, int NP, int ld) {
+  for (int idx = threadIdx.x; idx < kRows * NP; idx += kThreads) {
+    const int r = idx / NP, n = idx - r * NP;
+    const int row = row0 + r;
+    dst[r * ld + n] =
+        (row < Q && n < N) ? load_f(src + (base + row) * N + n) : 0.f;
+  }
+}
+
+// The sum of v over the 16 lanes of a half-warp (one ty), in a fixed
+// order; every lane of the half gets it.
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shared memory of launch 1, in floats: the key tile's scores and dS
+// strips (QT, 65) each, c, dt, row and column sums of G (G, QT) each, then
+// the x, dt*x and dY tiles (64, P + 1), the W tile (64, 65) and the column
+// partials (16, 64); the B/C staging (2 x (64, NP + 1)) aliases the tiles.
+size_t bwd_smem_floats(int Q, int N, int P, int G) {
+  const size_t QT = round_up(Q, kRows), NP = round_up(N, 16);
+  const size_t tiles = 3 * kRows * (P + 1) + kRows * kLW + 16 * kRows;
+  const size_t stage = 2 * kRows * (NP + 1);
+  return 2 * QT * kLW + 4 * (size_t)G * QT + (tiles > stage ? tiles : stage);
+}
+
+// Launch 2: the (64, 65) dS tile and a (64, NP + 1) B or C row tile.
+size_t bwd_reduce_smem_floats(int N) {
+  return (size_t)kRows * kLW + (size_t)kRows * (round_up(N, 16) + 1);
+}
+
+// Launch 1: one block per (chunk row b, group of G heads), blockIdx.x =
+// b * (H / G) + group.  Key tiles J outside, the group's heads inside, row
+// tiles I >= J innermost: per head the key tile's dxdt sums in registers
+// over the row tiles, and the group's dS strip of the key tile in shared
+// memory over the heads; the strip goes to ds_part (b, group, QT, QT).  At
+// the end each head's da (reverse cumsum of dc), ddt += A da, and its
+// sum_j da_j dt_j into da_part (b, h).
+template <int P, typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_chunk(const T* __restrict__ x, const float* __restrict__ dt,
+              const float* __restrict__ A, const T* __restrict__ Bm,
+              const T* __restrict__ Cm, const float* __restrict__ dy,
+              T* __restrict__ dx, float* __restrict__ ddt,
+              float* __restrict__ ds_part, float* __restrict__ da_part,
+              int Q, int H, int N, int G) {
+  constexpr int NC = P / 16, LP = P + 1;
+  const int groups = H / G;
+  const int b = blockIdx.x / groups, h0 = (blockIdx.x - b * groups) * G;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int nT = (Q + kRows - 1) / kRows, QT = nT * kRows;
+  const int LN = N + 1;
+  const long long row0 = (long long)b * Q;
+
+  extern __shared__ float smem[];
+  float* s_strip = smem;                  // (QT, kLW) C_i . B_j, key tile
+  float* ds_strip = s_strip + QT * kLW;   // (QT, kLW) the group's dS
+  float* c_s = ds_strip + QT * kLW;       // (G, QT) cumsum of dt * A
+  float* dt_s = c_s + G * QT;             // (G, QT)
+  float* r_s = dt_s + G * QT;             // (G, QT) row sums of G, then da
+  float* k_s = r_s + G * QT;              // (G, QT) column sums of G
+  float* x_s = k_s + G * QT;              // (64, LP) x of the key tile
+  float* xdt_s = x_s + kRows * LP;        // (64, LP) dt_j x_j
+  float* dy_s = xdt_s + kRows * LP;       // (64, LP) dY of the row tile
+  float* w_s = dy_s + kRows * LP;         // (64, kLW) W of the tile
+  float* colp_s = w_s + kRows * kLW;      // (16, 64) column partials
+  float* crow_s = x_s;                    // staging: C rows (64, N + 1)
+  float* brow_s = crow_s + kRows * LN;    //          B rows (64, N + 1)
+
+  for (int idx = threadIdx.x; idx < G * QT; idx += kThreads) {
+    const int g = idx / QT, j = idx - g * QT;
+    dt_s[idx] = j < Q ? dt[(row0 + j) * H + h0 + g] : 0.f;
+    r_s[idx] = 0.f;
+    k_s[idx] = 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x < G) {        // the forward's cumsum: rounded, then added
+    const int g = threadIdx.x;
+    const float a_h = A[h0 + g];
+    float run = 0.f;
+    for (int j = 0; j < QT; ++j) {
+      run = __fadd_rn(run, __fmul_rn(dt_s[g * QT + j], a_h));
+      c_s[g * QT + j] = run;
+    }
+  }
+
+  for (int J = 0; J < nT; ++J) {
+    const int j0 = J * kRows;
+    for (int I = J; I < nT; ++I) {      // scores of rows i >= j0
+      const int i0 = I * kRows;
+      __syncthreads();
+      load_rows_f(crow_s, Cm, row0, i0, Q, N, N, LN);
+      load_rows_f(brow_s, Bm, row0, j0, Q, N, N, LN);
+      __syncthreads();
+      float s[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
+#pragma unroll 4
+      for (int n = 0; n < N; ++n) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) av[a] = crow_s[(ty + 16 * a) * LN + n];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) bv[c] = brow_s[(tx + 16 * c) * LN + n];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[a][c] = fmaf(av[a], bv[c], s[a][c]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s_strip[(i0 + ty + 16 * a) * kLW + tx + 16 * c] = s[a][c];
+    }
+    for (int idx = threadIdx.x; idx < (QT - j0) * kLW; idx += kThreads)
+      ds_strip[j0 * kLW + idx] = 0.f;
+
+    for (int g = 0; g < G; ++g) {
+      const int h = h0 + g;
+      const float* cg = c_s + g * QT;
+      const float* dtg = dt_s + g * QT;
+      __syncthreads();      // staging and the last head's tiles consumed
+      for (int idx = threadIdx.x; idx < kRows * P; idx += kThreads) {
+        const int r = idx / P, p = idx - r * P;
+        const int j = j0 + r;
+        const float v =
+            j < Q ? load_f(x + ((row0 + j) * H + h) * P + p) : 0.f;
+        x_s[r * LP + p] = v;
+        xdt_s[r * LP + p] = v * dtg[j];
+      }
+      // acc[a][c] = dxdt[j0 + ty + 16a][tx + 16c], over the row tiles.
+      float acc[4][NC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[a][c] = 0.f;
+      for (int I = J; I < nT; ++I) {
+        const int i0 = I * kRows;
+        for (int idx = threadIdx.x; idx < kRows * P; idx += kThreads) {
+          const int r = idx / P, p = idx - r * P;
+          const int i = i0 + r;
+          dy_s[r * LP + p] = i < Q ? dy[((row0 + i) * H + h) * P + p] : 0.f;
+        }
+        __syncthreads();
+        // dW[i][j] = dY_i . xdt_j for i = i0 + ty + 16a, j = j0 + tx + 16c.
+        float dw[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dw[a][c] = 0.f;
+#pragma unroll 4
+        for (int p = 0; p < P; ++p) {
+          float av[4], bv[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) av[a] = dy_s[(ty + 16 * a) * LP + p];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) bv[c] = xdt_s[(tx + 16 * c) * LP + p];
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              dw[a][c] = fmaf(av[a], bv[c], dw[a][c]);
+        }
+        // W = S * L, G = dW * W; L is evaluated only where j <= i < Q.
+        float rowp[4] = {0.f, 0.f, 0.f, 0.f}, colp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int i = i0 + ty + 16 * a;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int jl = tx + 16 * c, j = j0 + jl;
+            const bool ok = j <= i && i < Q;
+            const float L = ok ? expf(cg[i] - cg[j]) : 0.f;
+            const float w = s_strip[i * kLW + jl] * L;
+            w_s[(ty + 16 * a) * kLW + jl] = w;
+            const float gw = dw[a][c] * w;
+            rowp[a] += gw;
+            colp[c] += gw;
+            ds_strip[i * kLW + jl] += dw[a][c] * L;
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float v = half_warp_sum(rowp[a]);
+          if (tx == 0) r_s[g * QT + i0 + ty + 16 * a] += v;
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) colp_s[ty * kRows + tx + 16 * c] = colp[c];
+        __syncthreads();
+        // dxdt[j][p] += sum_i W[i][j] dY[i][p], i in order.
+#pragma unroll 4
+        for (int r = 0; r < kRows; ++r) {
+          float wv[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) wv[a] = w_s[r * kLW + ty + 16 * a];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const float d = dy_s[r * LP + tx + 16 * c];
+#pragma unroll
+            for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(wv[a], d, acc[a][c]);
+          }
+        }
+        if (threadIdx.x < kRows) {
+          float v = 0.f;
+          for (int t = 0; t < 16; ++t) v += colp_s[t * kRows + threadIdx.x];
+          k_s[g * QT + j0 + threadIdx.x] += v;
+        }
+        __syncthreads();          // dy_s, w_s, colp_s free
+      }
+      // dx = dt dxdt; ddt's first term x . dxdt (A da is added at the end).
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int jl = ty + 16 * a, j = j0 + jl;
+        float xd = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int p = tx + 16 * c;
+          xd = fmaf(x_s[jl * LP + p], acc[a][c], xd);
+          if (j < Q)
+            store_f(dx + ((row0 + j) * H + h) * P + p, dtg[j] * acc[a][c]);
+        }
+        xd = half_warp_sum(xd);
+        if (tx == 0 && j < Q) ddt[(row0 + j) * H + h] = xd;
+      }
+    }
+    __syncthreads();
+    float* part = ds_part + (long long)blockIdx.x * QT * QT;
+    for (int idx = threadIdx.x; idx < (QT - j0) * kRows; idx += kThreads) {
+      const int r = idx / kRows, s = idx - r * kRows;
+      part[(long long)(j0 + r) * QT + j0 + s] = ds_strip[(j0 + r) * kLW + s];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < G) {            // da = reverse cumsum of dc = r - k
+    const int g = threadIdx.x;
+    float run = 0.f;
+    for (int j = Q - 1; j >= 0; --j) {
+      run += r_s[g * QT + j] - k_s[g * QT + j];
+      r_s[g * QT + j] = run;
+    }
+    float sum = 0.f;
+    for (int j = 0; j < Q; ++j) sum = fmaf(r_s[g * QT + j], dt_s[g * QT + j],
+                                           sum);
+    da_part[(long long)b * H + h0 + g] = sum;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < Q * G; idx += kThreads) {
+    const int j = idx / G, g = idx - j * G;
+    float* o = ddt + (row0 + j) * H + h0 + g;
+    *o = fmaf(A[h0 + g], r_s[g * QT + j], *o);
+  }
+}
+
+// Launch 2: grid (Bc + 1, 2 nT).  Block (b, t < nT) forms dC of row tile
+// t, block (b, nT + t) dB of key tile t, each dS tile the sum of the
+// groups' partials in ascending order (the two sum each tile alike); block
+// (Bc, 0) sums dA over the chunk rows in ascending order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_reduce(const T* __restrict__ Bm, const T* __restrict__ Cm,
+               const float* __restrict__ ds_part,
+               const float* __restrict__ da_part, T* __restrict__ dB,
+               T* __restrict__ dC, float* __restrict__ dA, int Bc, int Q,
+               int H, int N, int groups) {
+  const int nT = (Q + kRows - 1) / kRows, QT = nT * kRows;
+  if (blockIdx.x == Bc) {
+    if (blockIdx.y != 0) return;
+    for (int h = threadIdx.x; h < H; h += kThreads) {
+      float s = 0.f;
+      for (int b = 0; b < Bc; ++b) s += da_part[(long long)b * H + h];
+      dA[h] = s;
+    }
+    return;
+  }
+  const int b = blockIdx.x;
+  const bool rows = (int)blockIdx.y < nT;
+  const int t = rows ? blockIdx.y : blockIdx.y - nT;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int NP = round_up(N, 16), LN = NP + 1, NCN = NP / 16;
+  const long long row0 = (long long)b * Q, gstride = (long long)QT * QT;
+  const float* part = ds_part + (long long)b * groups * gstride;
+
+  extern __shared__ float smem[];
+  float* ds_s = smem;                   // (64, kLW) dS tile
+  float* v_s = ds_s + kRows * kLW;      // (64, LN) B or C rows
+
+  float acc[4][8];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+  const int u0 = rows ? 0 : t, u1 = rows ? t : nT - 1;
+  for (int u = u0; u <= u1; ++u) {
+    const int I = rows ? t : u, J = rows ? u : t;
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kRows * kRows; idx += kThreads) {
+      const int r = idx / kRows, s = idx - r * kRows;
+      const float* src = part + (long long)(I * kRows + r) * QT + J * kRows + s;
+      float v = 0.f;
+      for (int gi = 0; gi < groups; ++gi) v += src[gi * gstride];
+      ds_s[r * kLW + s] = v;
+    }
+    load_rows_f(v_s, rows ? Bm : Cm, row0, (rows ? J : I) * kRows, Q, N, NP,
+                LN);
+    __syncthreads();
+    if (rows) {             // dC[i][n] += sum_j dS[i][j] B[j][n]
+#pragma unroll 4
+      for (int s = 0; s < kRows; ++s) {
+        float dv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) dv[a] = ds_s[(ty + 16 * a) * kLW + s];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          if (c >= NCN) break;
+          const float v = v_s[s * LN + tx + 16 * c];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(dv[a], v, acc[a][c]);
+        }
+      }
+    } else {                // dB[j][n] += sum_i dS[i][j] C[i][n]
+#pragma unroll 4
+      for (int r = 0; r < kRows; ++r) {
+        float dv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) dv[a] = ds_s[r * kLW + ty + 16 * a];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          if (c >= NCN) break;
+          const float v = v_s[r * LN + tx + 16 * c];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(dv[a], v, acc[a][c]);
+        }
+      }
+    }
+  }
+  T* out = rows ? dC : dB;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = t * kRows + ty + 16 * a;
+    if (row >= Q) continue;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int n = tx + 16 * c;
+      if (c < NCN && n < N) store_f(out + (row0 + row) * N + n, acc[a][c]);
+    }
+  }
+}
+
+template <int P, typename T>
+cudaError_t launch_bwd(const void* x, const float* dt, const float* A,
+                       const void* Bm, const void* Cm, const float* dy,
+                       void* dx, float* ddt, float* dA, void* dB, void* dC,
+                       float* ds_part, float* da_part, int Bc, int Q, int H,
+                       int N, int G, size_t smem, size_t reduce_smem,
+                       cudaStream_t s) {
+  cudaError_t err = allow_smem(ssd_bwd_chunk<P, T>, smem);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(ssd_bwd_reduce<T>, reduce_smem);
+  if (err != cudaSuccess) return err;
+  const T* bm = static_cast<const T*>(Bm);
+  const T* cm = static_cast<const T*>(Cm);
+  ssd_bwd_chunk<P, T><<<Bc * (H / G), kThreads, smem, s>>>(
+      static_cast<const T*>(x), dt, A, bm, cm, dy, static_cast<T*>(dx), ddt,
+      ds_part, da_part, Q, H, N, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int nT = (Q + kRows - 1) / kRows;
+  ssd_bwd_reduce<T><<<dim3(Bc + 1, 2 * nT), kThreads, reduce_smem, s>>>(
+      bm, cm, ds_part, da_part, static_cast<T*>(dB), static_cast<T*>(dC), dA,
+      Bc, Q, H, N, H / G);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -656,6 +1102,61 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
                                smem, s);
   return (int)launch_mma<64>(x, d, av, Bm, Cm, out, Bc, Q, H, N, HG, warps,
                              smem, s);
+}
+
+// The shapes and the plan of one backward call, every field 8 bytes wide
+// (kernels/ssd_scan.py `_BwdArgs` mirrors it).  dtype 0 = float32, 1 =
+// bfloat16; head_group heads a block of launch 1; threads a block; smem
+// and reduce_smem the dynamic shared memory of launches 1 and 2; blocks
+// launch 1's grid; reduce_y launch 2's grid.y (its grid.x is Bc + 1).
+struct SsdBwdArgs {
+  long long Bc, Q, H, P, N, dtype, head_group, threads, smem, blocks,
+      reduce_smem, reduce_y;
+};
+
+// x (Bc,Q,H,P), Bm/Cm (Bc,Q,N), dx, dB, dC in the dtype; dt, ddt
+// (Bc,Q,H), A, dA (H,), dy (Bc,Q,H,P) float32; scratch ds_part (Bc, H /
+// head_group, QT, QT) and da_part (Bc, H) float32, QT = Q rounded up to
+// 64; all contiguous.  Two launches on `stream`; returns
+// cudaGetLastError() after them (0 = launched), or cudaErrorInvalidValue
+// for a plan that is not this file's.
+int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
+                        const void* Bm, const void* Cm, const void* dy,
+                        void* dx, void* ddt, void* dA, void* dB, void* dC,
+                        void* ds_part, void* da_part, const SsdBwdArgs* a,
+                        void* stream) {
+  const int Bc = (int)a->Bc, Q = (int)a->Q, H = (int)a->H, P = (int)a->P,
+            N = (int)a->N, G = (int)a->head_group;
+  if (Bc <= 0 || Q <= 0 || Q > 256 || H <= 0 || N <= 0 || N > 128 ||
+      G <= 0 || G > 16 || H % G || (P != 32 && P != 64) ||
+      (a->dtype != 0 && a->dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * bwd_smem_floats(Q, N, P, G);
+  const size_t reduce_smem = sizeof(float) * bwd_reduce_smem_floats(N);
+  if (a->threads != kThreads || (size_t)a->smem != smem ||
+      a->blocks != (long long)Bc * (H / G) ||
+      (size_t)a->reduce_smem != reduce_smem ||
+      a->reduce_y != 2 * ((Q + kRows - 1) / kRows))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* d = static_cast<const float*>(dt);
+  const float* av = static_cast<const float*>(A);
+  const float* g = static_cast<const float*>(dy);
+  float* dd = static_cast<float*>(ddt);
+  float* da = static_cast<float*>(dA);
+  float* dsp = static_cast<float*>(ds_part);
+  float* dap = static_cast<float*>(da_part);
+#define BWD_CASE(PP, TT)                                                    \
+  return (int)launch_bwd<PP, TT>(x, d, av, Bm, Cm, g, dx, dd, da, dB, dC,   \
+                                 dsp, dap, Bc, Q, H, N, G, smem,            \
+                                 reduce_smem, s);
+  if (a->dtype == 0) {
+    if (P == 32) BWD_CASE(32, float)
+    BWD_CASE(64, float)
+  }
+  if (P == 32) BWD_CASE(32, bf16)
+  BWD_CASE(64, bf16)
+#undef BWD_CASE
 }
 
 }  // extern "C"

@@ -81,13 +81,13 @@ def moe_grouped_ffn(x, w_gate, w_up, w_down, group_sizes,
 def ssd_scan(x, dt, A, Bm, Cm) -> torch.Tensor:
     """The SSD (Mamba2) intra-chunk block, one chunk per row, no initial
     state.  x: (Bc,Q,H,P); dt: (Bc,Q,H) f32; A: (H,) f32; Bm/Cm: (Bc,Q,N)
-    in x's dtype.  Returns y (Bc,Q,H,P) f32.  A CPU tensor takes
-    ``ref.ssd_reference``; a CUDA tensor the hand-written kernel."""
-    if x.device.type == "cpu":
-        return ref.ssd_reference(x, dt, A, Bm, Cm)
-    from .ssd_scan import ssd_scan_cuda
+    in x's dtype.  Returns y (Bc,Q,H,P) f32.  Differentiable in every
+    input (``ssd_scan.SSDScan``): a CPU tensor takes ``ref.ssd_reference``
+    and ``ref.ssd_bwd_reference``, a CUDA tensor the hand-written forward
+    and backward kernels; under ``torch.no_grad`` only the forward runs."""
+    from .ssd_scan import SSDScan
 
-    return ssd_scan_cuda(x, dt, A, Bm, Cm)
+    return SSDScan.apply(x, dt, A, Bm, Cm)
 
 
 def sample_tokens(logits, seeds, positions, temperature, top_k,

@@ -13,7 +13,9 @@ weights ``(E, d, f)`` / ``(E, f, d)``, everything after the inputs in f32;
 its gradient (``moe_grouped_ffn_bwd_reference``) is written out segment by
 segment, as the backward kernel computes it.
 SSD (Mamba2) intra-chunk block: x ``(B, Q, H, P)``, dt ``(B, Q, H)`` f32,
-A ``(H,)`` f32, B/C ``(B, Q, N)``; y ``(B, Q, H, P)`` f32.
+A ``(H,)`` f32, B/C ``(B, Q, N)``; y ``(B, Q, H, P)`` f32.  Its gradient
+(``ssd_bwd_reference``) is written out from explicit formulas, as the
+backward kernel computes it.
 """
 
 from __future__ import annotations
@@ -240,3 +242,44 @@ def ssd_reference(x, dt, A, Bm, Cm) -> torch.Tensor:
     scores = torch.einsum("bin,bjn->bij", Cm.to(F32), Bm.to(F32))
     xdt = x.to(F32) * dt[..., None]
     return torch.einsum("bij,bijh,bjhp->bihp", scores, L, xdt)
+
+
+def ssd_bwd_reference(x, dt, A, Bm, Cm, dy):
+    """The gradient of ``ssd_reference`` per chunk row, in f32, from
+    explicit formulas.  For each row and head h: ``a = dt A_h``, ``c =
+    cumsum(a)``, ``S = C B^T`` (shared by the heads), ``L[i,j] = exp(c_i -
+    c_j)`` for j <= i and 0 above, ``W = S * L``, ``xdt = dt x``; then
+    ``dxdt = W^T dY``, ``dx = dt dxdt``, ``dW = dY xdt^T`` (lower
+    triangle), ``G = dW * W``, ``dc = rowsum(G) - colsum(G)``, ``da`` the
+    reverse cumsum of dc, ``ddt = x . dxdt + A_h da``, ``dA_h = sum da dt``
+    over every row of the call, ``dS = sum_h dW * L``, ``dC = dS B`` and
+    ``dB = dS^T C``.  L is built only where j <= i (the exponent masked to
+    ``NEG_INF`` before ``exp``, as the JAX oracle does): the upper
+    triangle's exponent overflows, and inf * 0 would be NaN.
+
+    x: (Bc,Q,H,P); dt: (Bc,Q,H) f32; A: (H,) f32; Bm/Cm: (Bc,Q,N); dy:
+    (Bc,Q,H,P) f32.  Returns (dx, ddt, dA, dB, dC): dx, dB and dC in x's
+    dtype, ddt and dA in f32."""
+    Q = x.shape[1]
+    xf, dy = x.to(F32), dy.to(F32)
+    Bf, Cf = Bm.to(F32), Cm.to(F32)
+    c = torch.cumsum(dt * A, dim=1)                         # (Bc,Q,H)
+    diff = c[:, :, None, :] - c[:, None, :, :]              # (Bc,Q,Q,H)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))[None, :, :, None]
+    L = torch.exp(torch.where(causal, diff, torch.full_like(diff, NEG_INF)))
+    S = torch.einsum("bin,bjn->bij", Cf, Bf)
+    W = S[..., None] * L                                    # (Bc,Q,Q,H)
+    xdt = xf * dt[..., None]
+    dxdt = torch.einsum("bijh,bihp->bjhp", W, dy)
+    dW = torch.einsum("bihp,bjhp->bijh", dy, xdt) * causal
+    G = dW * W
+    dc = G.sum(dim=2) - G.sum(dim=1)                        # (Bc,Q,H)
+    da = torch.flip(torch.cumsum(torch.flip(dc, (1,)), dim=1), (1,))
+    ddt = (xf * dxdt).sum(-1) + A * da
+    dA = (da * dt).sum(dim=(0, 1))
+    dS = (dW * L).sum(-1)                                   # (Bc,Q,Q)
+    dC = torch.einsum("bij,bjn->bin", dS, Bf)
+    dB = torch.einsum("bij,bin->bjn", dS, Cf)
+    return ((dt[..., None] * dxdt).to(x.dtype), ddt, dA, dB.to(x.dtype),
+            dC.to(x.dtype))

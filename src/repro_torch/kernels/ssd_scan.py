@@ -14,8 +14,18 @@ source note in the ``.cu`` file states the design and the bound.
 ``ssd_scan_cuda`` checks what the kernel takes and raises on anything else,
 launches on PyTorch's current stream, raises if the launch is refused, and
 adds one to ``LAUNCHES["ssd_scan"]``.  It never falls back to the plain
-version: ``kernels.ops`` sends CPU tensors to ``ref.ssd_reference`` and CUDA
-tensors here.
+version.
+
+The gradient (``ssd_scan_bwd_cuda``, ``LAUNCHES["ssd_scan_bwd"]``, one
+count for its two launches) is a backward kernel in the same ``.cu`` file:
+the JAX package takes it by autograd through its jnp ``ssd_chunked``
+(``repro/models/ssm.py:84``); ``ssd_scan_pallas`` has no VJP.  Both dtypes
+run it on SIMT, every sum in f32, with no atomics; ``plan_bwd`` picks its
+head group from the shapes without Bc, so each chunk row's dx, ddt, dB and
+dC do not depend on the rest of the call.  ``SSDScan`` is the autograd
+function over the two: on a CUDA tensor the kernels, on a CPU tensor
+``ref.ssd_reference`` and ``ref.ssd_bwd_reference``; ``kernels.ops``
+calls it.
 """
 
 from __future__ import annotations
@@ -27,11 +37,11 @@ from typing import Dict, Tuple
 
 import torch
 
-from . import _build
+from . import _build, ref
 
 # Launches per entry point: a run reads these to show that its path went
 # through the kernel.
-LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
+LAUNCHES: Dict[str, int] = {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
 HEAD_DIMS = (32, 64)               # P: the instantiations in the .cu file
 MAX_CHUNK = 256                    # Q
@@ -183,12 +193,15 @@ def _args(Bc: int, Q: int, H: int, P: int, N: int,
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """The built library with its C signature declared."""
+    """The built library with its C signatures declared."""
     lib = _build.load("ssd_scan")
     vp = ctypes.c_void_p
     lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, vp, vp,
                                     ctypes.POINTER(_Args), vp]
     lib.ssd_scan_launch.restype = ctypes.c_int
+    lib.ssd_scan_bwd_launch.argtypes = [vp] * 13 + [
+        ctypes.POINTER(_BwdArgs), vp]
+    lib.ssd_scan_bwd_launch.restype = ctypes.c_int
     return lib
 
 
@@ -237,3 +250,129 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm) -> torch.Tensor:
         raise RuntimeError(f"SSD kernel launch failed: CUDA error {err}")
     LAUNCHES["ssd_scan"] += 1
     return y
+
+
+# ------------------------------------------------------------------ backward
+# Launch 1 of the backward: 256 threads as 16 x 16, 64-row tiles, at most
+# BWD_MAX_GROUP heads a block (their dS partial is one strip in shared
+# memory); launch 2: grid (Bc + 1, 2 nT), the same threads.
+BWD_THREADS, BWD_TILE, BWD_MAX_GROUP = 256, 64, 16
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How a backward call runs.  ``head_group``: heads a block of launch
+    1 (a divisor of H; the dS partials of a chunk row sum over H /
+    head_group groups in order, so it is chosen from (Q, H, P, N) alone,
+    never from Bc).  ``smem``/``reduce_smem``: each launch's dynamic shared
+    memory.  ``grid``: launch 1's blocks, (Bc * H / head_group,);
+    ``reduce_grid``: launch 2's (Bc + 1, 2 ceil(Q / 64)).  ``scratch``: the
+    f32 dS partials' shape (Bc, H / head_group, QT, QT), QT = Q rounded up
+    to 64."""
+
+    head_group: int
+    threads: int
+    smem: int
+    grid: Tuple[int]
+    reduce_smem: int
+    reduce_grid: Tuple[int, int]
+    scratch: Tuple[int, int, int, int]
+
+
+def _bwd_smem(Q: int, N: int, P: int, G: int) -> int:
+    """Launch 1's shared memory (``bwd_smem_floats`` of the ``.cu``
+    file): the key tile's score and dS strips (QT, 65), four (G, QT)
+    per-head rows, and the tiles (x, dt x, dY (64, P + 1), W (64, 65),
+    column partials (16, 64)) or the B/C staging (2 (64, NP + 1)), the
+    larger."""
+    qt, T = _up(Q, BWD_TILE), BWD_TILE
+    tiles = 3 * T * (P + 1) + T * (T + 1) + 16 * T
+    stage = 2 * T * (_up(N, 16) + 1)
+    return 4 * (2 * qt * (T + 1) + 4 * G * qt + max(tiles, stage))
+
+
+def plan_bwd(Bc: int, Q: int, H: int, P: int, N: int,
+             dtype: torch.dtype) -> BwdPlan:
+    """The backward's launch plan, from the shapes and dtype alone; it
+    takes what the forward's ``plan`` takes and raises the same
+    ValueError, naming the shape, on anything else."""
+    plan(Bc, Q, H, P, N, dtype)
+    groups = [G for G in range(min(H, BWD_MAX_GROUP), 0, -1)
+              if H % G == 0 and _bwd_smem(Q, N, P, G) <= SMEM_LIMIT]
+    if not groups:
+        raise ValueError(f"SSD backward: {_bwd_smem(Q, N, P, 1)} bytes of "
+                         f"shared memory exceed the {SMEM_LIMIT} a block "
+                         f"may use")
+    G = groups[0]
+    if Bc * (H // G) > MAX_BLOCKS:
+        raise ValueError(f"SSD backward: Bc={Bc} chunks of {H} heads need "
+                         f"more than {MAX_BLOCKS} blocks")
+    qt, nt = _up(Q, BWD_TILE), -(-Q // BWD_TILE)
+    return BwdPlan(G, BWD_THREADS, _bwd_smem(Q, N, P, G), (Bc * (H // G),),
+                   4 * (BWD_TILE * (BWD_TILE + 1)
+                        + BWD_TILE * (_up(N, 16) + 1)),
+                   (Bc + 1, 2 * nt), (Bc, H // G, qt, qt))
+
+
+class _BwdArgs(ctypes.Structure):
+    """``SsdBwdArgs`` of the ``.cu`` file."""
+
+    _fields_ = [(name, ctypes.c_longlong) for name in (
+        "Bc", "Q", "H", "P", "N", "dtype", "head_group", "threads", "smem",
+        "blocks", "reduce_smem", "reduce_y")]
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_args(Bc: int, Q: int, H: int, P: int, N: int,
+              dtype: torch.dtype) -> Tuple[_BwdArgs, BwdPlan]:
+    p = plan_bwd(Bc, Q, H, P, N, dtype)
+    return _BwdArgs(Bc, Q, H, P, N, _DTYPES[dtype], p.head_group, p.threads,
+                    p.smem, p.grid[0], p.reduce_smem, p.reduce_grid[1]), p
+
+
+def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy):
+    """The gradient of ``ssd_scan_cuda`` at (x, dt, A, Bm, Cm) for the
+    output gradient dy (Bc,Q,H,P) f32: (dx, ddt, dA, dB, dC), dx/dB/dC in
+    x's dtype, ddt/dA f32, as ``ref.ssd_bwd_reference`` gives them.  Two
+    launches, one count."""
+    _check(x, dt, A, Bm, Cm)
+    if dy.device != x.device or dy.dtype != torch.float32 or \
+            dy.shape != x.shape or not dy.is_contiguous():
+        raise ValueError(f"SSD backward: dy is {dy.dtype} {tuple(dy.shape)} "
+                         f"on {dy.device}, expected a contiguous float32 "
+                         f"{tuple(x.shape)} on {x.device}")
+    Bc, Q, H, P = x.shape
+    args, p = _bwd_args(Bc, Q, H, P, Bm.shape[-1], x.dtype)
+    dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, Cm))
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    ds_part = torch.empty(p.scratch, dtype=torch.float32, device=x.device)
+    da_part = torch.empty((Bc, H), dtype=torch.float32, device=x.device)
+    err = _lib().ssd_scan_bwd_launch(
+        *(t.data_ptr() for t in (x, dt, A, Bm, Cm, dy, dx, ddt, dA, dB, dC,
+                                 ds_part, da_part)),
+        args, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"SSD backward launch failed: CUDA error {err}")
+    LAUNCHES["ssd_scan_bwd"] += 1
+    return dx, ddt, dA, dB, dC
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD intra-chunk block with its gradient: on CUDA tensors
+    ``ssd_scan_cuda`` and ``ssd_scan_bwd_cuda``, on CPU tensors
+    ``ref.ssd_reference`` and ``ref.ssd_bwd_reference``.  The forward saves
+    its inputs only; the backward recomputes the cumsum and the decays."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        fwd = ref.ssd_reference if x.device.type == "cpu" else ssd_scan_cuda
+        return fwd(x, dt, A, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        bwd = (ref.ssd_bwd_reference if saved[0].device.type == "cpu"
+               else ssd_scan_bwd_cuda)
+        return bwd(*saved, dy.contiguous())

@@ -10,6 +10,11 @@ Examples:
       --smoke --device cpu --steps 6 --batch 2 --seq 32 --gdt-budget-mb 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_1b \\
       --steps 8 --batch 2 --seq 2048 --lr 3e-4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_7b \\
+      --smoke --device cpu --steps 4 --batch 2 --seq 256 --gdt-budget-mb 1
+
+The hybrid family's sequence must be at most the SSD chunk (128) or a
+multiple of it.
 """
 
 from __future__ import annotations

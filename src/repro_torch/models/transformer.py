@@ -8,13 +8,16 @@ unchanged (``repro_torch.convert``): ``wq (d,H,dh)``, ``wk``/``wv``
 ``moe.router (d,E)`` in f32 whatever ``cfg.dtype`` is, ``moe.w_gate``/
 ``moe.w_up (E,d,f)`` and ``moe.w_down (E,f,d)`` in place of ``mlp``.  The
 serving engine (``serve/engine.py``) drives the layers itself under
-``torch.no_grad``.  ``forward`` and ``loss`` are the training pass of the
-dense and MoE families (``repro/models/transformer.py`` ``_dense_body``,
-``_trunk``, ``loss``): whole-tensor layers, every attention through the
-flash kernels, every MoE layer through ``models.moe.moe`` (the grouped-FFN
-forward and backward kernels), each layer under
-``torch.utils.checkpoint`` when ``cfg.remat``.  Routing is per token, so
-the recompute under remat picks the experts the first forward picked.
+``torch.no_grad``.  ``forward`` and ``loss`` are the training pass of every
+family (``repro/models/transformer.py`` ``_dense_body``,
+``_run_hybrid_stack``, ``_trunk``, ``loss``): whole-tensor layers, every
+attention through the flash kernels, every MoE layer through
+``models.moe.moe`` (the grouped-FFN forward and backward kernels), every
+Mamba2 layer through ``models.ssm.ssm_forward`` (the SSD forward and
+backward kernels), each decoder or Mamba2 layer under
+``torch.utils.checkpoint`` when ``cfg.remat`` (the hybrid family's shared
+block outside it, as in the JAX package).  Routing is per token, so the
+recompute under remat picks the experts the first forward picked.
 
 The hybrid family (zamba2: Mamba2 layers with one shared attention+MLP
 block after every ``attn_every`` of them) holds ``ssm_layers.<i>.ln`` and
@@ -51,9 +54,6 @@ from .layers import (attention, attention_decode, chunked_lm_loss, norm,
 from .moe import CAPACITY_NOT_PORTED, MoEConfig, moe
 from .ssm import SSM, SSMConfig, ssm_decode, ssm_forward
 
-HYBRID_TRAINING_NOT_PORTED = (
-    "training the hybrid family is not ported yet: its gradient needs an "
-    "SSD backward kernel (ROADMAP.md queue A item 12, hybrid training)")
 CONTIGUOUS_CACHE_NOT_PORTED = (
     "contiguous-cache prefill/decode is ported for the hybrid family only; "
     "the dense and MoE families serve through the paged Engine "
@@ -276,19 +276,57 @@ class Model(nn.Module):
             return h + moe(lp["moe"], norm(lp["ln2"], h), self.moe_cfg)
         return h + swiglu(lp["mlp"], norm(lp["ln2"], h))
 
+    def _ssm_layer(self, params: Mapping[str, torch.Tensor], i: int):
+        """Mamba2 layer i's norm scale and block tensors of a
+        state-dict-named mapping, the block as ``ssm_forward`` reads it."""
+        pre = f"ssm_layers.{i}."
+        return params[pre + "ln.scale"], SimpleNamespace(**{
+            w: params[f"{pre}ssm.{w}"]
+            for w, _ in self.ssm_layers[i].ssm.named_parameters()})
+
+    def _ssm_body(self, ln: torch.Tensor, lp: SimpleNamespace,
+                  x: torch.Tensor) -> torch.Tensor:
+        return x + ssm_forward(lp, norm(ln, x), self.ssm_cfg)
+
+    def _shared_body(self, sp: Mapping, x: torch.Tensor,
+                     positions: torch.Tensor,
+                     freqs: torch.Tensor) -> torch.Tensor:
+        h = x + attention(sp["attn"], norm(sp["ln1"], x), positions, freqs,
+                          window=self.cfg.window)
+        return h + swiglu(sp["mlp"], norm(sp["ln2"], h))
+
+    def _run_hybrid_stack(self, P: Mapping[str, torch.Tensor],
+                          x: torch.Tensor, positions: torch.Tensor,
+                          freqs: torch.Tensor) -> torch.Tensor:
+        """The hybrid trunk (``_run_hybrid_stack``): each segment's Mamba2
+        layers, each under ``checkpoint`` when ``cfg.remat``, then the
+        shared block, outside it."""
+        sp = self._shared(P)
+        for layers, j in self._segments():
+            for i in layers:
+                ln, lp = self._ssm_layer(P, i)
+                if self.cfg.remat:
+                    x = checkpoint(self._ssm_body, ln, lp, x,
+                                   use_reentrant=False)
+                else:
+                    x = self._ssm_body(ln, lp, x)
+            if j is not None:
+                x = self._shared_body(sp, x, positions, freqs)
+        return x
+
     def forward(self, tokens: torch.Tensor,
                 params: Optional[Mapping[str, torch.Tensor]] = None
                 ) -> torch.Tensor:
         """The trunk: tokens (B, S) -> hidden (B, S, d) after the layer
         stack (before the final norm).  ``params`` maps state-dict names to
         the tensors to use (default: the module's own)."""
-        if self.ssm_cfg is not None:
-            raise NotImplementedError(HYBRID_TRAINING_NOT_PORTED)
         P = dict(self.named_parameters()) if params is None else params
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         freqs = self._freqs(tokens.device)
         x = F.embedding(tokens.long(), P["embed.tok"])
+        if self.ssm_cfg is not None:
+            return self._run_hybrid_stack(P, x, positions, freqs)
         for i in range(self.cfg.n_layers):
             lp = self._layer_params(P, i)
             if self.cfg.remat:
@@ -348,13 +386,19 @@ class Model(nn.Module):
             out.append((range(n_seg * k, self.cfg.n_layers), None))
         return out
 
-    def _shared(self) -> Dict:
-        """The shared block's tensors, nested as the JAX tree is."""
-        sp = self.shared_attn
-        return {"ln1": sp.ln1.scale, "ln2": sp.ln2.scale,
-                "attn": {w: getattr(sp.attn, w)
+    def _shared(self, params: Optional[Mapping[str, torch.Tensor]] = None
+                ) -> Dict:
+        """The shared block's tensors, nested as the JAX tree is: from
+        ``params`` (state-dict names) or the module's own."""
+        if params is None:
+            params = {f"shared_attn.{n}": t
+                      for n, t in self.shared_attn.named_parameters()}
+        pre = "shared_attn."
+        return {"ln1": params[pre + "ln1.scale"],
+                "ln2": params[pre + "ln2.scale"],
+                "attn": {w: params[f"{pre}attn.{w}"]
                          for w in ("wq", "wk", "wv", "wo")},
-                "mlp": {w: getattr(sp.mlp, w)
+                "mlp": {w: params[f"{pre}mlp.{w}"]
                         for w in ("w_gate", "w_up", "w_down")}}
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:

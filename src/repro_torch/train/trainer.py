@@ -49,7 +49,7 @@ from ..core import (
     SiteRegistry,
 )
 from ..core.placement import TorchArenaPlacer
-from ..models.transformer import HYBRID_TRAINING_NOT_PORTED, Model
+from ..models.transformer import Model
 from ..optim.adamw import AdamW, AdamWState
 from .step import StepConfig, make_train_step
 
@@ -77,8 +77,6 @@ class Trainer:
         """``params``: a state dict to start from (the JAX package's
         weights through ``convert.params_from_numpy``) instead of a random
         init from ``generator`` or ``cfg.seed``."""
-        if model.cfg.family == "hybrid":
-            raise NotImplementedError(HYBRID_TRAINING_NOT_PORTED)
         self.model = model
         self.opt = opt
         self.cfg = cfg

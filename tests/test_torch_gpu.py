@@ -687,6 +687,132 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         ss.ssd_scan_cuda(x, dt, A[:2].contiguous(), bm, cm)
 
 
+# ------------------------------------------------------------ SSD backward
+# Each output's tolerance, as a fraction of its largest entry, by the
+# output's dtype: every sum is f32 in both versions (bf16 inputs are
+# exact), in other orders; bf16 dx, dB and dC then round once (one bf16
+# unit is 2^-7 of the value).
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_BWD_CASES = [(2, 64, 8, 32, 16), (3, 72, 6, 32, 13), (2, 100, 5, 64, 32),
+                 (1, 256, 4, 64, 128), HYBRID_SSD]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bc,Q,H,P,N", SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_plain(cuda, dtype, Bc, Q, H, P, N):
+    """dx, ddt, dA, dB, dC against ``ref.ssd_bwd_reference``, in the
+    plain version's dtypes; two calls bitwise equal, one count each."""
+    args = ssd_inputs(cuda, dtype, Bc, Q, H, P, N, seed=Q)
+    dy = torch.randn(args[0].shape, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(N))
+    before = ss.LAUNCHES["ssd_scan_bwd"]
+    got = ss.ssd_scan_bwd_cuda(*args, dy)
+    again = ss.ssd_scan_bwd_cuda(*args, dy)
+    want = ref.ssd_bwd_reference(*args, dy)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan_bwd"] == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.isfinite(g).all()
+        assert torch.equal(g, a)
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= \
+            SSD_BWD_TOL[g.dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_rows_do_not_depend_on_the_call(cuda, dtype):
+    """Chunk row k's dx, ddt, dB and dC in hybrid training's 32-row call
+    equal, bit for bit, a call of that row alone (dA sums over the rows)."""
+    x, dt, A, bm, cm = ssd_inputs(cuda, dtype, *HYBRID_SSD)
+    dy = torch.randn(x.shape, device=cuda)
+    full = ss.ssd_scan_bwd_cuda(x, dt, A, bm, cm, dy)
+    for k in (0, 13, HYBRID_SSD[0] - 1):
+        one = ss.ssd_scan_bwd_cuda(
+            *(t[k:k + 1].contiguous() for t in (x, dt)), A,
+            *(t[k:k + 1].contiguous() for t in (bm, cm, dy)))
+        for i in (0, 1, 3, 4):
+            assert torch.equal(one[i][0], full[i][k]), (k, i)
+
+
+def test_ssd_scan_under_no_grad_launches_the_forward_alone(cuda):
+    """Serving's path: under ``no_grad`` ``ops.ssd_scan`` launches the
+    forward once and nothing else, with ``ssd_scan_cuda``'s bits; with a
+    gradient, the backward once."""
+    args = ssd_inputs(cuda, torch.bfloat16, *HYBRID_SSD)
+    want = ss.ssd_scan_cuda(*args)
+    before = dict(ss.LAUNCHES)
+    with torch.no_grad():
+        y = ops.ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES == {**before, "ssd_scan": before["ssd_scan"] + 1}
+    assert y.grad_fn is None and torch.equal(y, want)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    y = ops.ssd_scan(*leaves)
+    torch.autograd.grad(y.sum(), leaves)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 2
+    assert ss.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+
+
+def test_ssd_backward_refuses_what_it_does_not_take(cuda):
+    x, dt, A, bm, cm = ssd_inputs(cuda, torch.float32, 2, 64, 4, 32, 16)
+    dy = torch.zeros_like(x)
+    with pytest.raises(ValueError, match="dy is"):
+        ss.ssd_scan_bwd_cuda(x, dt, A, bm, cm, dy.bfloat16())
+    with pytest.raises(ValueError, match="dy is"):
+        ss.ssd_scan_bwd_cuda(x, dt, A, bm, cm, dy.cpu())
+    with pytest.raises(ValueError, match="head_dim"):
+        ss.ssd_scan_bwd_cuda(torch.zeros((2, 64, 4, 48), device=cuda), dt,
+                             A, bm, cm, torch.zeros((2, 64, 4, 48),
+                                                    device=cuda))
+
+
+def test_hybrid_gradient_on_the_card_matches_the_cpu_plain_path(cuda,
+                                                                 monkeypatch):
+    """A 2-layer f32 zamba2 at smoke widths (a shared block after each
+    layer): ``value_and_grad`` on the card (the SSD and flash kernels,
+    remat) against the same weights and batch on the CPU (the plain
+    versions) in float64 (the model's f32 islands widened): loss within
+    1e-5, each gradient leaf within 3e-3 in norm.  f32 round-off alone
+    puts the CPU's own f32 gradient up to 9e-4 from its float64 one at
+    this config (``dt_bias``), so the card's f32 cannot be held to 1e-4
+    of either."""
+    import dataclasses
+
+    import repro_torch.models.layers as tlayers
+    import repro_torch.models.ssm as tssm
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.train import value_and_grad
+
+    cfg = dataclasses.replace(get_smoke("zamba2_7b"), n_layers=2,
+                              attn_every=1, dtype=torch.float32, remat=True)
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    batch = SyntheticLM(cfg.vocab, 256, 2, seed=0).batch_np(0)
+    b_cpu = {k: torch.from_numpy(v) for k, v in batch.items()}
+    before = dict(ss.LAUNCHES)
+    loss, grads = value_and_grad(card, dict(card.named_parameters()),
+                                 {k: v.to(cuda) for k, v in b_cpu.items()})
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 4
+    assert ss.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 2
+    for mod in (tssm, tlayers, ref):
+        monkeypatch.setattr(mod, "F32", torch.float64)
+    cpu64 = Model(dataclasses.replace(cfg, dtype=torch.float64),
+                  device="cpu")
+    cpu64.load_state_dict({k: v.double()
+                           for k, v in cpu.state_dict().items()})
+    want, want_grads = value_and_grad(cpu64, dict(cpu64.named_parameters()),
+                                      b_cpu)
+    assert abs(float(loss) - float(want)) <= 1e-5 * abs(float(want))
+    for name, w in want_grads.items():
+        g = grads[name].cpu().double()
+        assert float((g - w).norm()) <= 3e-3 * float(w.norm()), name
+
+
 # ------------------------------------------------------ training placement
 def test_arena_placer_moves_tensors_between_hbm_and_pinned_host(cuda):
     from repro_torch.core import ArenaManager, SiteKind, SiteRegistry

@@ -33,9 +33,7 @@ from repro_torch.convert import (  # noqa: E402
     params_to_numpy,
 )
 from repro_torch.models import Model  # noqa: E402
-from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.serve import Engine, LLM, ServeConfig  # noqa: E402
-from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
 ARCH = "zamba2_7b"
 TOL = 2e-3
@@ -229,12 +227,6 @@ def test_init_follows_the_reference_statistics():
 
 def test_what_the_slice_does_not_serve_raises(pair):
     _, _, tm = pair
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.long),
-             "labels": torch.zeros((1, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        tm.loss(batch)
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        Trainer(tm, AdamW(lr=1e-3), TrainerConfig(steps=1, seed=0))
     # The paged engine serves decoder LMs, as the JAX engine asserts.
     with pytest.raises(ValueError, match="paged engine serves decoder LMs"):
         Engine(tm, ServeConfig())

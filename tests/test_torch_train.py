@@ -210,17 +210,6 @@ def test_remat_does_not_change_the_gradient():
         assert torch.equal(g1[name], g2[name]), name
 
 
-def test_hybrid_training_is_not_ported_yet():
-    """MoE training is ported (``tests/test_torch_moe_train.py``); the
-    hybrid family's ``Model.loss`` and ``Trainer`` raise naming its item."""
-    m = Model(get_smoke("zamba2_7b"), device="cpu")
-    tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        m.loss({"tokens": tokens, "labels": tokens})
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        Trainer(m, AdamW(), TrainerConfig(seed=0))
-
-
 # -------------------------------------------------------------- optimizer
 def opt_tree(rng):
     """A small parameter tree, leaves in JAX's (sorted) order: a matrix, a
