@@ -39,9 +39,12 @@ Phases, each of which raises on failure:
    each output's largest entry), two launches bitwise equal, with empty
    groups, a map of 48 groups with repeats and groups at slot -1 (NaN dx
    rows, the other rows and experts untouched); the route each dtype
-   takes; the forward at the same 32768 rows against its plain version;
-   both timed (events and profiler) beside the bound and the plain
-   version.
+   takes; segments of the 32768-row call alone equal to the same rows of
+   the whole call (dx and their expert's gradients, bitwise); the forward
+   at the same 32768 rows against its plain version; both timed (events
+   and profiler) beside the bound and the plain version, the backward's
+   three launches (rows, dx, weights: wgmma, TMA) by kernel name, and
+   ptxas's registers, shared memory and spills for them.
    Flash attention, forward and backward: bf16 and f32 at the training
    shape (B=2, S=2048, 32/8 heads, dh 64, causal), with a window of 256,
    Sq < Sk, non-causal, dh 128, S=1000 and Sq > Sk; dq, dk, dv against
@@ -860,6 +863,80 @@ def same_bits(a, b) -> bool:
     return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
 
 
+BWD_LAUNCHES = ("moe_bwd_rows", "moe_bwd_dx", "moe_bwd_weights")
+
+
+def check_moe_bwd_rows(mg, x, wg, wu, wd, dy, sizes, full, dtype_name):
+    """Row invariance: the dx rows of a segment of the R-row call equal,
+    bitwise, the same rows of a call over that segment alone, and so do
+    its expert's weight gradients (the same steps from the segment's
+    start); at the first, second, a middle and the last segment."""
+    import torch
+
+    E = len(sizes)
+    starts = [0]
+    for n in sizes:
+        starts.append(starts[-1] + n)
+    for g in (0, 1, E // 2, E - 1):
+        lo, hi = starts[g], starts[g + 1]
+        alone = [0] * E
+        alone[g] = hi - lo
+        part = mg.moe_grouped_ffn_bwd_cuda(
+            x[lo:hi].contiguous(), wg, wu, wd,
+            torch.tensor(alone, dtype=torch.int32, device="cuda"), None,
+            dy[lo:hi].contiguous())
+        if not (same_bits(part[0], full[0][lo:hi]) and all(
+                same_bits(a[g], b[g]) for a, b in zip(part[1:], full[1:]))):
+            raise AssertionError(
+                f"moe backward {dtype_name}: segment {g} (rows {lo}..{hi}) "
+                f"alone differs from the same rows of the {starts[-1]}-row "
+                f"call")
+    log(f"kernel check moe_grouped_ffn_bwd {dtype_name}: the dx rows and the "
+        f"expert's gradients of segments 0, 1, {E // 2}, {E - 1} alone == "
+        f"the same in the {starts[-1]}-row call, bitwise")
+
+
+def log_bwd_build(name: str) -> None:
+    """ptxas's registers, shared memory and spills for the backward's
+    bf16 kernels (``-Xptxas -v`` in the build's log)."""
+    from repro_torch.kernels import _build
+
+    lines = _build.BUILD_LOGS.get(name, "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or "_wgmma" not in line:
+            continue
+        kernel = line.split("_wgmma")[0].rsplit("moe_bwd_", 1)[-1]
+        report = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                  if "Used" in x or "spill" in x]
+        log(f"ptxas moe_bwd_{kernel}_wgmma: {'; '.join(report)}")
+
+
+def log_bwd_launches(card, bwd, R) -> None:
+    """Each of the backward's three launches' device time by kernel name,
+    from the profiler over 10 calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        bwd()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            bwd()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        for name in BWD_LAUNCHES:
+            if name in e.key:
+                times[name] = times.get(name, 0.0) + dev_us(e) / 10 / 1e3
+    if set(times) != set(BWD_LAUNCHES):
+        raise AssertionError(f"moe backward: the profiler saw {sorted(times)}"
+                             f", expected {BWD_LAUNCHES}")
+    log(f"time moe_grouped_ffn_bwd R={R} bf16 by launch (profiler): " +
+        ", ".join(f"{name} {ms:.4f} ms" for name, ms in times.items()) +
+        f" {card.tag()}")
+
+
 def check_moe_backward(card) -> dict:
     """Phase 3, the grouped-expert backward at granite's widths (d 1536, f
     512, 40 experts) and training's routed rows (MOE_TRAIN_ROWS), bf16 and
@@ -869,8 +946,11 @@ def check_moe_backward(card) -> dict:
     repeats, and groups at slot -1 (their dx rows NaN, every other dx row
     and every other expert's weight gradient bitwise as without the holes,
     their experts' zero); the route each dtype takes; the forward kernel at
-    the same rows against its plain version; then both timed.  Returns the
-    backward's kernel row (launches filled in by phase 10)."""
+    the same rows against its plain version; segments of the training call
+    alone equal to the same rows of the whole call, bitwise; then both
+    timed, the backward's three launches by kernel name, and ptxas's
+    report of its bf16 kernels.  Returns the backward's kernel row
+    (launches filled in by phase 10)."""
     import torch
 
     from repro_torch.kernels import moe_gemm as mg
@@ -948,6 +1028,9 @@ def check_moe_backward(card) -> dict:
             log(f"kernel check moe_grouped_ffn_bwd {label} {dtype_name} "
                 f"R={R}: {', '.join(errs)} (tol {tol} of max); two launches "
                 f"bitwise equal")
+            if label == "train":
+                check_moe_bwd_rows(mg, x, wg, wu, wd, dy, sizes, got,
+                                   dtype_name)
             del x, wg, wu, wd, dy, got, again, want
         route = mg.plan_bwd(R, d, f, E, E, dtype).route
         if route != routes[dtype_name]:
@@ -987,6 +1070,8 @@ def check_moe_backward(card) -> dict:
     f_dev = device_ms(lambda: mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs),
                       iters=10)
     f_bound, f_by = moe_bound_ms(x, wg, train, list(range(E)))
+    log_bwd_launches(card, bwd, R)
+    log_bwd_build("moe_gemm")
     log(f"time moe_grouped_ffn_bwd R={R} bf16 ({sum(n > 0 for n in train)} "
         f"experts with rows): kernel {ms:.4f} ms (events), device "
         f"{dev:.4f} ms (profiler), plain {plain_ms:.4f} ms, library none, "

@@ -88,6 +88,7 @@
 // warps, stages and shared memory from (T, d, f, E, G, dtype); the
 // launcher refuses a plan that is not one of this file's configurations.
 
+#include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -725,18 +726,60 @@ cudaError_t launch_simt(const void* x, const void* wg, const void* wu,
 // 2 rows d f); the weights read and their gradients written, x, dy and dx
 // once, the f32 scratch written once and read once.  At training's shape
 // (rows = 2 x 2048 x 8 = 32768, d 1536, f 512) the operations bind it:
-// 412 GFLOP, 0.417 ms at 989 TF/s (H100 SXM, bf16 tensor cores).
+// 412 GFLOP, 0.417 ms at 989 TF/s (H100 SXM, bf16 tensor cores).  The
+// scratch's hi/lo pairs (below) double every product with a scratch
+// operand, 26 rows d f operations in all: this design's own floor is
+// 0.678 ms.  What bounds each launch, and what the design does about it:
+//   1. rows (6 rows d f): x and dy are read once per f tile.  128-row
+//      tiles over two consumer warpgroups with three accumulators (g, u,
+//      da) of 64 columns each; the column tile is the fast grid index, so
+//      the 8 blocks of a row tile read x and dy from the L2.
+//   2. dx (8 rows d f): the four scratch planes are read once per d tile.
+//      128 x 256 tiles (6 d tiles at granite's width), each step one
+//      plane pair (dg or du, hi and lo) and its weight tile.
+//   3. weights (12 rows d f, half of all the work): small output tiles
+//      made x and the scratch planes be read again and again (about 7 GB
+//      at training's shape with 64 x 64 tiles).  dWg and dWu share one
+//      block and its x tile (one A, two accumulators), output tiles are
+//      128 x 128 (128 x 256 for dWd), so each expert's operands are read
+//      4 to 12 times, and the 72 blocks of an expert run together and
+//      read them from the L2.
+// On the card (H100 SXM) no launch reaches that: each main loop runs at
+// the rate its tiles land in shared memory (with the products removed it
+// takes as long), and each epilogue cost about as much again until it
+// went through shared memory (below).  What did not pay, timed against
+// this design in the same runs: two-block clusters multicasting the shared
+// tiles, 128-column rows tiles (two stages fit; with 32-deep k steps,
+// five), one n128 product for g and u or n256 ones in launch 3, and
+// persistent blocks overlapping a tile's epilogue with the next tile's
+// loads (slower: the epilogue then needs shared memory of its own, and
+// the ring fewer stages).
 //
-// bf16 runs on tensor cores (mma.sync m16n8k16, 2-stage cp.async rings
-// of 64-deep k steps, the forward's tile helpers).  The scratch holds each
-// f32 intermediate as a bf16 hi/lo pair (hi = bf16(v), lo = bf16(v - hi),
-// the bytes of the f32 array), as the forward carries h: a product with a
-// scratch operand is hi . B then lo . B (or A . hi then A . lo) into one
-// f32 accumulator.  Launch 3 reads its operands transposed in place:
-// x^T and a^T come by ldmatrix.trans from (rows, d) and (rows, f) tiles,
-// Wd (f, d) and Wg/Wu (d, f) reach launches 1 and 2 as column-major B by
-// plain ldmatrix.  float32 (the checks only) runs SIMT kernels, each
-// output element one thread's serial fmaf loop in index order.
+// bf16 runs on Hopper's wgmma (m64nNk16, bf16 in, f32 accumulate) from
+// 128-byte-swizzled shared tiles that TMA (cp.async.bulk.tensor) brings
+// in.  Each block is three warpgroups: two consumers that issue wgmma and
+// one producer whose first thread keeps an S-stage ring full, with an
+// mbarrier per stage for "full" (the TMA bytes arrived) and one for
+// "empty" (every consumer thread is done); setmaxnreg moves the
+// producer's registers to the consumers.  Operands come as they lie:
+// x^T and a^T reach launch 3 as MN-major A, dg, du and dy as MN-major B;
+// Wg and Wu (d, f) reach launch 1 as MN-major B and launch 2 as K-major
+// B, Wd (f, d) launch 1 as K-major B.  No transposed copies.  The host
+// builds the tensor maps for each call (cuTensorMapEncodeTiled, fetched
+// through cudaGetDriverEntryPoint) and passes them as __grid_constant__
+// parameters, after binding the calling thread to the tensors' device
+// (encoding needs a current context).  Rows of a physical tile outside
+// its segment are loaded in launches 1 and 2 (each output row depends
+// only on its own A row, and those rows are not stored); launch 3 zeroes
+// the rows past a segment's end in every box of that step before the
+// products.  The scratch holds
+// each f32 intermediate as a bf16 hi/lo pair (hi = bf16(v), lo = bf16(v -
+// hi), the bytes of the f32 array), as the forward carries h: a product
+// with a scratch operand is A . hi then A . lo (or hi . B then lo . B) for
+// each k16 into one f32 accumulator.  Every epilogue stages its tile in
+// the idle ring and stores whole 16-byte row pieces.  float32 (the checks
+// only) runs SIMT kernels, each output element one thread's serial fmaf
+// loop in index order.
 
 constexpr int kBwdChunk = 64;     // f32: reduction elements staged a step
 constexpr int kWTile = 64;        // f32 launch 3: output tile edge
@@ -1040,474 +1083,781 @@ __device__ __forceinline__ void store_hilo(bf16* hi, bf16* lo, long long at,
   *reinterpret_cast<__nv_bfloat162*>(lo + at) = lv;
 }
 
-constexpr size_t bwd_rows_smem(int bm, int bn, int stages) {
-  return sizeof(bf16) * stages *
-         (2 * bm * (kBK + kPad) + 2 * kBK * (bn + kPad) + bn * (kBK + kPad));
+// The Hopper machinery of the bf16 backward: mbarrier rings, TMA tile
+// loads, wgmma from 128-byte-swizzled shared tiles, warp specialisation.
+constexpr int kWG = 128;                 // threads of a warpgroup
+constexpr int kConsumers = 2 * kWG;      // two consumer warpgroups ...
+constexpr int kBwdThreads = 3 * kWG;     // ... and the producer's
+constexpr int kLine = 128;               // bytes of a swizzled tile row
+constexpr int kAlign = 1024;             // a swizzle atom: 8 rows of kLine
+// The tiles of the three launches (kernels/moe_gemm.py BWD_MMA): rows 128
+// rows (64 a consumer warpgroup) by 64 columns of f; dx 128 rows by 256
+// columns of d; weights 128 x 128 of dWg and dWu together, or 128 x 256
+// of dWd.  kBK (64) is the k step of the rows and dx launches.
+constexpr int kBwdM = 128;
+constexpr int kRowsN = 64;
+constexpr int kDxN = 256;
+constexpr int kWN = 128;
+constexpr int kWSlots = kBwdM / 64 + 4 * kWN / 64;  // boxes a weights stage
+
+constexpr size_t bwd_rows_smem(int stages) {
+  return (size_t)stages * (2 * kBwdM + 3 * kRowsN) * kBK * 2 + kAlign;
 }
-constexpr size_t bwd_dx_smem(int bm, int bn, int stages) {
-  return sizeof(bf16) * stages *
-         (4 * bm * (kBK + kPad) + 2 * bn * (kBK + kPad));
+constexpr size_t bwd_dx_smem(int stages) {
+  return (size_t)stages * (2 * kBwdM + kDxN) * kBK * 2 + kAlign;
 }
-constexpr size_t bwd_weights_smem(int bm, int bn, int stages) {
-  return sizeof(bf16) * stages *
-         (2 * kBK * (bm + kPad) + 2 * kBK * (bn + kPad));
+constexpr size_t bwd_weights_smem(int stages, int step) {
+  return (size_t)stages * kWSlots * step * kLine + kAlign;
 }
 
-// Launch 1: g = x Wg[e], u = x Wu[e], da = dy Wd[e]^T for BM rows and BN
-// columns of f; W warps, WM along the rows; S stages.  a, dg, du leave as
-// hi/lo pairs.  Wd[e] (f, d) is B in column-major form as it lies: its
-// (BN, kBK) tile reaches the fragments by plain ldmatrix.
-template <int BM, int BN, int WM, int W, int S>
-__global__ void __launch_bounds__(W * 32)
-moe_bwd_rows_mma(const bf16* __restrict__ x, const bf16* __restrict__ wg,
-                 const bf16* __restrict__ wu, const bf16* __restrict__ wd,
-                 const int* __restrict__ sizes,
-                 const int* __restrict__ experts,
-                 const bf16* __restrict__ dy, bf16* __restrict__ scratch,
-                 int rows, int d, int f, int E, int G) {
-  constexpr int WN = W / WM;
-  constexpr int MF = BM / WM / 16;
-  constexpr int NF = BN / WN / 8;         // even: ldmatrix.x4 takes 16
-  constexpr int LDX = kBK + kPad, LDW = BN + kPad;
-  constexpr int XS = BM * LDX, WS = kBK * LDW, DS = BN * LDX;
-  static_assert(MF >= 1 && NF >= 2 && NF % 2 == 0 && MF * WM * 16 == BM &&
-                NF * WN * 8 == BN, "warp tiling");
+__device__ __forceinline__ unsigned char* atom_aligned(unsigned char* p) {
+  return p + ((kAlign - (smem_u32(p) & (kAlign - 1))) & (kAlign - 1));
+}
 
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t at = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(at), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// S stages: the producer's loads of step i land in stage i % S.  full[s]
+// completes when the stage's bytes have arrived; empty[s] when every
+// consumer thread is done with it.
+template <int S>
+struct Ring {
+  uint64_t full[S], empty[S];
+
+  __device__ void init() {             // one thread, before __syncthreads
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Producer: waits for step i's stage to be free and announces its bytes.
+  __device__ int acquire(int i, int bytes) {
+    const int st = i % S;
+    mbar_wait(&empty[st], ((i / S) & 1) ^ 1);
+    mbar_expect_tx(&full[st], bytes);
+    return st;
+  }
+  __device__ int wait_full(int i) {
+    const int st = i % S;
+    mbar_wait(&full[st], (i / S) & 1);
+    return st;
+  }
+  __device__ void release(int i) { mbar_arrive(&empty[i % S]); }
+};
+
+// One box of a tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1,
+                                       int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// The two consumer warpgroups meet (named barrier 1; the producer's
+// warpgroup never takes part).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// wgmma's descriptor of a shared tile as TMA's 128-byte swizzle lays it
+// out: rows of kLine bytes, 8-row atoms 1024 bytes apart.  K-major (rows
+// along M or N, K contiguous): advancing k by 16 adds 32 bytes, the
+// leading offset is unused.  MN-major (one row per k, M or N contiguous):
+// advancing k by 16 adds two atoms; 64-column blocks lie `block` bytes
+// apart.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lead,
+                                              uint32_t stride) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lead >> 4) << 16) | ((uint64_t)(stride >> 4) << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ uint64_t kmajor(const void* p) {
+  return gmma_desc(p, 16, 8 * kLine);
+}
+__device__ __forceinline__ uint64_t mnmajor(const void* p, uint32_t block) {
+  return gmma_desc(p, block, 8 * kLine);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator accesses across the waits.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (m64 x nN, f32) += A (64 x 16) . B (16 x N), bf16 from shared tiles.
+// TA / TB: 0 K-major, 1 MN-major.  Accumulator fragment: thread t of the
+// warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8), columns 8 j +
+// 2 (t % 4) (+ 1) in d[4 j + {0, 1}] (d[4 j + {2, 3}] for the lower row).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
+// The epilogue goes through shared memory: a consumer warpgroup writes its
+// 64 x N tile there as bf16 (the ring is idle once both warpgroups have
+// passed their last product), then stores it a row at a time in 16-byte
+// pieces.  Stored straight from the fragments, each warp instruction wrote
+// 16 bytes into each of 8 rows, and the stores took about as long as the
+// main loop.  A staged row is N + 8 elements, so the fragment's 8 rows
+// fall on distinct banks.
+template <int N>
+__host__ __device__ constexpr int staged_bytes() {
+  return 64 * (N + 8) * (int)sizeof(bf16);
+}
+
+// Where the fragment's pair (n8 block j, lower rows if half) lies in a
+// staged tile of N columns.
+template <int N>
+__device__ __forceinline__ int staged_at(int j, int half) {
+  const int t = threadIdx.x % kWG, lane = t & 31;
+  return ((t >> 5) * 16 + (lane >> 2) + half * 8) * (N + 8) + j * 8 +
+         (lane & 3) * 2;
+}
+
+// An accumulator as bf16 into a staged tile.
+template <int N>
+__device__ __forceinline__ void stage_acc(const float (&acc)[N / 2],
+                                          bf16* stage) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<__nv_bfloat162*>(stage + staged_at<N>(j, half)) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                acc[4 * j + 2 * half + 1]);
+}
+
+// A staged 64 x N tile to rows r0.. and columns c0.. of out (row stride
+// `ld`), where inside [lo, hi) x [0, width); width a multiple of 8.
+template <int N>
+__device__ __forceinline__ void store_staged(const bf16* stage,
+                                             bf16* __restrict__ out,
+                                             long long ld, int r0, int lo,
+                                             int hi, int c0, int width) {
+  constexpr int CH = N / 8;                     // 16-byte pieces a row
+  for (int i = threadIdx.x % kWG; i < 64 * CH; i += kWG) {
+    const int r = r0 + i / CH, c = c0 + (i % CH) * 8;
+    if (r < lo || r >= hi || c >= width) continue;
+    *reinterpret_cast<uint4*>(out + r * ld + c) =
+        *reinterpret_cast<const uint4*>(stage + (i / CH) * (N + 8) +
+                                        (i % CH) * 8);
+  }
+}
+
+// Both consumer warpgroups past their products: the ring may be reused.
+// Then warpgroup wg's staging area, `bytes` a warpgroup.
+__device__ __forceinline__ bf16* staging(unsigned char* tiles, int wg,
+                                         int bytes) {
+  consumers_sync();
+  return reinterpret_cast<bf16*>(tiles + wg * bytes);
+}
+
+// Launch 1: g = x Wg[e], u = x Wu[e], da = dy Wd[e]^T for kBwdM rows (64 a
+// consumer warpgroup) and kRowsN columns of f, over k steps of kBK of d
+// through an S-stage ring.  A stage: the x and dy row tiles (K-major A),
+// the Wg and Wu tiles as they lie ((d, f): MN-major B) and the Wd tile
+// ((f, d): K-major B).  a, dg, du leave as hi/lo pairs.  Rows of the
+// physical tile outside [lo, hi) are loaded and multiplied but not stored.
+template <int S>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+moe_bwd_rows_wgmma(__grid_constant__ const CUtensorMap tm_x,
+                   __grid_constant__ const CUtensorMap tm_dy,
+                   __grid_constant__ const CUtensorMap tm_wg,
+                   __grid_constant__ const CUtensorMap tm_wu,
+                   __grid_constant__ const CUtensorMap tm_wd,
+                   const int* __restrict__ sizes,
+                   const int* __restrict__ experts,
+                   bf16* __restrict__ scratch, int rows, int d, int f, int E,
+                   int G) {
+  constexpr int XB = kBwdM * kLine, WB = kBK * kLine;
+  constexpr int STAGE = 2 * XB + 3 * WB;
   __shared__ TileInfo info;
+  __shared__ Ring<S> ring;
   extern __shared__ __align__(16) unsigned char smem_b[];
-  bf16* sx = reinterpret_cast<bf16*>(smem_b);   // S x (BM, LDX)
-  bf16* sdy = sx + S * XS;                      // S x (BM, LDX)
-  bf16* sg = sdy + S * XS;                      // S x (kBK, LDW)
-  bf16* su = sg + S * WS;                       // S x (kBK, LDW)
-  bf16* sw = su + S * WS;                       // S x (BN, LDX): Wd rows
-
-  locate(sizes, G, rows, BM, &info);
-  if (!info.found) return;
+  unsigned char* tiles = atom_aligned(smem_b);
+  if (threadIdx.x == 0) ring.init();
+  locate(sizes, G, rows, kBwdM, &info);
+  if (!info.found) return;                       // uniform across the block
   const int lo = info.lo, hi = info.hi;
   const int e = experts ? experts[info.group] : info.group;
-  if (e < 0 || e >= E) return;
-  const int m0 = lo / BM * BM;
-  const int n0 = blockIdx.x * BN;
-  const bf16* wg_e = wg + (long long)e * d * f;
-  const bf16* wu_e = wu + (long long)e * d * f;
-  const bf16* wd_e = wd + (long long)e * f * d;
-  const int nk = (d + kBK - 1) / kBK;
-
-  auto issue = [&](int kt) {
-    const int st = kt % S, k0 = kt * kBK;
-    issue_rows<BM, W * 32>(sx + st * XS, x, m0, lo, hi, k0, d);
-    issue_rows<BM, W * 32>(sdy + st * XS, dy, m0, lo, hi, k0, d);
-    issue_weights<BN, W * 32>(sg + st * WS, wg_e, k0, d, n0, f);
-    issue_weights<BN, W * 32>(su + st * WS, wu_e, k0, d, n0, f);
-    issue_rows<BN, W * 32>(sw + st * DS, wd_e, n0, 0, f, k0, d);
-  };
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < nk) issue(s);
-    cp_async_commit();
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / WN, wn = warp % WN;
-  bool act[MF];
-  bool any = false;
-#pragma unroll
-  for (int i = 0; i < MF; ++i) {
-    const int r0 = m0 + (wm * MF + i) * 16;
-    act[i] = r0 < hi && r0 + 16 > lo;
-    any |= act[i];
-  }
-  float acc_g[MF][NF][4], acc_u[MF][NF][4], acc_d[MF][NF][4];
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v)
-        acc_g[i][j][v] = acc_u[i][j][v] = acc_d[i][j][v] = 0.f;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    if (kt + S - 1 < nk) issue(kt + S - 1);
-    cp_async_commit();
-    const int st = kt % S;
-    const int a_off = st * XS + wm * MF * 16 * LDX;
-    const bf16* cw = ((lane & 16) ? su : sg) + st * WS + wn * NF * 8;
-    const bf16* cd = sw + st * DS + wn * NF * 8 * LDX;
-    if (!any) continue;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t ax[MF][4], ay[MF][4];
-#pragma unroll
-      for (int i = 0; i < MF; ++i) {
-        if (!act[i]) continue;
-        const int at = a_off + (i * 16 + (lane & 15)) * LDX + ks * 16 +
-                       (lane >> 4) * 8;
-        ldmatrix_x4(ax[i], sx + at);
-        ldmatrix_x4(ay[i], sdy + at);
-      }
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, cw + (ks * 16 + (lane & 15)) * LDW + j * 8);
-#pragma unroll
-        for (int i = 0; i < MF; ++i) {
-          if (!act[i]) continue;
-          mma_bf16(acc_g[i][j], ax[i], b[0], b[1]);
-          mma_bf16(acc_u[i][j], ax[i], b[2], b[3]);
-        }
-      }
-#pragma unroll
-      for (int jp = 0; jp < NF / 2; ++jp) {
-        uint32_t b[4];
-        ldmatrix_x4(b, cd + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * LDX +
-                           ks * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int i = 0; i < MF; ++i) {
-          if (!act[i]) continue;
-          mma_bf16(acc_d[i][2 * jp], ay[i], b[0], b[1]);
-          mma_bf16(acc_d[i][2 * jp + 1], ay[i], b[2], b[3]);
-        }
+  if (e < 0 || e >= E) return;                   // launch 2 writes NaN
+  const int m0 = lo / kBwdM * kBwdM, n0 = blockIdx.x * kRowsN;
+  const int steps = cdiv(d, kBK);
+  const int wg = threadIdx.x / kWG;
+  if (wg == 2) {                                 // the producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 2 * kWG) {
+      for (int i = 0; i < steps; ++i) {
+        const int st = ring.acquire(i, STAGE);
+        unsigned char* p = tiles + st * STAGE;
+        uint64_t* bar = &ring.full[st];
+        const int k0 = i * kBK;
+        tma_2d(p, &tm_x, bar, k0, m0);
+        tma_2d(p + XB, &tm_dy, bar, k0, m0);
+        tma_3d(p + 2 * XB, &tm_wg, bar, n0, k0, e);
+        tma_3d(p + 2 * XB + WB, &tm_wu, bar, n0, k0, e);
+        tma_3d(p + 2 * XB + 2 * WB, &tm_wd, bar, k0, n0, e);
       }
     }
-  }
-  cp_async_wait<0>();
+  } else {                                       // the consumers
+    setmaxnreg_inc<240>();
+    float acc_g[kRowsN / 2], acc_u[kRowsN / 2], acc_d[kRowsN / 2];
+#pragma unroll
+    for (int v = 0; v < kRowsN / 2; ++v) acc_g[v] = acc_u[v] = acc_d[v] = 0.f;
+    fence_acc(acc_g);
+    fence_acc(acc_u);
+    fence_acc(acc_d);
+    for (int i = 0; i < steps; ++i) {
+      const unsigned char* p = tiles + ring.wait_full(i) * STAGE;
+      const unsigned char* ax = p + wg * 64 * kLine;
+      const unsigned char* bw = p + 2 * XB;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        const uint64_t a = kmajor(ax + ks * 32);
+        wgmma_n64<0, 1>(acc_g, a, mnmajor(bw + ks * 16 * kLine, WB));
+        wgmma_n64<0, 1>(acc_u, a, mnmajor(bw + WB + ks * 16 * kLine, WB));
+        wgmma_n64<0, 0>(acc_d, kmajor(ax + XB + ks * 32),
+                        kmajor(bw + 2 * WB + ks * 32));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                 // step i - 1's products are done
+      if (i > 0) ring.release(i - 1);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc_g);
+    fence_acc(acc_u);
+    fence_acc(acc_d);
 
-  const long long plane = (long long)rows * f;
-  bf16* a_hi = scratch;
-  bf16* dg_hi = scratch + 2 * plane;
-  bf16* du_hi = scratch + 4 * plane;
+    // a, dg, du as hi/lo pairs: six staged planes (a hi, a lo, dg hi, ...).
+    constexpr int PE = staged_bytes<kRowsN>() / (int)sizeof(bf16);
+    bf16* stage = staging(tiles, wg, 6 * staged_bytes<kRowsN>());
 #pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
+    for (int j = 0; j < kRowsN / 8; ++j)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int r = m0 + (wm * MF + i) * 16 + (lane >> 2) + half * 8;
-        const int c = n0 + (wn * NF + j) * 8 + (lane & 3) * 2;
-        if (r < lo || r >= hi || c >= f) continue;
-        float a2[2], dg2[2], du2[2];
+        float v[3][2];                           // a, dg, du
 #pragma unroll
-        for (int v = 0; v < 2; ++v)
-          swiglu_grad(acc_g[i][j][2 * half + v], acc_u[i][j][2 * half + v],
-                      acc_d[i][j][2 * half + v], &a2[v], &dg2[v], &du2[v]);
-        const long long at = (long long)r * f + c;
-        store_hilo(a_hi, a_hi + plane, at, a2[0], a2[1]);
-        store_hilo(dg_hi, dg_hi + plane, at, dg2[0], dg2[1]);
-        store_hilo(du_hi, du_hi + plane, at, du2[0], du2[1]);
+        for (int k = 0; k < 2; ++k) {
+          const int at = 4 * j + 2 * half + k;
+          swiglu_grad(acc_g[at], acc_u[at], acc_d[at], &v[0][k], &v[1][k],
+                      &v[2][k]);
+        }
+        const int at = staged_at<kRowsN>(j, half);
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          store_hilo(stage + 2 * q * PE, stage + (2 * q + 1) * PE, at,
+                     v[q][0], v[q][1]);
       }
+    consumers_sync();
+    const long long plane = (long long)rows * f;
+    for (int q = 0; q < 6; ++q)
+      store_staged<kRowsN>(stage + q * PE, scratch + q * plane, f,
+                           m0 + wg * 64, lo, hi, n0, f);
+  }
 }
 
-// Launch 2: dx = dg Wg[e]^T + du Wu[e]^T for BM rows and BN columns of d,
-// the four products of a k step (dg hi, dg lo, du hi, du lo) into one
-// accumulator in that order.  Wg[e] and Wu[e] (d, f) are B in
-// column-major form as they lie.  Spare blocks zero the tail rows.
-template <int BM, int BN, int WM, int W, int S>
-__global__ void __launch_bounds__(W * 32)
-moe_bwd_dx_mma(const bf16* __restrict__ scratch, const bf16* __restrict__ wg,
-               const bf16* __restrict__ wu, const int* __restrict__ sizes,
-               const int* __restrict__ experts, bf16* __restrict__ dx,
-               int rows, int d, int f, int E, int G) {
-  constexpr int WN = W / WM;
-  constexpr int MF = BM / WM / 16;
-  constexpr int NF = BN / WN / 8;
-  constexpr int LD = kBK + kPad;
-  constexpr int AS = BM * LD, BS = BN * LD;
-  static_assert(MF >= 1 && NF >= 2 && NF % 2 == 0 && MF * WM * 16 == BM &&
-                NF * WN * 8 == BN, "warp tiling");
-
+// Launch 2: dx = dg Wg[e]^T + du Wu[e]^T for kBwdM rows and kDxN columns
+// of d.  Step 2k + w takes the k-th kBK columns of f for w = 0 (dg hi and
+// lo, Wg) and w = 1 (du, Wu): every operand K-major as it lies, the hi
+// then the lo product of each k16 into one accumulator.  Spare blocks
+// zero the tail rows; a group whose expert is out of range gets NaN rows.
+template <int S>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+moe_bwd_dx_wgmma(__grid_constant__ const CUtensorMap tm_s,
+                 __grid_constant__ const CUtensorMap tm_wg,
+                 __grid_constant__ const CUtensorMap tm_wu,
+                 const int* __restrict__ sizes,
+                 const int* __restrict__ experts, bf16* __restrict__ dx,
+                 int rows, int d, int f, int E, int G) {
+  constexpr int AB = kBwdM * kLine, BB = kDxN * kLine;
+  constexpr int STAGE = 2 * AB + BB;
   __shared__ TileInfo info;
+  __shared__ Ring<S> ring;
   extern __shared__ __align__(16) unsigned char smem_b[];
-  bf16* sa = reinterpret_cast<bf16*>(smem_b);   // 4 x S x (BM, LD)
-  bf16* sb = sa + 4 * S * AS;                   // 2 x S x (BN, LD)
-
-  locate(sizes, G, rows, BM, &info);
-  const int n0 = blockIdx.x * BN;
+  unsigned char* tiles = atom_aligned(smem_b);
+  if (threadIdx.x == 0) ring.init();
+  locate(sizes, G, rows, kBwdM, &info);
+  const int n0 = blockIdx.x * kDxN;
   if (!info.found) {
-    zero_tail(dx, info, rows, d, n0, BN);
+    zero_tail(dx, info, rows, d, n0, kDxN);
     return;
   }
   const int lo = info.lo, hi = info.hi;
   const int e = experts ? experts[info.group] : info.group;
   if (e < 0 || e >= E) {
-    nan_rows(dx, lo, hi, d, n0, BN);
+    nan_rows(dx, lo, hi, d, n0, kDxN);
     return;
   }
-  const int m0 = lo / BM * BM;
-  const long long plane = (long long)rows * f;
-  // dg hi, dg lo, du hi, du lo: planes 2..5 of the scratch.
-  const bf16* src_a[4] = {scratch + 2 * plane, scratch + 3 * plane,
-                          scratch + 4 * plane, scratch + 5 * plane};
-  const bf16* src_b[2] = {wg + (long long)e * d * f,
-                          wu + (long long)e * d * f};
-  const int nk = (f + kBK - 1) / kBK;
-
-  auto issue = [&](int kt) {
-    const int st = kt % S, k0 = kt * kBK;
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      issue_rows<BM, W * 32>(sa + (q * S + st) * AS, src_a[q], m0, lo, hi,
-                             k0, f);
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-      issue_rows<BN, W * 32>(sb + (q * S + st) * BS, src_b[q], n0, 0, d, k0,
-                             f);
-  };
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < nk) issue(s);
-    cp_async_commit();
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / WN, wn = warp % WN;
-  bool act[MF];
-  bool any = false;
-#pragma unroll
-  for (int i = 0; i < MF; ++i) {
-    const int r0 = m0 + (wm * MF + i) * 16;
-    act[i] = r0 < hi && r0 + 16 > lo;
-    any |= act[i];
-  }
-  float acc[MF][NF][4];
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    if (kt + S - 1 < nk) issue(kt + S - 1);
-    cp_async_commit();
-    const int st = kt % S;
-    const int a_off = st * AS + wm * MF * 16 * LD;
-    const int b_off = st * BS + wn * NF * 8 * LD;
-    if (!any) continue;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t af[4][MF][4];
-#pragma unroll
-      for (int i = 0; i < MF; ++i) {
-        if (!act[i]) continue;
-        const int at = a_off + (i * 16 + (lane & 15)) * LD + ks * 16 +
-                       (lane >> 4) * 8;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) ldmatrix_x4(af[q][i], sa + q * S * AS + at);
-      }
-#pragma unroll
-      for (int jp = 0; jp < NF / 2; ++jp) {
-        const int at = b_off + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
-                       ks * 16 + ((lane >> 3) & 1) * 8;
-        uint32_t bg[4], bu[4];
-        ldmatrix_x4(bg, sb + at);
-        ldmatrix_x4(bu, sb + S * BS + at);
-#pragma unroll
-        for (int i = 0; i < MF; ++i) {
-          if (!act[i]) continue;
-#pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            float (&c)[4] = acc[i][2 * jp + t];
-            mma_bf16(c, af[0][i], bg[2 * t], bg[2 * t + 1]);
-            mma_bf16(c, af[1][i], bg[2 * t], bg[2 * t + 1]);
-            mma_bf16(c, af[2][i], bu[2 * t], bu[2 * t + 1]);
-            mma_bf16(c, af[3][i], bu[2 * t], bu[2 * t + 1]);
-          }
-        }
+  const int m0 = lo / kBwdM * kBwdM;
+  const int steps = 2 * cdiv(f, kBK);
+  const int wg = threadIdx.x / kWG;
+  if (wg == 2) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 2 * kWG) {
+      for (int i = 0; i < steps; ++i) {
+        const int st = ring.acquire(i, STAGE);
+        unsigned char* p = tiles + st * STAGE;
+        uint64_t* bar = &ring.full[st];
+        const int k0 = (i >> 1) * kBK, w = i & 1;
+        // Scratch planes 2, 3 (dg hi, lo) or 4, 5 (du hi, lo).
+        tma_2d(p, &tm_s, bar, k0, (2 + 2 * w) * rows + m0);
+        tma_2d(p + AB, &tm_s, bar, k0, (3 + 2 * w) * rows + m0);
+        tma_3d(p + 2 * AB, w ? &tm_wu : &tm_wg, bar, k0, n0, e);
       }
     }
-  }
-  cp_async_wait<0>();
-
+  } else {
+    setmaxnreg_inc<240>();
+    float acc[kDxN / 2];
 #pragma unroll
-  for (int i = 0; i < MF; ++i)
+    for (int v = 0; v < kDxN / 2; ++v) acc[v] = 0.f;
+    fence_acc(acc);
+    for (int i = 0; i < steps; ++i) {
+      const unsigned char* p = tiles + ring.wait_full(i) * STAGE;
+      const unsigned char* ah = p + wg * 64 * kLine;
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + (wm * MF + i) * 16 + (lane >> 2) + half * 8;
-        const int c = n0 + (wn * NF + j) * 8 + (lane & 3) * 2;
-        if (r < lo || r >= hi || c >= d) continue;
-        *reinterpret_cast<__nv_bfloat162*>(dx + (long long)r * d + c) =
-            __floats2bfloat162_rn(acc[i][j][2 * half],
-                                  acc[i][j][2 * half + 1]);
+      for (int ks = 0; ks < kBK / 16; ++ks) {
+        const uint64_t b = kmajor(p + 2 * AB + ks * 32);
+        wgmma_n256<0, 0>(acc, kmajor(ah + ks * 32), b);
+        wgmma_n256<0, 0>(acc, kmajor(ah + AB + ks * 32), b);
       }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (i > 0) ring.release(i - 1);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    bf16* stage = staging(tiles, wg, staged_bytes<kDxN>());
+    stage_acc<kDxN>(acc, stage);
+    consumers_sync();
+    store_staged<kDxN>(stage, dx, d, m0 + wg * 64, lo, hi, n0, d);
+  }
 }
 
-// Launch 3: a (BM, BN) tile of one weight gradient of expert blockIdx.y,
-// C = A^T B over e's rows, kBK rows a step through an S-stage ring.  The
-// A tile (kBK, BM) and the B tile (kBK, BN) lie row-major as in global
-// memory; A's fragments come by ldmatrix.trans (A^T), B's as in the
-// forward's down launch.  Per k16 step: A . B, then A_lo . B or
-// A . B_lo, whichever operand is a scratch pair.
-template <int BM, int BN, int WM, int W, int S>
-__global__ void __launch_bounds__(W * 32)
-moe_bwd_weights_mma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                    const bf16* __restrict__ scratch,
-                    const int* __restrict__ sizes,
-                    const int* __restrict__ experts, bf16* __restrict__ dwg,
-                    bf16* __restrict__ dwu, bf16* __restrict__ dwd, int rows,
-                    int d, int f, int E, int G) {
-  constexpr int WN = W / WM;
-  constexpr int MF = BM / WM / 16;
-  constexpr int NF = BN / WN / 8;
-  constexpr int LDA = BM + kPad, LDB = BN + kPad;
-  constexpr int AS = kBK * LDA, BS = kBK * LDB;
-  static_assert(MF >= 1 && NF >= 2 && NF % 2 == 0 && MF * WM * 16 == BM &&
-                NF * WN * 8 == BN, "warp tiling");
-
+// Launch 3: one output tile of expert blockIdx.y, summed over e's rows:
+// blocks [0, n1) take a kBwdM x kWN tile of dWg = x^T dg and the same tile
+// of dWu = x^T du, sharing the x tile; the rest a kBwdM x 2 kWN tile of
+// dWd = a^T dy.  A step is STEP rows of one segment (e's groups in
+// ascending order, each group's rows ascending); a stage holds every
+// operand's (STEP, 64) boxes as they lie in (rows, d) and (rows, f): x^T
+// and a^T reach wgmma as MN-major A, dg, du and dy as MN-major B.  Rows of
+// a segment's last step past its end are zeroed in every box before the
+// products (they may hold another group's rows, or NaN from rows no
+// launch wrote).  Per k16: acc0 += A.B_hi then A.B_lo (dg, or dWd's first
+// 128 columns with a_hi then a_lo), the same into acc1 (du, or the next
+// 128 columns).
+template <int S, int STEP>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+moe_bwd_weights_wgmma(__grid_constant__ const CUtensorMap tm_x,
+                      __grid_constant__ const CUtensorMap tm_dy,
+                      __grid_constant__ const CUtensorMap tm_s,
+                      const int* __restrict__ sizes,
+                      const int* __restrict__ experts,
+                      bf16* __restrict__ dwg, bf16* __restrict__ dwu,
+                      bf16* __restrict__ dwd, int rows, int d, int f, int E,
+                      int G) {
+  constexpr int BOX = STEP * kLine;              // one (STEP, 64) box
+  constexpr int STAGE = kWSlots * BOX;
+  static_assert(STEP % 16 == 0 && BOX % kAlign == 0, "step");
   __shared__ int seg_lo[kMaxGroups], seg_hi[kMaxGroups];
   __shared__ int n_seg;
+  __shared__ Ring<S> ring;
   extern __shared__ __align__(16) unsigned char smem_b[];
-  bf16* sa = reinterpret_cast<bf16*>(smem_b);   // 2 x S x (kBK, LDA)
-  bf16* sb = sa + 2 * S * AS;                   // 2 x S x (kBK, LDB)
-
+  unsigned char* tiles = atom_aligned(smem_b);
+  if (threadIdx.x == 0) ring.init();
   const int e = blockIdx.y;
-  const long long plane = (long long)rows * f;
-  const WeightJob<bf16> job = weight_job<bf16>(
-      blockIdx.x, BM, BN, x, dy, scratch + 2 * plane, scratch + 3 * plane,
-      scratch + 4 * plane, scratch + 5 * plane, scratch, scratch + plane,
-      dwg, dwu, dwd, d, f, e);
   expert_segments(sizes, experts, G, rows, e, seg_lo, seg_hi, &n_seg);
-  int steps = 0;
-  for (int s = 0; s < n_seg; ++s)
-    steps += (seg_hi[s] - seg_lo[s] + kBK - 1) / kBK;
-
-  // Step i covers rows [r, min(r + kBK, hi)) of one segment; each thread
-  // walks the steps in order with its own cursor.
-  int cur_seg = 0, cur_row = n_seg > 0 ? seg_lo[0] : 0;
-  auto issue = [&](int kt) {
-    const int st = kt % S, hi = seg_hi[cur_seg];
-    issue_weights<BM, W * 32>(sa + st * AS, job.a, cur_row, hi, job.m0,
-                              job.M);
-    if (job.a_lo)
-      issue_weights<BM, W * 32>(sa + (S + st) * AS, job.a_lo, cur_row, hi,
-                                job.m0, job.M);
-    issue_weights<BN, W * 32>(sb + st * BS, job.b, cur_row, hi, job.n0,
-                              job.N);
-    if (job.b_lo)
-      issue_weights<BN, W * 32>(sb + (S + st) * BS, job.b_lo, cur_row, hi,
-                                job.n0, job.N);
-    cur_row += kBK;
-    if (cur_row >= hi && ++cur_seg < n_seg) cur_row = seg_lo[cur_seg];
-  };
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < steps) issue(s);
-    cp_async_commit();
+  const int n1 = cdiv(d, kBwdM) * cdiv(f, kWN);
+  const bool fused = (int)blockIdx.x < n1;
+  int m0, n0;
+  if (fused) {
+    m0 = blockIdx.x / cdiv(f, kWN) * kBwdM;
+    n0 = blockIdx.x % cdiv(f, kWN) * kWN;
+  } else {
+    const int t = blockIdx.x - n1, tn = cdiv(d, 2 * kWN);
+    m0 = t / tn * kBwdM;
+    n0 = t % tn * 2 * kWN;
   }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / WN, wn = warp % WN;
-  float acc[MF][NF][4];
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-
-  for (int kt = 0; kt < steps; ++kt) {
-    cp_async_wait<S - 2>();
-    __syncthreads();
-    if (kt + S - 1 < steps) issue(kt + S - 1);
-    cp_async_commit();
-    const int st = kt % S;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      const int krow = ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
-      uint32_t ah[MF][4], al[MF][4];
-#pragma unroll
-      for (int i = 0; i < MF; ++i) {
-        const int at = st * AS + krow * LDA + (wm * MF + i) * 16 +
-                       ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(ah[i], sa + at);
-        if (job.a_lo) ldmatrix_x4_trans(al[i], sa + S * AS + at);
-      }
-#pragma unroll
-      for (int jp = 0; jp < NF / 2; ++jp) {
-        const int at = st * BS +
-                       (ks * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDB +
-                       wn * NF * 8 + jp * 16 + (lane >> 4) * 8;
-        uint32_t bh[4], bl[4];
-        ldmatrix_x4_trans(bh, sb + at);
-        if (job.b_lo) ldmatrix_x4_trans(bl, sb + S * BS + at);
-#pragma unroll
-        for (int i = 0; i < MF; ++i)
-#pragma unroll
-          for (int t = 0; t < 2; ++t) {
-            float (&c)[4] = acc[i][2 * jp + t];
-            mma_bf16(c, ah[i], bh[2 * t], bh[2 * t + 1]);
-            if (job.a_lo) mma_bf16(c, al[i], bh[2 * t], bh[2 * t + 1]);
-            if (job.b_lo) mma_bf16(c, ah[i], bl[2 * t], bl[2 * t + 1]);
+  // Stage slots (boxes): fused: x (2: M halves), dg hi, dg lo, du hi, du
+  // lo (2 each: N halves); dWd: a hi, a lo (2 each), dy (4).
+  const int boxes = fused ? kWSlots : 2 * kBwdM / 64 + 2 * kWN / 64;
+  const int wg = threadIdx.x / kWG;
+  if (wg == 2) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 2 * kWG) {
+      int i = 0;
+      for (int s = 0; s < n_seg; ++s)
+        for (int r = seg_lo[s]; r < seg_hi[s]; r += STEP, ++i) {
+          const int st = ring.acquire(i, boxes * BOX);
+          unsigned char* p = tiles + st * STAGE;
+          uint64_t* bar = &ring.full[st];
+          if (fused) {
+            tma_2d(p, &tm_x, bar, m0, r);
+            tma_2d(p + BOX, &tm_x, bar, m0 + 64, r);
+            for (int q = 0; q < 4; ++q) {        // scratch planes 2..5
+              tma_2d(p + (2 + 2 * q) * BOX, &tm_s, bar, n0,
+                     (2 + q) * rows + r);
+              tma_2d(p + (3 + 2 * q) * BOX, &tm_s, bar, n0 + 64,
+                     (2 + q) * rows + r);
+            }
+          } else {
+            for (int q = 0; q < 2; ++q) {        // scratch planes 0, 1
+              tma_2d(p + 2 * q * BOX, &tm_s, bar, m0, q * rows + r);
+              tma_2d(p + (2 * q + 1) * BOX, &tm_s, bar, m0 + 64,
+                     q * rows + r);
+            }
+            for (int q = 0; q < 4; ++q)
+              tma_2d(p + (4 + q) * BOX, &tm_dy, bar, n0 + 64 * q, r);
           }
-      }
+        }
     }
-  }
-  cp_async_wait<0>();
-
+  } else {
+    setmaxnreg_inc<240>();
+    float acc0[kWN / 2], acc1[kWN / 2];
 #pragma unroll
-  for (int i = 0; i < MF; ++i)
+    for (int v = 0; v < kWN / 2; ++v) acc0[v] = acc1[v] = 0.f;
+    fence_acc(acc0);
+    fence_acc(acc1);
+    // Slots of A (hi, lo products) and of B (acc0 hi, lo; acc1 hi, lo).
+    const int a_hi = wg, a_lo = fused ? wg : 2 + wg;
+    const int b0h = fused ? 2 : 4, b0l = 4, b1h = 6, b1l = fused ? 8 : 6;
+    int i = 0;
+    for (int s = 0; s < n_seg; ++s)
+      for (int r = seg_lo[s]; r < seg_hi[s]; r += STEP, ++i) {
+        unsigned char* p = tiles + ring.wait_full(i) * STAGE;
+        const int valid = min(STEP, seg_hi[s] - r);
+        if (valid < STEP) {        // uniform: the segment's last step
+          const int chunks = (STEP - valid) * (kLine / 16);
+          for (int k = threadIdx.x; k < boxes * chunks; k += kConsumers) {
+            const int b = k / chunks, c = k - b * chunks;
+            *reinterpret_cast<uint4*>(p + b * BOX + valid * kLine + c * 16) =
+                make_uint4(0u, 0u, 0u, 0u);
+          }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          consumers_sync();
+        }
+        wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = job.m0 + (wm * MF + i) * 16 + (lane >> 2) + half * 8;
-        const int n = job.n0 + (wn * NF + j) * 8 + (lane & 3) * 2;
-        if (m >= job.M || n >= job.N) continue;
-        *reinterpret_cast<__nv_bfloat162*>(job.out + (long long)m * job.N +
-                                           n) =
-            __floats2bfloat162_rn(acc[i][j][2 * half],
-                                  acc[i][j][2 * half + 1]);
+        for (int ks = 0; ks < STEP / 16; ++ks) {
+          const int k = ks * 16 * kLine;
+          const uint64_t ah = mnmajor(p + a_hi * BOX + k, BOX);
+          const uint64_t al = mnmajor(p + a_lo * BOX + k, BOX);
+          wgmma_n128<1, 1>(acc0, ah, mnmajor(p + b0h * BOX + k, BOX));
+          wgmma_n128<1, 1>(acc0, al, mnmajor(p + b0l * BOX + k, BOX));
+          wgmma_n128<1, 1>(acc1, ah, mnmajor(p + b1h * BOX + k, BOX));
+          wgmma_n128<1, 1>(acc1, al, mnmajor(p + b1l * BOX + k, BOX));
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (i > 0) ring.release(i - 1);
       }
+    wgmma_wait<0>();
+    fence_acc(acc0);
+    fence_acc(acc1);
+    const long long per = (long long)d * f;
+    const int M = fused ? d : f, N = fused ? f : d;
+    bf16* out0 = fused ? dwg + e * per : dwd + e * per;
+    bf16* out1 = fused ? dwu + e * per : out0;
+    const int r0 = m0 + wg * 64;
+    constexpr int TE = staged_bytes<kWN>() / (int)sizeof(bf16);
+    bf16* stage = staging(tiles, wg, 2 * staged_bytes<kWN>());
+    stage_acc<kWN>(acc0, stage);
+    stage_acc<kWN>(acc1, stage + TE);
+    consumers_sync();
+    store_staged<kWN>(stage, out0, N, r0, 0, M, n0, N);
+    store_staged<kWN>(stage + TE, out1, N, r0, 0, M, fused ? n0 : n0 + kWN,
+                      N);
+  }
 }
 
 int weight_tiles(int d, int f, int tm, int tn) {
   return 2 * cdiv(d, tm) * cdiv(f, tn) + cdiv(f, tm) * cdiv(d, tn);
 }
 
-// One bf16 backward configuration: launch 1 (RM rows, RN columns of f,
-// RW warps, RWM along the rows), launch 2 (XM, XN columns of d, XW, XWM),
-// launch 3 (a WM x WN tile, WW warps, WWM along M); S stages each.
-template <int RM, int RN, int RWM, int RW, int XM, int XN, int XWM, int XW,
-          int WM, int WN, int WWM, int WW, int S>
-cudaError_t launch_bwd_mma(const void* x, const void* wg, const void* wu,
-                           const void* wd, const int* sizes,
-                           const int* experts, const void* dy, void* scratch,
-                           void* dx, void* dwg, void* dwu, void* dwd,
-                           int rows, int d, int f, int E, int G,
-                           cudaStream_t s) {
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* gb = static_cast<const bf16*>(wg);
-  const bf16* ub = static_cast<const bf16*>(wu);
-  const bf16* db = static_cast<const bf16*>(wd);
-  const bf16* yb = static_cast<const bf16*>(dy);
-  bf16* sc = static_cast<bf16*>(scratch);
-  constexpr size_t r_bytes = bwd_rows_smem(RM, RN, S);
-  constexpr size_t x_bytes = bwd_dx_smem(XM, XN, S);
-  constexpr size_t w_bytes = bwd_weights_smem(WM, WN, S);
-  auto k1 = moe_bwd_rows_mma<RM, RN, RWM, RW, S>;
-  auto k2 = moe_bwd_dx_mma<XM, XN, XWM, XW, S>;
-  auto k3 = moe_bwd_weights_mma<WM, WN, WWM, WW, S>;
-  cudaError_t err = allow_smem(k1, r_bytes);
+// The driver's tensor-map encoder, fetched through the runtime (the
+// library does not link libcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A map of a bf16 tensor of `rank` (2 or 3) dimensions, innermost first,
+// each dimension after the first `stride` elements apart, read in boxes of
+// `box` elements with 128-byte swizzle; a box's parts outside the tensor
+// arrive as zeros.
+bool bf16_map(CUtensorMap* map, const void* ptr, int rank,
+              const long long* dims, const long long* strides,
+              const int* box) {
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t gd[3], gs[2];
+  cuuint32_t bd[3], es[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    gd[i] = (cuuint64_t)dims[i];
+    bd[i] = (cuuint32_t)box[i];
+    if (i + 1 < rank) gs[i] = (cuuint64_t)strides[i] * sizeof(bf16);
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                const_cast<void*>(ptr), gd, gs, bd, es,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 backward with S1, S2, S3 stages in the rows, dx and weights
+// launches and STEP rows a weights step.  The tensor maps are built for
+// each call (the pointers change): x and dy as (d, rows), the scratch as
+// (f, 6 rows) (plane p's row r is row p rows + r), Wg and Wu as (f, d, E),
+// Wd as (d, f, E).
+template <int S1, int S2, int S3, int STEP>
+cudaError_t launch_bwd_wgmma(const void* x, const void* wg, const void* wu,
+                             const void* wd, const int* sizes,
+                             const int* experts, const void* dy,
+                             void* scratch, void* dx, void* dwg, void* dwu,
+                             void* dwd, int rows, int d, int f, int E, int G,
+                             cudaStream_t s) {
+  // The tensor maps are encoded in the calling thread's context, and a
+  // thread that has not yet touched the runtime (autograd's worker, whose
+  // first work is this backward) has none: bind it to the tensors' device.
+  cudaPointerAttributes at;
+  cudaError_t err = cudaPointerGetAttributes(&at, x);
   if (err != cudaSuccess) return err;
-  k1<<<dim3(tiles(f, RN), tiles(rows, RM) + G), RW * 32, r_bytes, s>>>(
-      xb, gb, ub, db, sizes, experts, yb, sc, rows, d, f, E, G);
+  err = cudaSetDevice(at.device);
+  if (err != cudaSuccess) return err;
+  const long long by_d[2] = {d, rows}, by_f[2] = {f, 6LL * rows};
+  const long long d_s[1] = {d}, f_s[1] = {f};
+  const long long gu[3] = {f, d, E}, dn[3] = {d, f, E};
+  const long long gu_s[2] = {f, (long long)d * f};
+  const long long dn_s[2] = {d, (long long)f * d};
+  const int row_box[2] = {64, kBwdM}, w_box[3] = {64, kBK, 1};
+  const int dx_box[3] = {64, kDxN, 1}, step_box[2] = {64, STEP};
+  CUtensorMap x_r, dy_r, wg_r, wu_r, wd_r, s_x, wg_x, wu_x, x_w, dy_w, s_w;
+  if (!bf16_map(&x_r, x, 2, by_d, d_s, row_box) ||
+      !bf16_map(&dy_r, dy, 2, by_d, d_s, row_box) ||
+      !bf16_map(&wg_r, wg, 3, gu, gu_s, w_box) ||
+      !bf16_map(&wu_r, wu, 3, gu, gu_s, w_box) ||
+      !bf16_map(&wd_r, wd, 3, dn, dn_s, w_box) ||
+      !bf16_map(&s_x, scratch, 2, by_f, f_s, row_box) ||
+      !bf16_map(&wg_x, wg, 3, gu, gu_s, dx_box) ||
+      !bf16_map(&wu_x, wu, 3, gu, gu_s, dx_box) ||
+      !bf16_map(&x_w, x, 2, by_d, d_s, step_box) ||
+      !bf16_map(&dy_w, dy, 2, by_d, d_s, step_box) ||
+      !bf16_map(&s_w, scratch, 2, by_f, f_s, step_box))
+    return cudaErrorInvalidValue;
+  bf16* sc = static_cast<bf16*>(scratch);
+  constexpr size_t r_bytes = bwd_rows_smem(S1);
+  constexpr size_t x_bytes = bwd_dx_smem(S2);
+  constexpr size_t w_bytes = bwd_weights_smem(S3, STEP);
+  auto k1 = moe_bwd_rows_wgmma<S1>;
+  auto k2 = moe_bwd_dx_wgmma<S2>;
+  auto k3 = moe_bwd_weights_wgmma<S3, STEP>;
+  err = allow_smem(k1, r_bytes);
+  if (err != cudaSuccess) return err;
+  k1<<<dim3(cdiv(f, kRowsN), tiles(rows, kBwdM) + G), kBwdThreads, r_bytes,
+       s>>>(x_r, dy_r, wg_r, wu_r, wd_r, sizes, experts, sc, rows, d, f, E,
+            G);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = allow_smem(k2, x_bytes);
   if (err != cudaSuccess) return err;
-  k2<<<dim3(tiles(d, XN), tiles(rows, XM) + G), XW * 32, x_bytes, s>>>(
-      sc, gb, ub, sizes, experts, static_cast<bf16*>(dx), rows, d, f, E, G);
+  k2<<<dim3(cdiv(d, kDxN), tiles(rows, kBwdM) + G), kBwdThreads, x_bytes,
+       s>>>(s_x, wg_x, wu_x, sizes, experts, static_cast<bf16*>(dx), rows, d,
+            f, E, G);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = allow_smem(k3, w_bytes);
   if (err != cudaSuccess) return err;
-  k3<<<dim3(weight_tiles(d, f, WM, WN), E), WW * 32, w_bytes, s>>>(
-      xb, yb, sc, sizes, experts, static_cast<bf16*>(dwg),
+  const int w_tiles = cdiv(d, kBwdM) * cdiv(f, kWN) +
+                      cdiv(f, kBwdM) * cdiv(d, 2 * kWN);
+  k3<<<dim3(w_tiles, E), kBwdThreads, w_bytes, s>>>(
+      x_w, dy_w, s_w, sizes, experts, static_cast<bf16*>(dwg),
       static_cast<bf16*>(dwu), static_cast<bf16*>(dwd), rows, d, f, E, G);
   return cudaGetLastError();
 }
@@ -1600,12 +1950,13 @@ int moe_grouped_ffn_launch(const void* x, const void* w_gate,
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward's shapes and plan (kernels/moe_gemm.py `_BwdArgs`); each
-// launch's (M tile, N tile, warps, stages, dynamic shared memory).
+// The backward's shapes and plan (kernels/moe_gemm.py `_BwdArgs`): each
+// launch's (k step, M tile, N tile, warps, stages, dynamic shared
+// memory); the weights launch's k step is the rows of e it takes a step.
 struct MoeBwdArgs {
-  long long rows, d, f, E, G, dtype, k_step, rows_m, rows_n, rows_warps,
-      rows_stages, rows_smem, dx_m, dx_n, dx_warps, dx_stages, dx_smem, w_m,
-      w_n, w_warps, w_stages, w_smem;
+  long long rows, d, f, E, G, dtype, rows_k, rows_m, rows_n, rows_warps,
+      rows_stages, rows_smem, dx_k, dx_m, dx_n, dx_warps, dx_stages, dx_smem,
+      w_k, w_m, w_n, w_warps, w_stages, w_smem;
 };
 
 // dy (rows, d) like x; scratch rows * f * 12 bytes (a, dg, du in f32, or
@@ -1627,7 +1978,8 @@ int moe_grouped_ffn_bwd_launch(const void* x, const void* w_gate,
   const int* sizes = static_cast<const int*>(group_sizes);
   const int* experts = static_cast<const int*>(group_experts);
   if (a->dtype == 0) {
-    if (a->k_step != kBwdChunk || a->rows_m != kRows ||
+    if (a->rows_k != kBwdChunk || a->dx_k != kBwdChunk ||
+        a->w_k != kWRows || a->rows_m != kRows ||
         a->rows_n != kCols || a->rows_warps != kCols / 32 ||
         a->dx_m != kRows || a->dx_n != kCols || a->dx_warps != kCols / 32 ||
         a->w_m != kWTile || a->w_n != kWTile || a->w_warps != 8 ||
@@ -1638,21 +1990,22 @@ int moe_grouped_ffn_bwd_launch(const void* x, const void* w_gate,
                                 scratch, dx, dw_gate, dw_up, dw_down, rows, d,
                                 f, E, G, s);
   }
-  if (a->dtype != 1 || d % 8 || f % 8 || a->k_step != kBK)
+  if (a->dtype != 1 || d % 8 || f % 8 || a->rows_k != kBK ||
+      a->dx_k != kBK)
     return (int)cudaErrorInvalidValue;
-#define MOE_BWD_CASE(RM, RN, RWM, RW, XM, XN, XWM, XW, WM, WN, WWM, WW, S)  \
-  if (a->rows_m == RM && a->rows_n == RN && a->rows_warps == RW &&         \
-      a->dx_m == XM && a->dx_n == XN && a->dx_warps == XW &&               \
-      a->w_m == WM && a->w_n == WN && a->w_warps == WW &&                  \
-      a->rows_stages == S && a->dx_stages == S && a->w_stages == S &&      \
-      (size_t)a->rows_smem == bwd_rows_smem(RM, RN, S) &&                  \
-      (size_t)a->dx_smem == bwd_dx_smem(XM, XN, S) &&                      \
-      (size_t)a->w_smem == bwd_weights_smem(WM, WN, S))                    \
-    return (int)launch_bwd_mma<RM, RN, RWM, RW, XM, XN, XWM, XW, WM, WN,    \
-                               WWM, WW, S>(                                 \
+#define MOE_BWD_CASE(S1, S2, S3, STEP)                                     \
+  if (a->w_k == STEP && a->rows_m == kBwdM && a->rows_n == kRowsN &&        \
+      a->dx_m == kBwdM && a->dx_n == kDxN && a->w_m == kBwdM &&             \
+      a->w_n == kWN && a->rows_warps == kBwdThreads / 32 &&                 \
+      a->dx_warps == kBwdThreads / 32 && a->w_warps == kBwdThreads / 32 &&  \
+      a->rows_stages == S1 && a->dx_stages == S2 && a->w_stages == S3 &&    \
+      (size_t)a->rows_smem == bwd_rows_smem(S1) &&                          \
+      (size_t)a->dx_smem == bwd_dx_smem(S2) &&                              \
+      (size_t)a->w_smem == bwd_weights_smem(S3, STEP))                      \
+    return (int)launch_bwd_wgmma<S1, S2, S3, STEP>(                         \
         x, w_gate, w_up, w_down, sizes, experts, dy, scratch, dx, dw_gate,  \
         dw_up, dw_down, rows, d, f, E, G, s);
-  MOE_BWD_CASE(64, 64, 4, 4, 64, 128, 4, 8, 64, 64, 4, 4, 2)
+  MOE_BWD_CASE(4, 3, 5, 32)
 #undef MOE_BWD_CASE
   return (int)cudaErrorInvalidValue;
 }

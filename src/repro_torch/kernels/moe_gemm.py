@@ -19,9 +19,14 @@ launches over the same logical tiles (rows: recompute g and u, form da,
 dg, du and the activation a in f32; dx; the weights, one block per output
 tile and expert walking that expert's groups in order), no atomics, each
 output's bits fixed by the shapes, the dtype and the rows it sums.  It is
-bound by its 16 T d f operations at training's shapes.  ``plan_bwd``
-picks its route and launches.  ``GroupedFFN`` joins the two for autograd,
-recomputing h in the backward as ``_ffn_bwd`` does.
+bound by its 16 T d f operations at training's shapes.  bf16 runs Hopper's
+``wgmma`` on tiles that TMA brings through ``mbarrier`` rings (a producer
+warpgroup, two consumer warpgroups; a dWg and a dWu tile from one block
+and one x tile), the f32 intermediates as bf16 hi/lo pairs; float32 keeps
+SIMT kernels.  ``plan_bwd`` picks its route, k steps and tiles;
+``weight_job`` and ``weight_steps`` mirror the weights launch's tile order
+and its walk over an expert's rows.  ``GroupedFFN`` joins the two for
+autograd, recomputing h in the backward as ``_ffn_bwd`` does.
 
 Each entry point checks what the kernel takes and raises on anything
 else, never reads the group sizes on the host (they stay on the device, so
@@ -59,13 +64,19 @@ MMA_LAUNCHES = {"decode": ((16, 32, 4, 3), (16, 128, 4, 3)),
 # float32 (SIMT): 16-row tiles, 64 columns (one thread each) a block,
 # the reduction staged 128 elements at a time.
 SIMT_ROWS, SIMT_COLS, SIMT_CHUNK = 16, 64, 128
-# The backward's (M tile, N tile, warps, stages) of its rows, dx and
-# weights launches.  bf16: tensor cores, 64-deep k steps, 2-stage rings.
-# float32: SIMT, 16-row tiles of 64 columns staged 64 elements at a time,
-# and 64 x 64 weight tiles of 256 threads staged 16 rows at a time.
-BWD_MMA = ((64, 64, 4, 2), (64, 128, 8, 2), (64, 64, 4, 2))
-BWD_SIMT = ((16, 64, 2, 1), (16, 64, 2, 1), (64, 64, 8, 1))
-BWD_SIMT_CHUNK = 64
+# The backward's (k step, M tile, N tile, warps, stages) of its rows, dx
+# and weights launches; the k step is the reduction elements a step takes
+# (d, f, and rows of one expert).  bf16: wgmma, two consumer warpgroups and
+# a producer's (12 warps), TMA rings; the weights tile is the (M, N) tile
+# of dWg and dWu together, or an (M, 2N) tile of dWd.  float32: SIMT,
+# 16-row tiles of 64 columns staged 64 elements at a time, and 64 x 64
+# weight tiles of 256 threads staged 16 rows at a time.
+BWD_MMA = ((64, 128, 64, 12, 4), (64, 128, 256, 12, 3),
+           (32, 128, 128, 12, 5))
+BWD_SIMT = ((64, 16, 64, 2, 1), (64, 16, 64, 2, 1), (16, 64, 64, 8, 1))
+# bf16: each stage's tiles start on a 1024-byte swizzle atom, so a launch
+# asks for that much more shared memory than its stages hold.
+SWIZZLE_ALIGN = 1024
 
 
 def reset_launches() -> None:
@@ -183,22 +194,68 @@ def plan(T: int, d: int, f: int, E: int, G: int, dtype: torch.dtype) -> Plan:
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """How a backward call runs: the route ("mma" or "simt"), the k step
-    of the rows and dx launches, and the three launches.  ``weights.grid``
-    is (output tiles of dWg, dWu and dWd, experts); the others are
-    (column tiles, logical tiles)."""
+    """How a backward call runs: the route ("mma" or "simt"), the three
+    launches, and each launch's k step (``k_steps``: the elements of d, of
+    f and the rows of one expert that a step of the rows, dx and weights
+    launch takes).  With the k16 products in index order they fix the
+    order of every sum.  ``weights.grid`` is (output tiles, experts); the
+    others are (column tiles, logical tiles)."""
 
     route: str
-    k_step: int
+    k_steps: Tuple[int, int, int]
     rows: Launch
     dx: Launch
     weights: Launch
 
 
-def weight_tiles(d: int, f: int, m: int, n: int) -> int:
-    """Output tiles of the weights launch: dWg and dWu (d, f), then dWd
-    (f, d), each in (m, n) tiles."""
+def weight_tiles(d: int, f: int, m: int, n: int, fused: bool) -> int:
+    """Output tiles of the weights launch.  Fused (bf16): (m, n) tiles of
+    dWg and dWu (d, f) together, one block computing both, then (m, 2n)
+    tiles of dWd (f, d).  Otherwise dWg, dWu, then dWd, each in (m, n)
+    tiles."""
+    if fused:
+        return _tiles(d, m) * _tiles(f, n) + _tiles(f, m) * _tiles(d, 2 * n)
     return 2 * _tiles(d, m) * _tiles(f, n) + _tiles(f, m) * _tiles(d, n)
+
+
+def weight_job(t: int, d: int, f: int, m: int, n: int,
+               fused: bool) -> Tuple[Tuple[str, ...], int, int, int, int]:
+    """What block ``t`` of the weights launch writes, as the kernels'
+    tile lookups find it: (gradients, m0, n0, rows, columns) of a tile of
+    those gradients at (m0, n0), each gradient's tiles in row-major
+    order.  Fused: the dWg and the dWu tile together, then dWd's (m, 2n)
+    tiles."""
+    blocks = ((("dWg", "dWu"), d, f, n),) if fused else \
+        ((("dWg",), d, f, n), (("dWu",), d, f, n))
+    blocks += ((("dWd",), f, d, 2 * n if fused else n),)
+    for names, rows, cols, tn in blocks:
+        count = _tiles(rows, m) * _tiles(cols, tn)
+        if t < count:
+            return (names, t // _tiles(cols, tn) * m,
+                    t % _tiles(cols, tn) * tn, m, tn)
+        t -= count
+    raise ValueError(f"weights launch: no tile {t}")
+
+
+def weight_steps(group_sizes: Sequence[int],
+                 group_experts: Optional[Sequence[int]], e: int, T: int,
+                 step: int) -> List[Tuple[int, int, int]]:
+    """The weights launch's walk over expert ``e``'s rows, as
+    ``expert_segments`` and the step loops of the ``.cu`` file take it:
+    one (first row, rows loaded, rows used) a step, e's groups in
+    ascending order, each group's rows ascending ``step`` at a time.
+    Segments are clamped to T as ``schedule`` clamps them; the rows of a
+    step past its segment's end are zeroed before the products."""
+    out, start = [], 0
+    for g, n in enumerate(group_sizes):
+        n = min(max(int(n), 0), T)
+        end = min(start + n, T)
+        expert = g if group_experts is None else group_experts[g]
+        if expert == e:
+            for r in range(start, end, step):
+                out.append((r, step, min(step, end - r)))
+        start = end
+    return out
 
 
 def plan_bwd(T: int, d: int, f: int, E: int, G: int,
@@ -207,30 +264,31 @@ def plan_bwd(T: int, d: int, f: int, E: int, G: int,
     what the forward takes (``plan`` raises the same errors by name)."""
     fwd = plan(T, d, f, E, G, dtype)
     if fwd.route == "simt":
-        cfg, k_step = BWD_SIMT, BWD_SIMT_CHUNK
-        smem = (0, 0, 0)
+        cfg, smem = BWD_SIMT, (0, 0, 0)
     else:
-        cfg, k_step = BWD_MMA, K_STEP
-        (rm, rn, _, s1), (xm, xn, _, s2), (wm, wn, _, s3) = cfg
-        lk, item = k_step + PAD, 2
-        smem = (s1 * item * (2 * rm * lk + 2 * k_step * (rn + PAD) + rn * lk),
-                s2 * item * (4 * xm * lk + 2 * xn * lk),
-                s3 * item * (2 * k_step * (wm + PAD)
-                             + 2 * k_step * (wn + PAD)))
+        cfg = BWD_MMA
+        (rk, rm, rn, _, s1), (xk, xm, xn, _, s2), (wk, wm, wn, _, s3) = cfg
+        item = 2
+        # Stage bytes: rows x, dy, Wg, Wu, Wd; dx a hi/lo pair and Wg or
+        # Wu; weights x and four scratch planes (or a pair and dy).
+        smem = (s1 * (2 * rm + 3 * rn) * rk * item + SWIZZLE_ALIGN,
+                s2 * (2 * xm + xn) * xk * item + SWIZZLE_ALIGN,
+                s3 * (wm + 4 * wn) * wk * item + SWIZZLE_ALIGN)
     launches = []
-    for (m, n, warps, stages), nbytes, width in zip(cfg, smem, (f, d, None)):
+    for (_, m, n, warps, stages), nbytes, width in zip(cfg, smem,
+                                                        (f, d, None)):
         if nbytes > SMEM_LIMIT:
             raise ValueError(f"grouped FFN backward: {nbytes} bytes of "
                              f"shared memory exceed the {SMEM_LIMIT} a block "
                              f"may use")
         grid = ((_tiles(width, n), max_tiles(T, G, m)) if width is not None
-                else (weight_tiles(d, f, m, n), E))
+                else (weight_tiles(d, f, m, n, fwd.route == "mma"), E))
         if grid[1] > MAX_TILES:
             raise ValueError(f"grouped FFN backward: T={T} over G={G} "
                              f"groups needs {grid[1]} logical tiles of {m} "
                              f"rows, more than {MAX_TILES}")
         launches.append(Launch(m, n, warps, stages, nbytes, grid))
-    return BwdPlan(fwd.route, k_step, *launches)
+    return BwdPlan(fwd.route, tuple(c[0] for c in cfg), *launches)
 
 
 class _Args(ctypes.Structure):
@@ -257,20 +315,21 @@ class _BwdArgs(ctypes.Structure):
     """``MoeBwdArgs`` of the ``.cu`` file."""
 
     _fields_ = [(name, ctypes.c_longlong) for name in (
-        "rows", "d", "f", "E", "G", "dtype", "k_step",
+        "rows", "d", "f", "E", "G", "dtype",
         *(f"{launch}_{field}" for launch in ("rows", "dx", "w")
-          for field in ("m", "n", "warps", "stages", "smem")))]
+          for field in ("k", "m", "n", "warps", "stages", "smem")))]
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_args(T: int, d: int, f: int, E: int, G: int,
               dtype: torch.dtype) -> _BwdArgs:
     p = plan_bwd(T, d, f, E, G, dtype)
-    return _BwdArgs(T, d, f, E, G, _DTYPES[dtype], p.k_step,
-                    *(getattr(launch, name)
-                      for launch in (p.rows, p.dx, p.weights)
-                      for name in ("m_tile", "n_tile", "warps", "stages",
-                                   "smem")))
+    return _BwdArgs(T, d, f, E, G, _DTYPES[dtype],
+                    *(value for k, launch in zip(
+                        p.k_steps, (p.rows, p.dx, p.weights))
+                      for value in (k, launch.m_tile, launch.n_tile,
+                                    launch.warps, launch.stages,
+                                    launch.smem)))
 
 
 @functools.lru_cache(maxsize=None)

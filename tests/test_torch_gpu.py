@@ -372,7 +372,9 @@ def test_moe_grouped_ffn_kernel_refuses_what_it_does_not_take(cuda):
 # ------------------------------------------------ grouped-expert backward
 # Each output against the plain backward, as a fraction of its largest
 # entry: bf16 outputs round once and the scratch operands carry about 16
-# bits (hi/lo pairs); f32 sums in other orders.
+# bits (hi/lo pairs); f32 sums in other orders.  bf16 runs on wgmma from
+# TMA-fed rings, in 128-row tiles, 64-deep k steps and 32-row weights
+# steps: the sizes below cross all three.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -469,6 +471,100 @@ def test_moe_grouped_ffn_bwd_takes_its_route(cuda, dtype, route):
         before["moe_grouped_ffn_bwd"] + 1
     want = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy)
     for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sizes", [
+    [1, 63, 65, 127, 129, 200, 0, 819],         # no multiple of 32 or 64
+    [64, 128, 0, 256, 1, 7, 190, 37],
+])
+def test_moe_grouped_ffn_bwd_ragged_segments_and_an_empty_expert(cuda,
+                                                                 sizes):
+    """bf16 at granite's widths over 8 experts: segments off the 32-row
+    weights step, the 64-deep k step and the 128-row tile; the expert
+    without rows gets weight gradients of exactly zero."""
+    T = sum(sizes) + 5
+    x, wg, wu, wd, gs, dy = bwd_case(cuda, torch.bfloat16, T, 8, 1536, 512,
+                                     sizes, 21)
+    got = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy)
+    want = ref.moe_grouped_ffn_bwd_reference(x, wg, wu, wd, gs, None, dy)
+    torch.cuda.synchronize()
+    assert_bwd_close(got, want, torch.bfloat16, sizes)
+    empty = sizes.index(0)
+    for grad in got[1:]:
+        assert torch.all(grad[empty] == 0)
+    assert torch.all(got[0][sum(sizes):] == 0)
+
+
+def training_case(dev, seed):
+    """Training's call at granite's widths: 4096 tokens routed top-8 over
+    40 experts, 32768 rows."""
+    sizes = routed(4096, 40, 8, seed)
+    return sizes, bwd_case(dev, torch.bfloat16, sum(sizes), 40, 1536, 512,
+                           sizes, seed)
+
+
+def test_moe_grouped_ffn_bwd_rows_do_not_depend_on_the_call(cuda):
+    """A segment's dx rows in the 32768-row call equal, bitwise, the same
+    rows in a call over that segment alone (they sit elsewhere in their
+    128-row tiles), and so do its expert's weight gradients (the same
+    steps from the segment's start)."""
+    sizes, (x, wg, wu, wd, gs, dy) = training_case(cuda, 13)
+    full = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy)
+    starts = np.concatenate([[0], np.cumsum(sizes)]).tolist()
+    for g in (0, 1, 17, 39):
+        lo, hi = starts[g], starts[g + 1]
+        alone = [0] * 40
+        alone[g] = hi - lo
+        part = mg.moe_grouped_ffn_bwd_cuda(
+            x[lo:hi].contiguous(), wg, wu, wd,
+            torch.tensor(alone, dtype=torch.int32, device=cuda), None,
+            dy[lo:hi].contiguous())
+        assert torch.equal(part[0], full[0][lo:hi]), g
+        for a, b in zip(part[1:], full[1:]):
+            assert torch.equal(a[g], b[g]), g
+
+
+def test_moe_grouped_ffn_bwd_experts_do_not_see_each_other(cuda):
+    """At training's shape: changing one expert's rows leaves every other
+    expert's weight gradients and every other row's dx bitwise as they
+    were."""
+    sizes, (x, wg, wu, wd, gs, dy) = training_case(cuda, 14)
+    first = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy)
+    lo = sum(sizes[:5])
+    hi = lo + sizes[5]
+    x2, dy2 = x.clone(), dy.clone()
+    x2[lo:hi] = -x2[lo:hi]
+    dy2[lo:hi] = 2 * dy2[lo:hi]
+    other = mg.moe_grouped_ffn_bwd_cuda(x2, wg, wu, wd, gs, None, dy2)
+    keep = [e for e in range(40) if e != 5]
+    for a, b in zip(first[1:], other[1:]):
+        assert torch.equal(a[keep], b[keep])
+        assert not torch.equal(a[5], b[5])
+    assert torch.equal(first[0][:lo], other[0][:lo])
+    assert torch.equal(first[0][hi:], other[0][hi:])
+
+
+def test_moe_grouped_ffn_bwd_runs_on_a_fresh_thread(cuda):
+    """The bf16 backward encodes its TMA tensor maps in the calling
+    thread's context: from a thread that has not touched the card yet (as
+    autograd's worker may be when its first work is this backward) it
+    gives the same bits as from the main thread."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    x, wg, wu, wd, gs, dy = bwd_case(cuda, torch.bfloat16, 96, 8, 96, 64,
+                                     [5, 0, 17, 0, 3, 7, 0, 64], 4)
+    want = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy)
+    torch.cuda.synchronize()
+
+    def run():
+        got = mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs, None, dy)
+        torch.cuda.synchronize()
+        return got
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        got = pool.submit(run).result(timeout=120)   # raises what run raised
+    for a, b in zip(got, want):
         assert torch.equal(a, b)
 
 

@@ -9,7 +9,10 @@ property.  The plan's grids must cover every tile in use, its shared
 memory must fit the card, and its k step must not change with T (the
 order of every reduction, so a row's bits, depends on it).  The same for
 the backward's ``plan_bwd``, whose weights launch has a block row per
-expert."""
+expert: its tile order (each gradient element in one block, a dWg tile
+with its dWu tile on the tensor-core route) and its walk over an expert's
+rows (each row in one step, steps ascending, a segment's last step masked
+past its end) are mirrored in ``weight_job`` and ``weight_steps``."""
 
 import numpy as np
 import pytest
@@ -194,19 +197,33 @@ def test_argument_block_carries_the_plan():
 
 
 # ---------------------------------------------------------------- backward
+SMOKE = dict(d=96, f=64, E=8)                # granite's smoke widths
+BWD_WIDTHS = [(1536, 512), (96, 64), (64, 48), (256, 128)]
+
+
+def static_smem(name, launch):
+    """A launch's static shared memory beside its dynamic figure: the
+    mbarrier ring (two 8-byte barriers a stage) and the tile lookup, or for
+    the weights launch the segment lists (two ints a group)."""
+    extra = 2 * 4 * mg.MAX_GROUPS + 4 if name == "weights" else 24
+    return extra + 16 * launch.stages
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("T", [1, 33, 2048, 32768])
-@pytest.mark.parametrize("d,f", [(1536, 512), (96, 64), (64, 48),
-                                 (256, 128)])
+@pytest.mark.parametrize("d,f", BWD_WIDTHS)
 def test_backward_plan_shared_memory_fits_the_card(T, d, f, dtype):
-    """Each launch's dynamic shared memory fits a block, with the weights
-    launch's static segment lists (two ints a group) beside it."""
+    """Each launch's dynamic shared memory fits a block with its static
+    memory beside it; bf16 blocks are three warpgroups (two consumers, a
+    producer) with rings of at least three stages."""
     p = mg.plan_bwd(T, d, f, 8, 8, dtype)
-    static = {"weights": 2 * 4 * mg.MAX_GROUPS + 16}
     for name in ("rows", "dx", "weights"):
         launch = getattr(p, name)
-        assert 0 <= launch.smem + static.get(name, 0) <= mg.SMEM_LIMIT
+        assert 0 <= launch.smem + static_smem(name, launch) <= mg.SMEM_LIMIT
         assert launch.warps * 32 <= 1024
+        if dtype == torch.bfloat16:
+            assert launch.warps == 12 and launch.m_tile == 128
+            assert launch.stages >= 3
     assert p.route == ("mma" if dtype == torch.bfloat16 else "simt")
 
 
@@ -214,20 +231,28 @@ def test_backward_plan_shared_memory_fits_the_card(T, d, f, dtype):
 @pytest.mark.parametrize("T", [1, 32, 2048, 32768])
 @pytest.mark.parametrize("G,E", [(1, 1), (8, 8), (40, 40), (48, 40),
                                  (1024, 8)])
-def test_backward_plan_grids_cover_every_tile_and_expert(T, G, E, dtype):
+@pytest.mark.parametrize("widths", [GRANITE, SMOKE])
+def test_backward_plan_grids_cover_every_tile_and_expert(T, G, E, dtype,
+                                                         widths):
     """The rows and dx launches hold every logical tile of their M tile
     plus a spare row (which zeroes dx past the segments) and cover f and d;
-    the weights launch has a block row per expert and covers dWg, dWu and
-    dWd tile by tile."""
-    d, f = GRANITE["d"], GRANITE["f"]
+    the weights launch has a block row per expert and a block per output
+    tile (bf16: a dWg and a dWu tile together, then the dWd tiles)."""
+    d, f = widths["d"], widths["f"]
     p = mg.plan_bwd(T, d, f, E, G, dtype)
     assert p.rows.grid[0] * p.rows.n_tile >= f
     assert p.dx.grid[0] * p.dx.n_tile >= d
     w = p.weights
     assert w.grid[1] == E
-    per_matrix = [-(-d // w.m_tile) * -(-f // w.n_tile)] * 2 + \
-        [-(-f // w.m_tile) * -(-d // w.n_tile)]
-    assert w.grid[0] == sum(per_matrix)
+    fused = dtype == torch.bfloat16
+    if fused:
+        per_matrix = [-(-d // w.m_tile) * -(-f // w.n_tile),
+                      -(-f // w.m_tile) * -(-d // (2 * w.n_tile))]
+    else:
+        per_matrix = [-(-d // w.m_tile) * -(-f // w.n_tile)] * 2 + \
+            [-(-f // w.m_tile) * -(-d // w.n_tile)]
+    assert w.grid[0] == sum(per_matrix) == \
+        mg.weight_tiles(d, f, w.m_tile, w.n_tile, fused)
     assert w.m_tile * -(-d // w.m_tile) >= d
     assert w.n_tile * -(-f // w.n_tile) >= f
     rng = np.random.default_rng(T + G)
@@ -243,13 +268,13 @@ def test_backward_plan_grids_cover_every_tile_and_expert(T, G, E, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d,f", [(1536, 512), (96, 64), (64, 48)])
 def test_backward_plan_does_not_depend_on_t(d, f, dtype):
-    """The tiles and k step, so every reduction's order, are the same for
+    """The tiles and k steps, so every reduction's order, are the same for
     every T: a row's and an expert's bits depend on the rows alone."""
     def shape(T):
         p = mg.plan_bwd(T, d, f, 40, 40, dtype)
-        return (p.k_step, *((launch.m_tile, launch.n_tile, launch.warps,
-                             launch.stages, launch.smem)
-                            for launch in (p.rows, p.dx, p.weights)))
+        return (p.k_steps, *((launch.m_tile, launch.n_tile, launch.warps,
+                              launch.stages, launch.smem)
+                             for launch in (p.rows, p.dx, p.weights)))
 
     assert len({shape(T) for T in (1, 4, 33, 2048, 32768)}) == 1
 
@@ -265,14 +290,94 @@ def test_backward_plan_refuses_odd_shapes_by_name(args, match):
         mg.plan_bwd(*args)
 
 
-def test_backward_argument_block_carries_the_plan():
-    p = mg.plan_bwd(32768, 1536, 512, 40, 40, torch.bfloat16)
-    a = mg._bwd_args(32768, 1536, 512, 40, 40, torch.bfloat16)
-    assert (a.rows, a.d, a.f, a.E, a.G, a.dtype, a.k_step) == (
-        32768, 1536, 512, 40, 40, 1, p.k_step)
-    for prefix, launch in (("rows", p.rows), ("dx", p.dx),
-                           ("w", p.weights)):
+@pytest.mark.parametrize("T,widths", [(32768, GRANITE), (96, SMOKE)])
+def test_backward_argument_block_carries_the_plan(T, widths):
+    d, f, E = widths["d"], widths["f"], widths["E"]
+    p = mg.plan_bwd(T, d, f, E, E, torch.bfloat16)
+    a = mg._bwd_args(T, d, f, E, E, torch.bfloat16)
+    assert (a.rows, a.d, a.f, a.E, a.G, a.dtype) == (T, d, f, E, E, 1)
+    for prefix, k, launch in zip(("rows", "dx", "w"), p.k_steps,
+                                 (p.rows, p.dx, p.weights)):
         assert tuple(getattr(a, f"{prefix}_{field}") for field in (
-            "m", "n", "warps", "stages", "smem")) == (
-            launch.m_tile, launch.n_tile, launch.warps, launch.stages,
+            "k", "m", "n", "warps", "stages", "smem")) == (
+            k, launch.m_tile, launch.n_tile, launch.warps, launch.stages,
             launch.smem)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("widths", [GRANITE, SMOKE, dict(d=64, f=48, E=2)])
+def test_backward_weight_tiles_cover_each_gradient_once(dtype, widths):
+    """The weights launch's blocks, as the kernels look their tiles up:
+    every element of dWg, dWu and dWd lies in exactly one block's tile; on
+    the tensor-core route each dWg tile comes with the same dWu tile (one
+    block, one x tile)."""
+    d, f = widths["d"], widths["f"]
+    w = mg.plan_bwd(64, d, f, widths["E"], widths["E"], dtype).weights
+    fused = dtype == torch.bfloat16
+    cover = {"dWg": np.zeros((d, f), int), "dWu": np.zeros((d, f), int),
+             "dWd": np.zeros((f, d), int)}
+    for t in range(w.grid[0]):
+        names, m0, n0, tm, tn = mg.weight_job(t, d, f, w.m_tile, w.n_tile,
+                                              fused)
+        assert names in ((("dWg", "dWu"), ("dWd",)) if fused else
+                         (("dWg",), ("dWu",), ("dWd",)))
+        for name in names:
+            cover[name][m0:m0 + tm, n0:n0 + tn] += 1
+    with pytest.raises(ValueError):
+        mg.weight_job(w.grid[0], d, f, w.m_tile, w.n_tile, fused)
+    for name, c in cover.items():
+        assert (c == 1).all(), name
+
+
+STEP_SIZES = [0, 1, 63, 64, 65, 127, 819]
+
+
+def check_weight_steps(sizes, experts, T, step):
+    """Each expert's walk: its rows (its groups' segments, clamped to T)
+    each in exactly one step's used rows, steps ascending, a step's used
+    rows inside one segment and its masked rows past that segment's end."""
+    starts = np.concatenate([[0], np.cumsum(np.clip(sizes, 0, None))])
+    owner = np.full(T, -1)
+    seg_end = np.zeros(T, int)
+    for g, n in enumerate(sizes):
+        lo, hi = min(int(starts[g]), T), min(int(starts[g + 1]), T)
+        owner[lo:hi] = g if experts is None else experts[g]
+        seg_end[lo:hi] = hi
+    for e in set(owner.tolist()) - {-1} | {0}:
+        steps = mg.weight_steps(sizes, experts, e, T, step)
+        seen = np.zeros(T, int)
+        last = -1
+        for r, loaded, used in steps:
+            assert loaded == step and 1 <= used <= step and r > last
+            last = r
+            assert (owner[r:r + used] == e).all()
+            assert (seg_end[r:r + used] == seg_end[r]).all()
+            assert r + used == seg_end[r] or used == step   # masked: past it
+            seen[r:r + used] += 1
+        assert (seen[owner == e] == 1).all() and not seen[owner != e].any()
+
+
+# The weights launch's row step on each route (SIMT, tensor cores).
+WEIGHT_STEPS = [mg.BWD_SIMT[2][0], mg.BWD_MMA[2][0]]
+
+
+@pytest.mark.parametrize("step", WEIGHT_STEPS)
+@pytest.mark.parametrize("n", STEP_SIZES)
+def test_backward_weight_steps_cover_each_row_once(n, step):
+    """One expert's rows between two others', at segment sizes around the
+    step: 0, 1, 63, 64, 65, 127 and 819 (an expert's rows at training's
+    shape)."""
+    sizes = [5, n, 70]
+    check_weight_steps(sizes, None, sum(sizes) + 3, step)
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.lists(st.sampled_from(STEP_SIZES + [2, 31, 33]), min_size=1,
+                max_size=12),
+       st.lists(st.integers(-1, 3), min_size=12, max_size=12),
+       st.sampled_from(WEIGHT_STEPS), st.integers(0, 40))
+def test_backward_weight_steps_property(sizes, experts, step, extra):
+    """Any sizes, a group -> expert map with repeats and -1 slots, rows past
+    the segments; T may also cut the last segments short."""
+    T = max(1, sum(sizes) + extra - 20)
+    check_weight_steps(sizes, experts[:len(sizes)], T, step)
