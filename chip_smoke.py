@@ -268,7 +268,8 @@ SSD_TOL = 1e-4
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # The SSD backward against its plain version, as a fraction of each
 # output's largest entry, by the output's dtype: every sum runs in f32 in
-# both (bf16 inputs are exact), in other orders; dx, dB and dC in bf16
+# both, in other orders (bf16 inputs are exact; on tensor cores the f32
+# operands dY, W and dS go in as bf16 hi/lo pairs); dx, dB and dC in bf16
 # then round once, and two roundings of nearly equal f32 values may differ
 # by one bf16 unit (2^-7 of the value).
 SSD_BWD_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
@@ -864,6 +865,9 @@ def same_bits(a, b) -> bool:
 
 
 BWD_LAUNCHES = ("moe_bwd_rows", "moe_bwd_dx", "moe_bwd_weights")
+# The SSD backward's bf16 launches: the per-(chunk row, head group) pass
+# and the dC/dB/dA reduction.
+SSD_BWD_LAUNCHES = ("ssd_bwd_mma", "ssd_bwd_reduce_mma")
 
 
 def check_moe_bwd_rows(mg, x, wg, wu, wd, dy, sizes, full, dtype_name):
@@ -896,43 +900,45 @@ def check_moe_bwd_rows(mg, x, wg, wu, wd, dy, sizes, full, dtype_name):
         f"the same in the {starts[-1]}-row call, bitwise")
 
 
-def log_bwd_build(name: str) -> None:
-    """ptxas's registers, shared memory and spills for the backward's
-    bf16 kernels (``-Xptxas -v`` in the build's log)."""
+def log_ptxas(source: str, kernels) -> None:
+    """ptxas's registers, shared memory and spills for each entry function
+    of ``csrc/<source>.cu`` whose name holds one of ``kernels``
+    (``-Xptxas -v`` in the build's log)."""
     from repro_torch.kernels import _build
 
-    lines = _build.BUILD_LOGS.get(name, "").splitlines()
+    lines = _build.BUILD_LOGS.get(source, "").splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" not in line or "_wgmma" not in line:
+        if "Compiling entry function" not in line or \
+                not any(k in line for k in kernels):
             continue
-        kernel = line.split("_wgmma")[0].rsplit("moe_bwd_", 1)[-1]
+        entry = line.split("'")[1] if "'" in line else line.strip()
         report = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                   if "Used" in x or "spill" in x]
-        log(f"ptxas moe_bwd_{kernel}_wgmma: {'; '.join(report)}")
+        log(f"ptxas {entry}: {'; '.join(report)}")
 
 
-def log_bwd_launches(card, bwd, R) -> None:
-    """Each of the backward's three launches' device time by kernel name,
-    from the profiler over 10 calls."""
+def log_launches(card, fn, names, title) -> None:
+    """Each of ``fn``'s launches' device time by kernel name (each name a
+    substring of one kernel's), from the profiler over 10 calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        bwd()
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(10):
-            bwd()
+            fn()
         torch.cuda.synchronize()
     times = {}
     for e in prof.key_averages():
-        for name in BWD_LAUNCHES:
+        for name in names:
             if name in e.key:
                 times[name] = times.get(name, 0.0) + dev_us(e) / 10 / 1e3
-    if set(times) != set(BWD_LAUNCHES):
-        raise AssertionError(f"moe backward: the profiler saw {sorted(times)}"
-                             f", expected {BWD_LAUNCHES}")
-    log(f"time moe_grouped_ffn_bwd R={R} bf16 by launch (profiler): " +
+    if set(times) != set(names):
+        raise AssertionError(f"{title}: the profiler saw {sorted(times)}, "
+                             f"expected {names}")
+    log(f"time {title} by launch (profiler): " +
         ", ".join(f"{name} {ms:.4f} ms" for name, ms in times.items()) +
         f" {card.tag()}")
 
@@ -1070,8 +1076,8 @@ def check_moe_backward(card) -> dict:
     f_dev = device_ms(lambda: mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs),
                       iters=10)
     f_bound, f_by = moe_bound_ms(x, wg, train, list(range(E)))
-    log_bwd_launches(card, bwd, R)
-    log_bwd_build("moe_gemm")
+    log_launches(card, bwd, BWD_LAUNCHES, f"moe_grouped_ffn_bwd R={R} bf16")
+    log_ptxas("moe_gemm", [f"{name}_wgmma" for name in BWD_LAUNCHES])
     log(f"time moe_grouped_ffn_bwd R={R} bf16 ({sum(n > 0 for n in train)} "
         f"experts with rows): kernel {ms:.4f} ms (events), device "
         f"{dev:.4f} ms (profiler), plain {plain_ms:.4f} ms, library none, "
@@ -1565,9 +1571,11 @@ def check_ssd_backward(card) -> dict:
     128), an odd one (Q and N not multiples of 16) and the largest chunk
     and state, bf16 and f32: each output within SSD_BWD_TOL of its largest
     entry, two launches bitwise equal, and chunk rows of the 32-row call
-    equal to each row alone in every output but dA; the route (SIMT in
-    both dtypes); then timed at hybrid training's shape.  Returns its
-    kernel row (launches filled in by phase 11)."""
+    equal to each row alone in every output but dA; each dtype's route
+    from its plan (bf16 on tensor cores, f32 on SIMT); then timed at
+    hybrid training's shape, each bf16 launch's device time by kernel name
+    and ptxas's registers and spills for them.  Returns its kernel row
+    (launches filled in by phase 11)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1627,10 +1635,14 @@ def check_ssd_backward(card) -> dict:
                     f"{x.shape[0]}-row call == each row alone in dx, ddt, dB, "
                     f"dC, bitwise")
             del args, dy, got, again, want
-    p = ss.plan_bwd(*HYBRID_SSD, torch.bfloat16)
-    log(f"route ssd_scan_bwd bf16 and f32: SIMT ({p.grid[0]} blocks of "
-        f"{p.head_group} heads, {p.threads} threads, {p.smem} bytes of shared "
-        f"memory; reduce grid {p.reduce_grid}, {p.reduce_smem} bytes)")
+    for dtype_name, dtype in (("bf16", torch.bfloat16),
+                              ("f32", torch.float32)):
+        p = ss.plan_bwd(*HYBRID_SSD, dtype)
+        log(f"route ssd_scan_bwd {dtype_name}: {p.route} ({p.grid[0]} "
+            f"blocks of {p.head_group} heads, {p.threads} threads, "
+            f"{p.smem} bytes of shared memory, runs of {p.chunk} subtiles, "
+            f"triangles in shared memory {p.tri_smem}; reduce grid "
+            f"{p.reduce_grid}, {p.reduce_smem} bytes)")
 
     args = ssd_case(gen, *HYBRID_SSD, torch.bfloat16)
     dy = torch.randn(args[0].shape, generator=gen, device="cuda")
@@ -1638,6 +1650,9 @@ def check_ssd_backward(card) -> dict:
     dev = device_ms(lambda: ss.ssd_scan_bwd_cuda(*args, dy))
     plain_ms = time_ms(lambda: ref.ssd_bwd_reference(*args, dy), iters=10)
     b_ms, b_by = ssd_bwd_bound_ms(*args[:4])
+    log_launches(card, lambda: ss.ssd_scan_bwd_cuda(*args, dy),
+                 SSD_BWD_LAUNCHES, f"ssd_scan_bwd {HYBRID_SSD} bf16")
+    log_ptxas("ssd_scan", SSD_BWD_LAUNCHES)
     log(f"time ssd_scan_bwd (Bc, Q, H, P, N)={HYBRID_SSD} bf16 (hybrid "
         f"training): kernel {ms:.4f} ms (events), device {dev:.4f} ms "
         f"(profiler), plain {plain_ms:.4f} ms, library none, bound "

@@ -113,39 +113,70 @@
 // Bound.  At hybrid training's call (Bc = 32, Q = 128, H = 112, P = N =
 // 64, bf16) it reads x (59 MB), the f32 dY (117 MB), dt, B, C and writes
 // dx (59 MB), ddt, dB, dC: about 241 MB, 0.072 ms at 3.35 TB/s, against
-// about 7.9 GFLOP of causal work (0.008 ms at the bf16 tensor-core peak).
-// It is memory-bound, like the forward.
+// about 7.9 GFLOP of causal work (0.008 ms at the bf16 tensor-core peak;
+// with the hi/lo feeds below about 2.5 times that).  It is memory-bound,
+// like the forward.
 //
-// Design: both dtypes on SIMT, every sum in f32 (bf16 inputs are exact;
-// dx, dB, dC round once at the end), no atomics, two launches.
-//   - Launch 1, one block per (chunk row, group of G heads), 256 threads
-//     as 16 x 16 over 64 x 64 tiles, each thread a 4 x 4 micro-tile.  Key
-//     tiles J outside: the scores of the key tile's column strip (rows i
-//     >= j) once for all the group's heads; then per head the x tile, and
-//     row tiles I >= J innermost: dW by an f32 product over P, W and L
-//     from the strip and the head's cumsum (L evaluated only where j <= i
-//     < Q: the exponent above the diagonal overflows, and inf * 0 is NaN),
-//     G's row sums by half-warp shuffles and its column sums through
-//     shared memory, dxdt of the key tile in registers over the row tiles,
-//     and the group's dS strip in shared memory over the heads.  After the
-//     heads, the strip goes to a f32 scratch of per-group partials; at the
-//     end each head's da, ddt += A da, and its sum_j da dt per chunk row.
-//   - Launch 2, grid (Bc + 1, 2 ceil(Q / 64)): block (b, t) forms dC of
-//     row tile t or dB of key tile t, each dS tile the sum of the groups'
-//     partials in ascending order; block (Bc, 0) sums dA over the chunk
-//     rows in ascending order.
-//   - The group G is the largest divisor of H up to 16 whose shared memory
-//     fits, chosen from (Q, H, P, N) alone: each chunk row's dx, ddt, dB
-//     and dC depend on that row's inputs and the shapes, never on Bc or
-//     the rest of the call; only dA sums across rows.  Two launches agree
-//     bit for bit.
-//   - A simple kernel: the products run on SIMT FMAs from shared memory,
-//     and one block fills an SM (170 KB of shared memory at the training
-//     shape).  Tensor cores (dY as a bf16 hi/lo pair, as the forward feeds
-//     its weights) are its next step.
+// Backward, bfloat16: tensor cores (mma.sync m16n8k16, bf16 in, f32
+// accumulate) for every product, two launches, no atomics.  What the first
+// (SIMT) version had, and what this one does about it:
+//   - Scalar f32 FMAs from shared memory for every product: S^T = B C^T,
+//     dW'^T = x dY^T, dxdt = W^T dY, and launch 2's dC and dB are mma.sync
+//     fed by ldmatrix.  x, B and C go in as the exact bf16 they are; the
+//     f32 operands as a pair hi = bf16(v), lo = bf16(v - hi): dY (split
+//     once per head as it lands), W (from the accumulators, as the forward
+//     feeds its weights) and dS in launch 2.  dt factors out of dW:
+//     dW[i,j] = dt_j (dY_i . x_j), so x needs no rounding with dt folded
+//     in.  The products: x.hi + x.lo for dW', hi.hi + hi.lo + lo.hi for
+//     W^T dY, hi + lo against B and C.  ddt and dA (held to 1e-4 of their
+//     max) come out within about 5e-6 of it; one rounding of dY and W
+//     misses 1e-4 (tests/test_torch_ssd_scan.py emulates both).
+//   - Warps on 16-row strips of keys j: strip s meets the 16-row subtiles
+//     u >= s of rows i, cut in runs of at most `chunk` subtiles, one warp
+//     a run (Q = 128: 36 pairs, runs of 3, 15 warps).  A warp keeps its
+//     strip's dxdt and colsum(G) in registers over its run and its x rows
+//     as A fragments; the runs of a strip add their dxdt in run order
+//     through shared-memory slots (a per-strip named barrier), and the
+//     first run's warp writes dx, x . dxdt and dc.  rowsum(G) per i is
+//     summed over the strip's 16 rows by shuffles in a fixed tree, then
+//     over the strips in order.
+//   - S^T and the group's dS^T live in shared memory as lower triangles of
+//     16-row strips (rows padded by 8 floats: conflict-free 8-byte
+//     accesses) up to Q = 128, else in a device scratch; S^T is formed once
+//     a block, dS^T is added to head by head in head order.
+//   - One block per (chunk row, group of G heads): 228 KB of shared memory
+//     at the training call, so one block an SM (two need half of it, and
+//     the triangles alone take 82 KB); G is the largest divisor of H up to
+//     14 that fits, from (Q, H, P, N) alone: 256 blocks, 1.94 waves (16
+//     heads would make 224, 1.7 waves).
+//   - Bytes in flight: the next head's x and dY come by cp.async (16-byte
+//     pieces, zero-filled past Q) while this head is multiplied, issued by
+//     the warps whose runs are short; dt of the group's heads and their
+//     cumsums (a warp a head, by shuffles) once at the start.
+//   - dx is staged through shared memory and stored in 16-byte row pieces;
+//     ddt's A da and the reverse cumsum of dc (32-row suffix scans by
+//     shuffles, from the end) at the block's end.
+//   - Launch 2, grid (Bc + 1, 2 ceil(QS / 64)), 8 warps: block (b, t) forms
+//     dC of 64 rows i or dB of 64 keys j, each 64 x 64 dS tile the groups'
+//     partials summed in ascending order (8 loads in flight a thread);
+//     block (Bc, 0) sums dA over the chunk rows in order.
+//   - Order of sums: every chunk row's dx, ddt, dB and dC depend on (Q, H,
+//     P, N) only (G and chunk are chosen from them), never on Bc; only dA
+//     sums across rows.  Two launches agree bit for bit.
 //
-// kernels/ssd_scan.py `plan_bwd` picks the head group, shared memory and
-// grids; the launcher refuses any other plan.
+// Backward, float32: the SIMT kernels, every sum in f32 (its 1e-4 checks
+// need f32 operands, as the forward's f32 route does).  Launch 1, one
+// block per (chunk row, group of up to 16 heads), 256 threads as 16 x 16
+// over 64 x 64 tiles: key tiles outside, the scores of the key tile's
+// column strip once for the group's heads, row tiles innermost; G's row
+// sums by half-warp shuffles, column sums through shared memory, the
+// group's dS strip in shared memory over the heads, then to a scratch of
+// per-group partials.  Launch 2, grid (Bc + 1, 2 ceil(Q / 64)): dC of row
+// tile t or dB of key tile t from the partials summed in group order; dA.
+//
+// kernels/ssd_scan.py `plan_bwd` picks the route, head group, runs, warps,
+// shared memory and grids; the launcher refuses any other plan, and a plan
+// whose route is not its dtype's.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -383,6 +414,12 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Waits at named barrier `id` (1 .. 15) for `count` threads, a multiple of
+// 32, every warp of which calls it.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // s (16 rows x kKeys keys, C fragments) = the warp's 16 C rows . kKeys B
@@ -650,18 +687,11 @@ cudaError_t launch_mma(const void* x, const float* dt, const float* A,
 
 
 // ------------------------------------------------------------ backward
-// The gradient of the block (see "Backward" in the note at the top).  Both
-// dtypes run these SIMT kernels, every sum in f32; bf16 inputs are read
-// exactly and the outputs dx, dB, dC round once to bf16.
+// The gradient of the block, float32 (see "Backward, float32" in the note
+// at the top): SIMT kernels, every sum in f32.
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const bf16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(bf16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // Rows row0 .. row0+63 of a (Bc, Q, N) tensor into a (64, ld) f32 tile:
 // columns 0 .. NP-1, zeros past Q and past N.
@@ -1046,6 +1076,687 @@ cudaError_t launch_bwd(const void* x, const float* dt, const float* A,
   return cudaGetLastError();
 }
 
+// ------------------------------------- backward, bf16 (tensor cores)
+// See "Backward, bfloat16" in the note at the top.  Positions are cut in
+// 16-row strips: a strip s of keys j (rows 16s .. 16s+15) meets the
+// subtiles u >= s of rows i; every (strip, subtile) pair is one warp's.
+constexpr int kBwdMaxWarps = 16;
+constexpr int kBwdMaxGroup = 14;
+constexpr int kTriSmemRows = 128;    // triangles in shared memory up to here
+constexpr int kRedRows = 64;         // launch 2: rows a block, keys a step
+
+// Warps of launch 1: strip s has nS - s subtiles, cut in runs of `chunk`,
+// one warp a run.
+__host__ __device__ inline int bwd_warps(int nS, int chunk) {
+  int w = 0;
+  for (int s = 0; s < nS; ++s) w += (nS - s + chunk - 1) / chunk;
+  return w;
+}
+
+// The least run length, from ceil(subtiles / 16) up, whose warps fit 16.
+inline int bwd_chunk(int nS) {
+  int c = (nS * (nS + 1) / 2 + kBwdMaxWarps - 1) / kBwdMaxWarps;
+  if (c < 1) c = 1;
+  while (bwd_warps(nS, c) > kBwdMaxWarps) ++c;
+  return c;
+}
+
+// A (QS, QS) lower triangle in strips: strip s holds rows j = 16s .. 16s +
+// 15 and columns i = 16s .. QS - 1, row stride QS - 16s + 8 floats (8 more
+// than the row: conflict-free 8-byte accesses by a warp).
+__host__ __device__ inline int tri_ld(int QS, int s) { return QS - 16 * s + 8; }
+__host__ __device__ inline int tri_base(int QS, int s) {
+  return 16 * (s * (QS + 8) - 8 * s * (s - 1));
+}
+__host__ __device__ inline int tri_at(int QS, int j, int i) {
+  const int s = j >> 4;
+  return tri_base(QS, s) + (j & 15) * tri_ld(QS, s) + i - 16 * s;
+}
+__host__ __device__ inline int tri_floats(int QS) {
+  return tri_base(QS, QS / 16);
+}
+
+// Launch 1's shared memory, byte offsets (kernels/ssd_scan.py `_bwd_mma_smem`
+// mirrors the total): the S^T and dS^T triangles (f32, when they live
+// there), the head's x tile (bf16, (QS, P + 8)), then one region that holds
+// first the B and C rows (bf16, (QS, NP + 8) each) and then the head's dY
+// (f32 (QS, P) as it lands, and its bf16 hi and lo (QS, P + 8) each), the
+// dxdt partials' slots, the row sums of G by strip (nS, QS), and dt, dc
+// and the cumsum of the group's heads (G, QS) each.
+struct BwdLayout {
+  int st, ds, x, ybuf, yhi, ylo, xch, rp, dt, dc, c2, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int Q, int N, int P, int G,
+                                                int slots, int tri_smem) {
+  const int QS = round_up(Q, 16), NP = round_up(N, 16), LDX = P + kPad;
+  const int tri = tri_smem ? 4 * tri_floats(QS) : 0;
+  const int yst = QS * P * 4, yhl = 2 * QS * LDX * 2;
+  const int bc = 2 * QS * (NP + kPad) * 2;
+  BwdLayout L;
+  int o = 0;
+  L.st = o; o += tri;
+  L.ds = o; o += tri;
+  L.x = o; o += QS * LDX * 2;
+  L.ybuf = o; L.yhi = o + yst; L.ylo = L.yhi + QS * LDX * 2;
+  o += yst + yhl > bc ? yst + yhl : bc;
+  L.xch = o; o += slots * (16 * LDX + 16) * 4;
+  L.rp = o; o += (QS / 16) * QS * 4;
+  L.dt = o; o += G * QS * 4;
+  L.dc = o; o += G * QS * 4;
+  L.c2 = o; o += G * QS * 4;
+  L.total = o;
+  return L;
+}
+
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16),
+                     __uint_as_float(v & 0xffff0000u));
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Launch 1: one block per (chunk row b, group of G heads), blockIdx.x = b *
+// (H / G) + group; bwd_warps(nS, chunk) warps, warp (s, q) owning the
+// subtiles u0 .. u1 - 1 of strip s.  S^T for the block's pairs first, then
+// the heads one after another: per head dW^T, W^T, G, dS^T and dxdt for the
+// warp's pairs; at the head's end the runs of a strip add their dxdt in run
+// order and the first run's warp writes dx, x . dxdt and dc.  At the end
+// each head's da, ddt and sum_j da dt.  st_part/ds_part: the triangles of
+// this block (ds_part is launch 2's input in both cases).
+template <int P, bool kTri>
+__global__ void __launch_bounds__(kBwdMaxWarps * 32, 1)
+ssd_bwd_mma(const bf16* __restrict__ x, const float* __restrict__ dt,
+            const float* __restrict__ A, const bf16* __restrict__ Bm,
+            const bf16* __restrict__ Cm, const float* __restrict__ dy,
+            bf16* __restrict__ dx, float* __restrict__ ddt,
+            float* __restrict__ ds_part, float* __restrict__ st_part,
+            float* __restrict__ da_part, int Q, int H, int N, int G,
+            int chunk) {
+  constexpr int LDX = P + kPad, NT = P / 8, KP = P / 16;
+  constexpr int SLOT = 16 * LDX + 16;            // floats of one dxdt slot
+  const int groups = H / G;
+  const int b = blockIdx.x / groups, h0 = (blockIdx.x - b * groups) * G;
+  const int QS = round_up(Q, 16), nS = QS / 16;
+  const int NP = round_up(N, 16), LDN = NP + kPad;
+  const int nt = blockDim.x, nwarps = nt >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const long long row0 = (long long)b * Q;
+  const int TRI = tri_floats(QS);
+
+  // This warp's strip s and run q of nparts, and the first slot of the
+  // strip's runs after the first.  The warps of runs shorter than `chunk`
+  // (the last run of a strip whose subtiles chunk does not divide) have
+  // time to spare: they issue the heads' copies, fi-th of nf (every warp
+  // when no run is short).
+  int s = 0, q = 0, nparts = 1, first_slot = 0, nf = 0, fi = -1;
+  for (int k = warp, slot = 0, w = 0, s2 = 0; s2 < nS; ++s2) {
+    const int n = (nS - s2 + chunk - 1) / chunk;
+    if (k >= 0 && k < n) {
+      s = s2;
+      q = k;
+      nparts = n;
+      first_slot = slot;
+    }
+    if ((nS - s2) % chunk) {            // its last run is short
+      if (warp == w + n - 1) fi = nf;
+      ++nf;
+    }
+    k -= n;
+    slot += n - 1;
+    w += n;
+  }
+  if (nf == 0) {
+    nf = nwarps;
+    fi = warp;
+  }
+  const int j0 = 16 * s, u0 = s + q * chunk;
+  const int u1 = min(nS, u0 + chunk);
+  const int ja = j0 + gq, jb = ja + 8;           // this lane's two rows j
+
+  const BwdLayout L = bwd_layout(Q, N, P, G, nwarps - nS, kTri);
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  float* st = kTri ? reinterpret_cast<float*>(smem_b + L.st)
+                   : st_part + (long long)blockIdx.x * TRI;
+  float* dst = kTri ? reinterpret_cast<float*>(smem_b + L.ds)
+                    : ds_part + (long long)blockIdx.x * TRI;
+  bf16* xs = reinterpret_cast<bf16*>(smem_b + L.x);
+  float* yst = reinterpret_cast<float*>(smem_b + L.ybuf);
+  bf16* yhi = reinterpret_cast<bf16*>(smem_b + L.yhi);
+  bf16* ylo = reinterpret_cast<bf16*>(smem_b + L.ylo);
+  float* xch = reinterpret_cast<float*>(smem_b + L.xch);
+  float* rp = reinterpret_cast<float*>(smem_b + L.rp);
+  float* dt_s = reinterpret_cast<float*>(smem_b + L.dt);
+  float* dc_s = reinterpret_cast<float*>(smem_b + L.dc);
+  float* c2_s = reinterpret_cast<float*>(smem_b + L.c2);
+
+  // B and C rows into the dY region and dt of the group's heads: zeros
+  // past Q and past N.
+  {
+    bf16* bs = reinterpret_cast<bf16*>(smem_b + L.ybuf);
+    bf16* cs = bs + QS * LDN;
+    if ((N & 7) == 0) {
+      const int CH = NP / 8;
+      for (int idx = threadIdx.x; idx < QS * CH; idx += nt) {
+        const int r = idx / CH, c = (idx - r * CH) * 8;
+        const bool ok = r < Q && c < N;
+        const long long at = (row0 + r) * N + c;
+        cp_async16(bs + r * LDN + c, ok ? Bm + at : Bm, ok ? 16 : 0);
+        cp_async16(cs + r * LDN + c, ok ? Cm + at : Cm, ok ? 16 : 0);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < QS * NP; idx += nt) {
+        const int r = idx / NP, c = idx - r * NP;
+        const bool ok = r < Q && c < N;
+        const long long at = (row0 + r) * N + c;
+        bs[r * LDN + c] = ok ? Bm[at] : __float2bfloat16(0.f);
+        cs[r * LDN + c] = ok ? Cm[at] : __float2bfloat16(0.f);
+      }
+    }
+    for (int idx = threadIdx.x; idx < G * QS; idx += nt) {
+      const int g = idx / QS, r = idx - g * QS;
+      const bool ok = r < Q;
+      cp_async4(dt_s + idx, ok ? dt + (row0 + r) * H + h0 + g : dt,
+                ok ? 4 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // c = cumsum of dt A (rounded, then added), times log2(e), one warp a
+    // head, 32 positions at a time by shuffles.
+    for (int g = warp; g < G; g += nwarps) {
+      const float a_h = A[h0 + g];
+      float carry = 0.f;
+      for (int c0 = 0; c0 < QS; c0 += 32) {
+        const int j = c0 + lane;
+        float v = j < QS ? __fmul_rn(dt_s[g * QS + j], a_h) : 0.f;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const float up = __shfl_up_sync(0xffffffffu, v, o);
+          if (lane >= o) v = __fadd_rn(up, v);
+        }
+        v = __fadd_rn(carry, v);
+        if (j < QS) c2_s[g * QS + j] = __fmul_rn(v, kLog2e);
+        carry = __shfl_sync(0xffffffffu, v, 31);
+      }
+    }
+    // S^T[j, i] = B_j . C_i over N in 16-steps, for the warp's pairs.
+    for (int u = u0; u < u1; ++u) {
+      const int i0 = 16 * u;
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      for (int ks = 0; ks < NP; ks += 16) {
+        uint32_t a[4], bb[4];
+        ldmatrix_x4(a, bs + (j0 + (lane & 15)) * LDN + ks + (lane >> 4) * 8);
+        ldmatrix_x4(bb, cs + (i0 + (lane >> 4) * 8 + (lane & 7)) * LDN + ks +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(acc[0], a, bb[0], bb[1]);
+        mma_bf16(acc[1], a, bb[2], bb[3]);
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int i = i0 + 8 * t + 2 * tq;
+        *reinterpret_cast<float2*>(st + tri_at(QS, ja, i)) =
+            make_float2(acc[t][0], acc[t][1]);
+        *reinterpret_cast<float2*>(st + tri_at(QS, jb, i)) =
+            make_float2(acc[t][2], acc[t][3]);
+      }
+    }
+    __syncthreads();                    // B and C consumed
+  }
+
+  // Head g's x tile and dY (f32, as it lands): zeros past Q.
+  auto fetch = [&](int g) {
+    if (fi < 0) return;
+    const long long hp = (long long)(h0 + g) * P;
+    constexpr int CX = P / 8, CY = P / 4;
+    const int t0 = 32 * fi + lane, nft = 32 * nf;
+    for (int idx = t0; idx < QS * CX; idx += nft) {
+      const int r = idx / CX, c = (idx - r * CX) * 8;
+      const bool ok = r < Q;
+      cp_async16(xs + r * LDX + c, ok ? x + (row0 + r) * H * P + hp + c : x,
+                 ok ? 16 : 0);
+    }
+    for (int idx = t0; idx < QS * CY; idx += nft) {
+      const int r = idx / CY, c = (idx - r * CY) * 4;
+      const bool ok = r < Q;
+      cp_async16(yst + r * P + c, ok ? dy + (row0 + r) * H * P + hp + c : dy,
+                 ok ? 16 : 0);
+    }
+  };
+  fetch(0);
+  cp_async_commit();
+
+  for (int g = 0; g < G; ++g) {
+    const float* dtg = dt_s + g * QS;
+    const float* c2g = c2_s + g * QS;
+    cp_async_wait<0>();
+    __syncthreads();    // head g landed; head g - 1's slots and dx read
+    // dY as hi = bf16(dY) and lo = bf16(dY - hi), once per head.
+    for (int idx = threadIdx.x; idx < QS * P / 4; idx += nt) {
+      const int r = idx / (P / 4), c = (idx - r * (P / 4)) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(yst + r * P + c);
+      uint32_t h01, l01, h23, l23;
+      split(v.x, v.y, h01, l01);
+      split(v.z, v.w, h23, l23);
+      *reinterpret_cast<uint2*>(yhi + r * LDX + c) = make_uint2(h01, h23);
+      *reinterpret_cast<uint2*>(ylo + r * LDX + c) = make_uint2(l01, l23);
+    }
+    uint32_t xa[KP][4];                 // x of the strip: A fragments
+#pragma unroll
+    for (int kk = 0; kk < KP; ++kk)
+      ldmatrix_x4(xa[kk], xs + (j0 + (lane & 15)) * LDX + kk * 16 +
+                              (lane >> 4) * 8);
+    __syncthreads();    // hi and lo ready; x and the dY landing free
+    if (g + 1 < G) fetch(g + 1);
+    cp_async_commit();
+
+    const float dta = dtg[ja], dtb = dtg[jb];
+    const float cja = c2g[ja], cjb = c2g[jb];
+    float acc[NT][4];                   // dxdt of the strip, this run's i
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[n][v] = 0.f;
+    float colp0 = 0.f, colp1 = 0.f;     // column sums of G, rows ja / jb
+    for (int u = u0; u < u1; ++u) {
+      const int i0 = 16 * u;
+      const bool diag = u == s;
+      // dW'^T[j, i] = x_j . dY_i: x exact, dY as hi and lo.
+      float dwh[2][4], dwl[2][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) dwh[t][v] = dwl[t][v] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KP; ++kk) {
+        uint32_t bh[4], bl[4];
+        const int off = (i0 + (lane >> 4) * 8 + (lane & 7)) * LDX + kk * 16 +
+                        ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(bh, yhi + off);
+        ldmatrix_x4(bl, ylo + off);
+        mma_bf16(dwh[0], xa[kk], bh[0], bh[1]);
+        mma_bf16(dwh[1], xa[kk], bh[2], bh[3]);
+        mma_bf16(dwl[0], xa[kk], bl[0], bl[1]);
+        mma_bf16(dwl[1], xa[kk], bl[2], bl[3]);
+      }
+      // Per 8-column tile t: L, dW = dW' dt_j (zero where j > i), W = S L,
+      // G = dW W, dS^T += dW L, and W^T as hi/lo A fragments.
+      uint32_t wh[4], wl[4];
+      float rs[4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int i = i0 + 8 * t + 2 * tq;
+        const float2 ci = *reinterpret_cast<const float2*>(c2g + i);
+        const float2 sa = *reinterpret_cast<const float2*>(st + tri_at(QS, ja, i));
+        const float2 sb = *reinterpret_cast<const float2*>(st + tri_at(QS, jb, i));
+        const bool v00 = !diag || ja <= i, v01 = !diag || ja <= i + 1;
+        const bool v10 = !diag || jb <= i, v11 = !diag || jb <= i + 1;
+        const float L00 = v00 ? exp2_ftz(ci.x - cja) : 0.f;
+        const float L01 = v01 ? exp2_ftz(ci.y - cja) : 0.f;
+        const float L10 = v10 ? exp2_ftz(ci.x - cjb) : 0.f;
+        const float L11 = v11 ? exp2_ftz(ci.y - cjb) : 0.f;
+        const float d00 = v00 ? (dwh[t][0] + dwl[t][0]) * dta : 0.f;
+        const float d01 = v01 ? (dwh[t][1] + dwl[t][1]) * dta : 0.f;
+        const float d10 = v10 ? (dwh[t][2] + dwl[t][2]) * dtb : 0.f;
+        const float d11 = v11 ? (dwh[t][3] + dwl[t][3]) * dtb : 0.f;
+        const float w00 = sa.x * L00, w01 = sa.y * L01;
+        const float w10 = sb.x * L10, w11 = sb.y * L11;
+        const float g00 = d00 * w00, g01 = d01 * w01;
+        const float g10 = d10 * w10, g11 = d11 * w11;
+        colp0 = colp0 + g00 + g01;
+        colp1 = colp1 + g10 + g11;
+        rs[2 * t] = g00 + g10;          // this lane's rows of columns i
+        rs[2 * t + 1] = g01 + g11;      // and i + 1
+        float2* pa = reinterpret_cast<float2*>(dst + tri_at(QS, ja, i));
+        float2* pb = reinterpret_cast<float2*>(dst + tri_at(QS, jb, i));
+        float2 e0 = make_float2(d00 * L00, d01 * L01);
+        float2 e1 = make_float2(d10 * L10, d11 * L11);
+        if (g > 0) {                    // heads in order: old + this head
+          const float2 o0 = *pa, o1 = *pb;
+          e0 = make_float2(o0.x + e0.x, o0.y + e0.y);
+          e1 = make_float2(o1.x + e1.x, o1.y + e1.y);
+        }
+        *pa = e0;
+        *pb = e1;
+        split(w00, w01, wh[2 * t], wl[2 * t]);
+        split(w10, w11, wh[2 * t + 1], wl[2 * t + 1]);
+      }
+      // Row sums of G over the strip's 16 rows j, in a fixed order: the
+      // lanes that share tq halve their four columns by lane bits 4 and 3,
+      // then add across bit 2; lane (bits 4, 3) ends with column 2 bit4 +
+      // bit3 of rs, i.e. tile bit4's column i + bit3.
+      {
+        const bool b4 = lane & 16, b3 = lane & 8;
+        const float s0 = __shfl_xor_sync(0xffffffffu, b4 ? rs[0] : rs[2], 16);
+        const float s1 = __shfl_xor_sync(0xffffffffu, b4 ? rs[1] : rs[3], 16);
+        const float k0 = (b4 ? rs[2] : rs[0]) + s0;
+        const float k1 = (b4 ? rs[3] : rs[1]) + s1;
+        const float s2 = __shfl_xor_sync(0xffffffffu, b3 ? k0 : k1, 8);
+        float r = (b3 ? k1 : k0) + s2;
+        r += __shfl_xor_sync(0xffffffffu, r, 4);
+        if ((lane & 4) == 0)
+          rp[s * QS + i0 + (b4 ? 8 : 0) + 2 * tq + (b3 ? 1 : 0)] = r;
+      }
+      // dxdt[j, p] += sum_i W^T[j, i] dY[i, p]: hi.hi + hi.lo + lo.hi.
+#pragma unroll
+      for (int dp = 0; dp < KP; ++dp) {
+        uint32_t bh[4], bl[4];
+        const int off = (i0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDX +
+                        dp * 16 + (lane >> 4) * 8;
+        ldmatrix_x4_trans(bh, yhi + off);
+        ldmatrix_x4_trans(bl, ylo + off);
+        mma_bf16(acc[2 * dp], wh, bh[0], bh[1]);
+        mma_bf16(acc[2 * dp], wh, bl[0], bl[1]);
+        mma_bf16(acc[2 * dp], wl, bh[0], bh[1]);
+        mma_bf16(acc[2 * dp + 1], wh, bh[2], bh[3]);
+        mma_bf16(acc[2 * dp + 1], wh, bl[2], bl[3]);
+        mma_bf16(acc[2 * dp + 1], wl, bh[2], bh[3]);
+      }
+    }
+    __syncthreads();    // every pair done: hi/lo free, row sums complete
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      colp0 += __shfl_xor_sync(0xffffffffu, colp0, o);
+      colp1 += __shfl_xor_sync(0xffffffffu, colp1, o);
+    }
+    if (q > 0) {                        // a later run: into its slot
+      float* slot = xch + (first_slot + q - 1) * SLOT;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int p = n * 8 + 2 * tq;
+        *reinterpret_cast<float2*>(slot + gq * LDX + p) =
+            make_float2(acc[n][0], acc[n][1]);
+        *reinterpret_cast<float2*>(slot + (gq + 8) * LDX + p) =
+            make_float2(acc[n][2], acc[n][3]);
+      }
+      if (tq == 0) {
+        slot[16 * LDX + gq] = colp0;
+        slot[16 * LDX + gq + 8] = colp1;
+      }
+    }
+    if (nparts > 1) named_sync(1 + s, 32 * nparts);   // the strip's runs
+    if (q == 0) {                       // the strip's first run finishes it
+      for (int k = 1; k < nparts; ++k) {
+        const float* slot = xch + (first_slot + k - 1) * SLOT;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int p = n * 8 + 2 * tq;
+          const float2 a = *reinterpret_cast<const float2*>(slot + gq * LDX + p);
+          const float2 c =
+              *reinterpret_cast<const float2*>(slot + (gq + 8) * LDX + p);
+          acc[n][0] += a.x;
+          acc[n][1] += a.y;
+          acc[n][2] += c.x;
+          acc[n][3] += c.y;
+        }
+        colp0 += slot[16 * LDX + gq];
+        colp1 += slot[16 * LDX + gq + 8];
+      }
+      // dx = dt dxdt, staged in the strip's rows of the hi tile, then
+      // stored in 16-byte row pieces.
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int p = n * 8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(yhi + ja * LDX + p) =
+            pack_bf16x2(dta * acc[n][0], dta * acc[n][1]);
+        *reinterpret_cast<uint32_t*>(yhi + jb * LDX + p) =
+            pack_bf16x2(dtb * acc[n][2], dtb * acc[n][3]);
+      }
+      __syncwarp();
+      constexpr int CX = P / 8;
+      for (int pc = lane; pc < 16 * CX; pc += 32) {
+        const int r = pc / CX, c = (pc - r * CX) * 8, j = j0 + r;
+        if (j < Q)
+          *reinterpret_cast<int4*>(dx + ((row0 + j) * H + h0 + g) * P + c) =
+              *reinterpret_cast<const int4*>(yhi + j * LDX + c);
+      }
+      // x . dxdt from the x fragments (the same lanes hold the same
+      // (row, column) pairs as the accumulators).
+      float xd[2][2] = {{0.f, 0.f}, {0.f, 0.f}};   // [row][column parity]
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 xa0 = unpack_bf16x2(xa[n / 2][(n & 1) * 2]);
+        const float2 xb0 = unpack_bf16x2(xa[n / 2][(n & 1) * 2 + 1]);
+        xd[0][0] = fmaf(xa0.x, acc[n][0], xd[0][0]);
+        xd[0][1] = fmaf(xa0.y, acc[n][1], xd[0][1]);
+        xd[1][0] = fmaf(xb0.x, acc[n][2], xd[1][0]);
+        xd[1][1] = fmaf(xb0.y, acc[n][3], xd[1][1]);
+      }
+      float xda = xd[0][0] + xd[0][1], xdb = xd[1][0] + xd[1][1];
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        xda += __shfl_xor_sync(0xffffffffu, xda, o);
+        xdb += __shfl_xor_sync(0xffffffffu, xdb, o);
+      }
+      if (tq == 0) {                    // dc = rowsum(G) - colsum(G)
+        float ra = 0.f, rb = 0.f;
+#pragma unroll
+        for (int s2 = 0; s2 < kBwdMaxWarps; ++s2) {
+          if (s2 > s) break;
+          ra += rp[s2 * QS + ja];
+          rb += rp[s2 * QS + jb];
+        }
+        dc_s[g * QS + ja] = ra - colp0;
+        dc_s[g * QS + jb] = rb - colp1;
+        if (ja < Q) ddt[(row0 + ja) * H + h0 + g] = xda;   // A da: at the end
+        if (jb < Q) ddt[(row0 + jb) * H + h0 + g] = xdb;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // Per head, one warp: da = reverse cumsum of dc by 32-row suffix scans
+  // from the end (into dc_s), and sum_j da_j dt_j.
+  for (int g = warp; g < G; g += nwarps) {
+    float carry = 0.f, dsum = 0.f;
+    for (int top = QS; top > 0; top -= 32) {
+      const int j = top - 32 + lane;
+      float v = (j >= 0 && j < Q) ? dc_s[g * QS + j] : 0.f;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float dn = __shfl_down_sync(0xffffffffu, v, o);
+        if (lane + o < 32) v += dn;
+      }
+      v += carry;
+      carry = __shfl_sync(0xffffffffu, v, 0);
+      if (j >= 0 && j < Q) {
+        dc_s[g * QS + j] = v;
+        dsum = fmaf(v, dt_s[g * QS + j], dsum);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
+    if (lane == 0) da_part[(long long)b * H + h0 + g] = dsum;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < Q * G; idx += nt) {   // ddt += A da
+    const int j = idx / G, g = idx - j * G;
+    float* o = ddt + (row0 + j) * H + h0 + g;
+    *o = fmaf(A[h0 + g], dc_s[g * QS + j], *o);
+  }
+  if (kTri) {                           // the group's dS^T for launch 2
+    float4* out = reinterpret_cast<float4*>(ds_part +
+                                            (long long)blockIdx.x * TRI);
+    const float4* in = reinterpret_cast<const float4*>(dst);
+    for (int idx = threadIdx.x; idx < TRI / 4; idx += nt) out[idx] = in[idx];
+  }
+}
+
+// Launch 2's shared memory: the dS tile's hi and lo (64, 64 + 8) bf16 and
+// a (64, NP + 8) bf16 tile of B or C rows, which also stages the output.
+inline int bwd_reduce_mma_smem(int N) {
+  return 2 * kRedRows * (kRedRows + kPad) * 2 +
+         kRedRows * (round_up(N, 16) + kPad) * 2;
+}
+
+// Launch 2: grid (Bc + 1, 2 nT), nT = ceil(QS / 64), 8 warps.  Block (b, t
+// < nT) forms dC of 64 rows i, block (b, nT + t) dB of 64 keys j; each dS
+// tile is the groups' partials summed in ascending order, then fed as a
+// bf16 hi/lo pair against the exact B or C rows; warp w owns 16 rows (w %
+// 4) and every other 16 columns of N (w / 4).  Block (Bc, 0) sums dA over
+// the chunk rows in ascending order.
+__global__ void __launch_bounds__(256)
+ssd_bwd_reduce_mma(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
+                   const float* __restrict__ ds_part,
+                   const float* __restrict__ da_part, bf16* __restrict__ dB,
+                   bf16* __restrict__ dC, float* __restrict__ dA, int Bc,
+                   int Q, int H, int N, int groups) {
+  constexpr int LDS = kRedRows + kPad;
+  const int QS = round_up(Q, 16), nT = (QS + kRedRows - 1) / kRedRows;
+  if (blockIdx.x == Bc) {
+    if (blockIdx.y != 0) return;
+    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+      float s = 0.f;
+      for (int b = 0; b < Bc; ++b) s += da_part[(long long)b * H + h];
+      dA[h] = s;
+    }
+    return;
+  }
+  const int b = blockIdx.x;
+  const bool rows = (int)blockIdx.y < nT;       // dC; else dB
+  const int t = rows ? blockIdx.y : blockIdx.y - nT;
+  const int NP = round_up(N, 16), LDN = NP + kPad;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3, m0 = 16 * (warp & 3);
+  const int nh = warp >> 2;
+  const long long row0 = (long long)b * Q;
+  const int TRI = tri_floats(QS);
+  const float* part = ds_part + (long long)b * groups * TRI;
+
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  bf16* sh = reinterpret_cast<bf16*>(smem_b);   // dS tile [j][i], hi
+  bf16* sl = sh + kRedRows * LDS;               // and lo
+  bf16* vs = sl + kRedRows * LDS;               // B or C rows [row][n]
+
+  float acc[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[n][v] = 0.f;
+  const int w0 = rows ? 0 : t, w1 = rows ? t : nT - 1;
+  for (int w = w0; w <= w1; ++w) {
+    const int I = rows ? t : w, J = rows ? w : t;
+    __syncthreads();                    // the last step's tiles consumed
+    for (int idx = threadIdx.x; idx < kRedRows * 16; idx += blockDim.x) {
+      const int r = idx >> 4, c = (idx & 15) * 4;
+      const int j = kRedRows * J + r, i = kRedRows * I + c;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < QS && i < QS && i >= 16 * (j >> 4)) {
+        const float* src = part + tri_at(QS, j, i);
+        for (int g0 = 0; g0 < groups; g0 += 8) {   // 8 loads in flight
+          float4 p[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            if (g0 + k < groups)
+              p[k] = *reinterpret_cast<const float4*>(
+                  src + (long long)(g0 + k) * TRI);
+#pragma unroll
+          for (int k = 0; k < 8; ++k)           // summed in group order
+            if (g0 + k < groups)
+              v = make_float4(v.x + p[k].x, v.y + p[k].y, v.z + p[k].z,
+                              v.w + p[k].w);
+        }
+      }
+      uint32_t h01, l01, h23, l23;
+      split(v.x, v.y, h01, l01);
+      split(v.z, v.w, h23, l23);
+      *reinterpret_cast<uint2*>(sh + r * LDS + c) = make_uint2(h01, h23);
+      *reinterpret_cast<uint2*>(sl + r * LDS + c) = make_uint2(l01, l23);
+    }
+    const bf16* src = rows ? Bm : Cm;
+    const int v0 = kRedRows * (rows ? J : I);
+    if ((N & 7) == 0) {                 // rows of 16-byte pieces
+      const int CH = NP / 8;
+      for (int idx = threadIdx.x; idx < kRedRows * CH; idx += blockDim.x) {
+        const int r = idx / CH, c = (idx - r * CH) * 8, row = v0 + r;
+        int4 v = make_int4(0, 0, 0, 0);
+        if (row < Q && c < N)
+          v = *reinterpret_cast<const int4*>(src + (row0 + row) * N + c);
+        *reinterpret_cast<int4*>(vs + r * LDN + c) = v;
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < kRedRows * NP; idx += blockDim.x) {
+        const int r = idx / NP, n = idx - r * NP, row = v0 + r;
+        vs[r * LDN + n] = (row < Q && n < N) ? src[(row0 + row) * N + n]
+                                             : __float2bfloat16(0.f);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kRedRows / 16; ++kk) {
+      uint32_t ah[4], al[4];
+      if (rows) {       // A = dS[i][j], rows i, from the [j][i] tile
+        const int off = (kk * 16 + ((lane >> 4) & 1) * 8 + (lane & 7)) * LDS +
+                        m0 + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4_trans(ah, sh + off);
+        ldmatrix_x4_trans(al, sl + off);
+      } else {          // A = dS^T[j][i], rows j
+        const int off = (m0 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(ah, sh + off);
+        ldmatrix_x4(al, sl + off);
+      }
+#pragma unroll
+      for (int np = 0; np < 8; ++np) {
+        if (np * 16 >= NP) break;
+        if ((np & 1) != nh) continue;
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vs + (kk * 16 + ((lane >> 3) & 1) * 8 +
+                                    (lane & 7)) * LDN +
+                                  np * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * np], ah, bv[0], bv[1]);
+        mma_bf16(acc[2 * np], al, bv[0], bv[1]);
+        mma_bf16(acc[2 * np + 1], ah, bv[2], bv[3]);
+        mma_bf16(acc[2 * np + 1], al, bv[2], bv[3]);
+      }
+    }
+  }
+  __syncthreads();                      // vs free: stage the output rows
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    if (n * 8 >= NP) break;
+    if (((n >> 1) & 1) != nh) continue;
+    const int col = n * 8 + 2 * tq;
+    *reinterpret_cast<uint32_t*>(vs + (m0 + gq) * LDN + col) =
+        pack_bf16x2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(vs + (m0 + gq + 8) * LDN + col) =
+        pack_bf16x2(acc[n][2], acc[n][3]);
+  }
+  __syncthreads();
+  bf16* out = rows ? dC : dB;
+  for (int idx = threadIdx.x; idx < kRedRows * N; idx += blockDim.x) {
+    const int r = idx / N, n = idx - r * N, row = kRedRows * t + r;
+    if (row < Q) out[(row0 + row) * N + n] = vs[r * LDN + n];
+  }
+}
+
+template <int P>
+cudaError_t launch_bwd_mma(const bf16* x, const float* dt, const float* A,
+                           const bf16* Bm, const bf16* Cm, const float* dy,
+                           bf16* dx, float* ddt, float* dA, bf16* dB,
+                           bf16* dC, float* ds_part, float* st_part,
+                           float* da_part, int Bc, int Q, int H, int N,
+                           int G, int chunk, int tri_smem, int warps,
+                           size_t smem, size_t reduce_smem, cudaStream_t s) {
+  auto kernel = tri_smem ? ssd_bwd_mma<P, true> : ssd_bwd_mma<P, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(ssd_bwd_reduce_mma, reduce_smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<Bc * (H / G), warps * 32, smem, s>>>(
+      x, dt, A, Bm, Cm, dy, dx, ddt, ds_part, st_part, da_part, Q, H, N, G,
+      chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int nT = (round_up(Q, 16) + kRedRows - 1) / kRedRows;
+  ssd_bwd_reduce_mma<<<dim3(Bc + 1, 2 * nT), 256, reduce_smem, s>>>(
+      Bm, Cm, ds_part, da_part, dB, dC, dA, Bc, Q, H, N, H / G);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1106,37 +1817,36 @@ int ssd_scan_launch(const void* x, const void* dt, const void* A,
 
 // The shapes and the plan of one backward call, every field 8 bytes wide
 // (kernels/ssd_scan.py `_BwdArgs` mirrors it).  dtype 0 = float32, 1 =
-// bfloat16; head_group heads a block of launch 1; threads a block; smem
-// and reduce_smem the dynamic shared memory of launches 1 and 2; blocks
-// launch 1's grid; reduce_y launch 2's grid.y (its grid.x is Bc + 1).
+// bfloat16; route 0 = SIMT (float32 only), 1 = tensor cores (bfloat16
+// only); head_group heads a block of launch 1; threads a block of launch
+// 1; smem and reduce_smem the dynamic shared memory of launches 1 and 2;
+// blocks launch 1's grid; reduce_y launch 2's grid.y (its grid.x is Bc +
+// 1); chunk the subtiles a warp's run (tensor cores; 0 on SIMT); tri_smem
+// 1 when the S^T and dS^T triangles live in shared memory (tensor cores).
 struct SsdBwdArgs {
-  long long Bc, Q, H, P, N, dtype, head_group, threads, smem, blocks,
-      reduce_smem, reduce_y;
+  long long Bc, Q, H, P, N, dtype, route, head_group, threads, smem, blocks,
+      reduce_smem, reduce_y, chunk, tri_smem;
 };
 
 // x (Bc,Q,H,P), Bm/Cm (Bc,Q,N), dx, dB, dC in the dtype; dt, ddt
-// (Bc,Q,H), A, dA (H,), dy (Bc,Q,H,P) float32; scratch ds_part (Bc, H /
-// head_group, QT, QT) and da_part (Bc, H) float32, QT = Q rounded up to
-// 64; all contiguous.  Two launches on `stream`; returns
-// cudaGetLastError() after them (0 = launched), or cudaErrorInvalidValue
-// for a plan that is not this file's.
+// (Bc,Q,H), A, dA (H,), dy (Bc,Q,H,P) float32; all contiguous, and 16-byte
+// aligned on the tensor-core route.  Scratch, float32: on SIMT ds_part (Bc,
+// H / head_group, QT, QT), QT = Q rounded up to 64, st_part unused; on
+// tensor cores ds_part (Bc, H / head_group, TRI) and, without tri_smem,
+// st_part of the same shape, TRI = tri_floats(Q rounded up to 16);
+// da_part (Bc, H).  Two launches on `stream`; returns cudaGetLastError()
+// after them (0 = launched), or cudaErrorInvalidValue for a plan that is
+// not this file's.
 int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
                         const void* Bm, const void* Cm, const void* dy,
                         void* dx, void* ddt, void* dA, void* dB, void* dC,
-                        void* ds_part, void* da_part, const SsdBwdArgs* a,
-                        void* stream) {
+                        void* ds_part, void* st_part, void* da_part,
+                        const SsdBwdArgs* a, void* stream) {
   const int Bc = (int)a->Bc, Q = (int)a->Q, H = (int)a->H, P = (int)a->P,
             N = (int)a->N, G = (int)a->head_group;
   if (Bc <= 0 || Q <= 0 || Q > 256 || H <= 0 || N <= 0 || N > 128 ||
-      G <= 0 || G > 16 || H % G || (P != 32 && P != 64) ||
-      (a->dtype != 0 && a->dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * bwd_smem_floats(Q, N, P, G);
-  const size_t reduce_smem = sizeof(float) * bwd_reduce_smem_floats(N);
-  if (a->threads != kThreads || (size_t)a->smem != smem ||
-      a->blocks != (long long)Bc * (H / G) ||
-      (size_t)a->reduce_smem != reduce_smem ||
-      a->reduce_y != 2 * ((Q + kRows - 1) / kRows))
+      G <= 0 || H % G || (P != 32 && P != 64) ||
+      a->route != a->dtype || (a->dtype != 0 && a->dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* d = static_cast<const float*>(dt);
@@ -1146,17 +1856,44 @@ int ssd_scan_bwd_launch(const void* x, const void* dt, const void* A,
   float* da = static_cast<float*>(dA);
   float* dsp = static_cast<float*>(ds_part);
   float* dap = static_cast<float*>(da_part);
-#define BWD_CASE(PP, TT)                                                    \
-  return (int)launch_bwd<PP, TT>(x, d, av, Bm, Cm, g, dx, dd, da, dB, dC,   \
-                                 dsp, dap, Bc, Q, H, N, G, smem,            \
-                                 reduce_smem, s);
-  if (a->dtype == 0) {
-    if (P == 32) BWD_CASE(32, float)
-    BWD_CASE(64, float)
-  }
-  if (P == 32) BWD_CASE(32, bf16)
-  BWD_CASE(64, bf16)
+  if (a->route == 0) {
+    const size_t smem = sizeof(float) * bwd_smem_floats(Q, N, P, G);
+    const size_t reduce_smem = sizeof(float) * bwd_reduce_smem_floats(N);
+    if (G > 16 || a->threads != kThreads || (size_t)a->smem != smem ||
+        a->blocks != (long long)Bc * (H / G) ||
+        (size_t)a->reduce_smem != reduce_smem ||
+        a->reduce_y != 2 * ((Q + kRows - 1) / kRows) || a->chunk != 0 ||
+        a->tri_smem != 0)
+      return (int)cudaErrorInvalidValue;
+#define BWD_CASE(PP)                                                        \
+  return (int)launch_bwd<PP, float>(x, d, av, Bm, Cm, g, dx, dd, da, dB, dC, \
+                                    dsp, dap, Bc, Q, H, N, G, smem,         \
+                                    reduce_smem, s);
+    if (P == 32) BWD_CASE(32)
+    BWD_CASE(64)
 #undef BWD_CASE
+  }
+  const int QS = round_up(Q, 16), nS = QS / 16;
+  const int chunk = bwd_chunk(nS), warps = bwd_warps(nS, chunk);
+  const int tri_smem = QS <= kTriSmemRows;
+  const BwdLayout L = bwd_layout(Q, N, P, G, warps - nS, tri_smem);
+  const int reduce_smem = bwd_reduce_mma_smem(N);
+  if (G > kBwdMaxGroup || a->chunk != chunk || a->tri_smem != tri_smem ||
+      a->threads != 32 * warps || a->smem != L.total ||
+      L.total > 232448 || a->blocks != (long long)Bc * (H / G) ||
+      a->reduce_smem != reduce_smem ||
+      a->reduce_y != 2 * ((QS + kRedRows - 1) / kRedRows))
+    return (int)cudaErrorInvalidValue;
+#define BWD_MMA_CASE(PP)                                                    \
+  return (int)launch_bwd_mma<PP>(                                           \
+      static_cast<const bf16*>(x), d, av, static_cast<const bf16*>(Bm),     \
+      static_cast<const bf16*>(Cm), g, static_cast<bf16*>(dx), dd, da,      \
+      static_cast<bf16*>(dB), static_cast<bf16*>(dC), dsp,                  \
+      static_cast<float*>(st_part), dap, Bc, Q, H, N, G, chunk, tri_smem,   \
+      warps, L.total, reduce_smem, s);
+  if (P == 32) BWD_MMA_CASE(32)
+  BWD_MMA_CASE(64)
+#undef BWD_MMA_CASE
 }
 
 }  // extern "C"

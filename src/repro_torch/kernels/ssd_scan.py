@@ -19,10 +19,15 @@ version.
 The gradient (``ssd_scan_bwd_cuda``, ``LAUNCHES["ssd_scan_bwd"]``, one
 count for its two launches) is a backward kernel in the same ``.cu`` file:
 the JAX package takes it by autograd through its jnp ``ssd_chunked``
-(``repro/models/ssm.py:84``); ``ssd_scan_pallas`` has no VJP.  Both dtypes
-run it on SIMT, every sum in f32, with no atomics; ``plan_bwd`` picks its
-head group from the shapes without Bc, so each chunk row's dx, ddt, dB and
-dC do not depend on the rest of the call.  ``SSDScan`` is the autograd
+(``repro/models/ssm.py:84``); ``ssd_scan_pallas`` has no VJP.  bf16 runs
+it on tensor cores (``mma.sync``; warps on 16-row strips of keys, dY and the
+weights fed as bf16 hi/lo pairs, x, B and C as they are, the S^T and dS^T
+triangles in shared memory, dx staged and stored in 16-byte row pieces);
+float32 keeps the SIMT kernels, which its 1e-4 checks need.  No atomics:
+per-group dS partials summed in group order by a second launch.
+``plan_bwd`` picks the route, head group, runs, warps, grids and shared
+memory from the shapes without Bc, so each chunk row's dx, ddt, dB and dC
+do not depend on the rest of the call.  ``SSDScan`` is the autograd
 function over the two: on a CUDA tensor the kernels, on a CPU tensor
 ``ref.ssd_reference`` and ``ref.ssd_bwd_reference``; ``kernels.ops``
 calls it.
@@ -199,7 +204,7 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, vp, vp,
                                     ctypes.POINTER(_Args), vp]
     lib.ssd_scan_launch.restype = ctypes.c_int
-    lib.ssd_scan_bwd_launch.argtypes = [vp] * 13 + [
+    lib.ssd_scan_bwd_launch.argtypes = [vp] * 14 + [
         ctypes.POINTER(_BwdArgs), vp]
     lib.ssd_scan_bwd_launch.restype = ctypes.c_int
     return lib
@@ -253,36 +258,57 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ backward
-# Launch 1 of the backward: 256 threads as 16 x 16, 64-row tiles, at most
+# float32 ("simt"), launch 1: 256 threads as 16 x 16, 64-row tiles, at most
 # BWD_MAX_GROUP heads a block (their dS partial is one strip in shared
 # memory); launch 2: grid (Bc + 1, 2 nT), the same threads.
 BWD_THREADS, BWD_TILE, BWD_MAX_GROUP = 256, 64, 16
+# bfloat16 ("mma"), launch 1: 16-row strips of keys j, each meeting the
+# subtiles of rows i at or below it; a warp owns a run of at most `chunk`
+# subtiles of one strip, at most BWD_MMA_MAX_WARPS warps a block and
+# BWD_MMA_MAX_GROUP heads (the group's 14 at hybrid training's 112 heads
+# make 256 blocks, 1.94 waves of one block an SM; 16 would make 224, 1.7
+# waves).  The S^T and dS^T triangles stay in shared memory while the
+# chunk is at most TRI_SMEM_ROWS positions, else in a device scratch.
+# Launch 2: 8 warps, 64 rows a block, 64 keys a step.
+BWD_MMA_MAX_WARPS, BWD_MMA_MAX_GROUP, TRI_SMEM_ROWS = 16, 14, 128
+BWD_RED_ROWS = 64
 
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """How a backward call runs.  ``head_group``: heads a block of launch
-    1 (a divisor of H; the dS partials of a chunk row sum over H /
-    head_group groups in order, so it is chosen from (Q, H, P, N) alone,
-    never from Bc).  ``smem``/``reduce_smem``: each launch's dynamic shared
-    memory.  ``grid``: launch 1's blocks, (Bc * H / head_group,);
-    ``reduce_grid``: launch 2's (Bc + 1, 2 ceil(Q / 64)).  ``scratch``: the
-    f32 dS partials' shape (Bc, H / head_group, QT, QT), QT = Q rounded up
-    to 64."""
+    """How a backward call runs.  ``route``: "mma" (bf16, tensor cores) or
+    "simt" (f32).  ``head_group``: heads a block of launch 1 (a divisor of
+    H; the dS partials of a chunk row sum over H / head_group groups in
+    order, so it is chosen from (Q, H, P, N) alone, never from Bc).
+    ``threads``: launch 1's block.  ``chunk``: on "mma", the subtiles of a
+    warp's run (a strip's runs add their dxdt in run order), from Q alone;
+    0 on "simt".  ``tri_smem``: on "mma", whether the S^T and dS^T
+    triangles live in shared memory.  ``smem``/``reduce_smem``: each
+    launch's dynamic shared memory.  ``grid``: launch 1's blocks, (Bc * H /
+    head_group,); ``reduce_grid``: launch 2's (Bc + 1, 2 nT), nT = ceil(Q /
+    64) on "simt" and ceil(QS / 64) on "mma", QS = Q rounded up to 16.
+    ``scratch``: the f32 dS partials' shape, (Bc, H / head_group, QT, QT)
+    on "simt" (QT = Q rounded up to 64) and (Bc, H / head_group, TRI) on
+    "mma" (TRI = ``tri_floats(QS)``); ``st_scratch``: on "mma" without
+    ``tri_smem`` the S^T triangles' (the same shape), else (0,)."""
 
+    route: str
     head_group: int
     threads: int
+    chunk: int
+    tri_smem: bool
     smem: int
     grid: Tuple[int]
     reduce_smem: int
     reduce_grid: Tuple[int, int]
-    scratch: Tuple[int, int, int, int]
+    scratch: Tuple[int, ...]
+    st_scratch: Tuple[int, ...]
 
 
 def _bwd_smem(Q: int, N: int, P: int, G: int) -> int:
-    """Launch 1's shared memory (``bwd_smem_floats`` of the ``.cu``
-    file): the key tile's score and dS strips (QT, 65), four (G, QT)
-    per-head rows, and the tiles (x, dt x, dY (64, P + 1), W (64, 65),
+    """Launch 1's shared memory on "simt" (``bwd_smem_floats`` of the
+    ``.cu`` file): the key tile's score and dS strips (QT, 65), four (G,
+    QT) per-head rows, and the tiles (x, dt x, dY (64, P + 1), W (64, 65),
     column partials (16, 64)) or the B/C staging (2 (64, NP + 1)), the
     larger."""
     qt, T = _up(Q, BWD_TILE), BWD_TILE
@@ -291,43 +317,115 @@ def _bwd_smem(Q: int, N: int, P: int, G: int) -> int:
     return 4 * (2 * qt * (T + 1) + 4 * G * qt + max(tiles, stage))
 
 
+def bwd_warps(ns: int, chunk: int) -> int:
+    """Launch 1's warps on "mma" (``bwd_warps`` of the ``.cu`` file): strip
+    s meets ns - s subtiles, cut in runs of ``chunk``, one warp a run."""
+    return sum(-(-(ns - s) // chunk) for s in range(ns))
+
+
+def bwd_chunk(ns: int) -> int:
+    """The least run length from ceil(subtiles / 16) up whose warps fit
+    BWD_MMA_MAX_WARPS (``bwd_chunk`` of the ``.cu`` file)."""
+    pairs = ns * (ns + 1) // 2
+    c = max(1, -(-pairs // BWD_MMA_MAX_WARPS))
+    while bwd_warps(ns, c) > BWD_MMA_MAX_WARPS:
+        c += 1
+    return c
+
+
+def bwd_runs(ns: int, chunk: int):
+    """Warp k's (strip, run, subtiles u0..u1-1), in warp order, as the
+    ``.cu`` file assigns them."""
+    runs = []
+    for s in range(ns):
+        for q in range(-(-(ns - s) // chunk)):
+            u0 = s + q * chunk
+            runs.append((s, q, range(u0, min(ns, u0 + chunk))))
+    return runs
+
+
+def tri_floats(qs: int) -> int:
+    """Floats of a (qs, qs) lower triangle in 16-row strips, strip s with
+    columns 16s.. and a row stride of qs - 16s + 8 (``tri_floats``)."""
+    ns = qs // 16
+    return 16 * (ns * (qs + 8) - 8 * ns * (ns - 1))
+
+
+def _bwd_mma_smem(Q: int, N: int, P: int, G: int) -> int:
+    """Launch 1's shared memory on "mma" (``bwd_layout`` of the ``.cu``
+    file): the S^T and dS^T triangles (f32, when they live there), the
+    head's x tile (bf16 (QS, P + 8)), one region for first the B and C rows
+    (bf16 (QS, NP + 8) each) and then the head's dY (f32 (QS, P), its hi
+    and lo (QS, P + 8) bf16 each), the dxdt slots of the runs after a
+    strip's first ((16 (P + 8) + 16) f32 each), the row sums of G by strip
+    (f32 (ns, QS)), and dt, dc and the cumsum for G heads (f32 (G, QS)
+    each)."""
+    qs = _up(Q, 16)
+    ns, ldx = qs // 16, P + PAD
+    slots = bwd_warps(ns, bwd_chunk(ns)) - ns
+    tri = 4 * tri_floats(qs) if qs <= TRI_SMEM_ROWS else 0
+    ybuf = max(qs * P * 4 + 2 * qs * ldx * 2,
+               2 * qs * (_up(N, K_STEP) + PAD) * 2)
+    return (2 * tri + qs * ldx * 2 + ybuf + slots * (16 * ldx + 16) * 4
+            + ns * qs * 4 + 3 * G * qs * 4)
+
+
 def plan_bwd(Bc: int, Q: int, H: int, P: int, N: int,
              dtype: torch.dtype) -> BwdPlan:
     """The backward's launch plan, from the shapes and dtype alone; it
     takes what the forward's ``plan`` takes and raises the same
     ValueError, naming the shape, on anything else."""
-    plan(Bc, Q, H, P, N, dtype)
-    groups = [G for G in range(min(H, BWD_MAX_GROUP), 0, -1)
-              if H % G == 0 and _bwd_smem(Q, N, P, G) <= SMEM_LIMIT]
+    route = plan(Bc, Q, H, P, N, dtype).route
+    if route == "simt":
+        max_group, smem = BWD_MAX_GROUP, _bwd_smem
+    else:
+        max_group, smem = BWD_MMA_MAX_GROUP, _bwd_mma_smem
+    groups = [G for G in range(min(H, max_group), 0, -1)
+              if H % G == 0 and smem(Q, N, P, G) <= SMEM_LIMIT]
     if not groups:
-        raise ValueError(f"SSD backward: {_bwd_smem(Q, N, P, 1)} bytes of "
+        raise ValueError(f"SSD backward: {smem(Q, N, P, 1)} bytes of "
                          f"shared memory exceed the {SMEM_LIMIT} a block "
                          f"may use")
     G = groups[0]
     if Bc * (H // G) > MAX_BLOCKS:
         raise ValueError(f"SSD backward: Bc={Bc} chunks of {H} heads need "
                          f"more than {MAX_BLOCKS} blocks")
-    qt, nt = _up(Q, BWD_TILE), -(-Q // BWD_TILE)
-    return BwdPlan(G, BWD_THREADS, _bwd_smem(Q, N, P, G), (Bc * (H // G),),
-                   4 * (BWD_TILE * (BWD_TILE + 1)
-                        + BWD_TILE * (_up(N, 16) + 1)),
-                   (Bc + 1, 2 * nt), (Bc, H // G, qt, qt))
+    if route == "simt":
+        qt, nt = _up(Q, BWD_TILE), -(-Q // BWD_TILE)
+        return BwdPlan("simt", G, BWD_THREADS, 0, False, smem(Q, N, P, G),
+                       (Bc * (H // G),),
+                       4 * (BWD_TILE * (BWD_TILE + 1)
+                            + BWD_TILE * (_up(N, 16) + 1)),
+                       (Bc + 1, 2 * nt), (Bc, H // G, qt, qt), (0,))
+    qs = _up(Q, 16)
+    ns = qs // 16
+    chunk = bwd_chunk(ns)
+    tri_smem = qs <= TRI_SMEM_ROWS
+    part = (Bc, H // G, tri_floats(qs))
+    red = BWD_RED_ROWS
+    return BwdPlan("mma", G, 32 * bwd_warps(ns, chunk), chunk, tri_smem,
+                   smem(Q, N, P, G), (Bc * (H // G),),
+                   2 * red * (red + PAD) * 2 + red * (_up(N, K_STEP) + PAD) * 2,
+                   (Bc + 1, 2 * -(-qs // red)), part,
+                   (0,) if tri_smem else part)
 
 
 class _BwdArgs(ctypes.Structure):
     """``SsdBwdArgs`` of the ``.cu`` file."""
 
     _fields_ = [(name, ctypes.c_longlong) for name in (
-        "Bc", "Q", "H", "P", "N", "dtype", "head_group", "threads", "smem",
-        "blocks", "reduce_smem", "reduce_y")]
+        "Bc", "Q", "H", "P", "N", "dtype", "route", "head_group", "threads",
+        "smem", "blocks", "reduce_smem", "reduce_y", "chunk", "tri_smem")]
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_args(Bc: int, Q: int, H: int, P: int, N: int,
               dtype: torch.dtype) -> Tuple[_BwdArgs, BwdPlan]:
     p = plan_bwd(Bc, Q, H, P, N, dtype)
-    return _BwdArgs(Bc, Q, H, P, N, _DTYPES[dtype], p.head_group, p.threads,
-                    p.smem, p.grid[0], p.reduce_smem, p.reduce_grid[1]), p
+    return _BwdArgs(Bc, Q, H, P, N, _DTYPES[dtype], int(p.route == "mma"),
+                    p.head_group, p.threads, p.smem, p.grid[0],
+                    p.reduce_smem, p.reduce_grid[1], p.chunk,
+                    int(p.tri_smem)), p
 
 
 def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy):
@@ -341,16 +439,20 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy):
         raise ValueError(f"SSD backward: dy is {dy.dtype} {tuple(dy.shape)} "
                          f"on {dy.device}, expected a contiguous float32 "
                          f"{tuple(x.shape)} on {x.device}")
+    if x.dtype == torch.bfloat16 and dy.data_ptr() % 16:
+        raise ValueError("SSD backward (bf16): dy must start on a 16-byte "
+                         "boundary")
     Bc, Q, H, P = x.shape
     args, p = _bwd_args(Bc, Q, H, P, Bm.shape[-1], x.dtype)
     dx, dB, dC = (torch.empty_like(t) for t in (x, Bm, Cm))
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
     ds_part = torch.empty(p.scratch, dtype=torch.float32, device=x.device)
+    st_part = torch.empty(p.st_scratch, dtype=torch.float32, device=x.device)
     da_part = torch.empty((Bc, H), dtype=torch.float32, device=x.device)
     err = _lib().ssd_scan_bwd_launch(
         *(t.data_ptr() for t in (x, dt, A, Bm, Cm, dy, dx, ddt, dA, dB, dC,
-                                 ds_part, da_part)),
+                                 ds_part, st_part, da_part)),
         args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"SSD backward launch failed: CUDA error {err}")

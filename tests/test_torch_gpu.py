@@ -785,9 +785,10 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
 
 # ------------------------------------------------------------ SSD backward
 # Each output's tolerance, as a fraction of its largest entry, by the
-# output's dtype: every sum is f32 in both versions (bf16 inputs are
-# exact), in other orders; bf16 dx, dB and dC then round once (one bf16
-# unit is 2^-7 of the value).
+# output's dtype: every sum is f32 in both versions, in other orders (bf16
+# inputs are exact; on tensor cores the f32 operands dY, W and dS go in as
+# bf16 hi/lo pairs, about 16 bits); bf16 dx, dB and dC then round once
+# (one bf16 unit is 2^-7 of the value).
 SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SSD_BWD_CASES = [(2, 64, 8, 32, 16), (3, 72, 6, 32, 13), (2, 100, 5, 64, 32),
                  (1, 256, 4, 64, 128), HYBRID_SSD]
@@ -848,6 +849,28 @@ def test_ssd_scan_under_no_grad_launches_the_forward_alone(cuda):
     torch.cuda.synchronize()
     assert ss.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 2
     assert ss.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "simt")])
+def test_ssd_backward_takes_its_route(cuda, dtype, route):
+    """The backward's bf16 runs on tensor cores and f32 on SIMT: the
+    launcher takes the plan's route and refuses the other one for that
+    dtype."""
+    x, dt, A, bm, cm = ssd_inputs(cuda, dtype, 2, 128, 4, 64, 64)
+    dy = torch.randn(x.shape, device=cuda)
+    assert ss.plan_bwd(2, 128, 4, 64, 64, dtype).route == route
+    dx, ddt, dA, dB, dC = ss.ssd_scan_bwd_cuda(x, dt, A, bm, cm, dy)
+    block, p = ss._bwd_args(2, 128, 4, 64, 64, dtype)
+    bad = ss._BwdArgs(*(getattr(block, name) for name, _ in block._fields_))
+    bad.route = 1 - bad.route
+    ds_part, st_part, da_part = (torch.empty(shape, device=cuda) for shape
+                                 in (p.scratch, p.st_scratch, (2, 4)))
+    err = ss._lib().ssd_scan_bwd_launch(
+        *(t.data_ptr() for t in (x, dt, A, bm, cm, dy, dx, ddt, dA, dB, dC,
+                                 ds_part, st_part, da_part)),
+        bad, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 def test_ssd_backward_refuses_what_it_does_not_take(cuda):

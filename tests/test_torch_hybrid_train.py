@@ -236,8 +236,9 @@ def test_ops_ssd_scan_is_differentiable_on_the_cpu():
 def test_backward_plan_reads_the_shapes_but_not_bc(dtype):
     """The head group (so the order of each chunk row's sums over the
     heads) does not depend on Bc; it divides H, fits shared memory, and the
-    grids and scratch follow.  At hybrid training's call: 16 heads a
-    block, 224 blocks."""
+    grids and scratch follow, per route.  At hybrid training's call: bf16
+    14 heads a block, 256 blocks of 480 threads (runs of 3 subtiles); f32
+    16 heads, 224 blocks of 256."""
     for Q in (1, 8, 64, 72, 100, 128, 256):
         for N in (1, 13, 16, 64, 128):
             for P in ss.HEAD_DIMS:
@@ -248,16 +249,119 @@ def test_backward_plan_reads_the_shapes_but_not_bc(dtype):
                     assert {q.head_group for q in plans} == {p.head_group}
                     assert {q.smem for q in plans} == {p.smem}
                     assert H % p.head_group == 0
-                    assert p.head_group <= ss.BWD_MAX_GROUP
                     assert p.smem <= ss.SMEM_LIMIT
                     assert p.reduce_smem <= ss.SMEM_LIMIT
-                    qt = -(-Q // 64) * 64
+                    G = p.head_group
+                    if p.route == "simt":
+                        assert G <= ss.BWD_MAX_GROUP
+                        qt = -(-Q // 64) * 64
+                        nt, tri = qt // 64, (qt, qt)
+                    else:
+                        assert G <= ss.BWD_MMA_MAX_GROUP
+                        qs = -(-Q // 16) * 16
+                        nt, tri = -(-qs // 64), (ss.tri_floats(qs),)
                     for Bc, q in zip((1, 3, 32), plans):
-                        assert q.grid == (Bc * H // p.head_group,)
-                        assert q.reduce_grid == (Bc + 1, 2 * (qt // 64))
-                        assert q.scratch == (Bc, H // p.head_group, qt, qt)
+                        assert q.grid == (Bc * H // G,)
+                        assert q.reduce_grid == (Bc + 1, 2 * nt)
+                        assert q.scratch == (Bc, H // G) + tri
     p = ss.plan_bwd(32, 128, 112, 64, 64, dtype)
-    assert (p.head_group, p.grid, p.threads) == (16, (224,), 256)
+    want = ((14, (256,), 480) if dtype == torch.bfloat16
+            else (16, (224,), 256))
+    assert (p.head_group, p.grid, p.threads) == want
+
+
+@pytest.mark.parametrize("Bc,Q,H,P,N", [(32, 128, 112, 64, 64),
+                                        (3, 72, 6, 32, 13),
+                                        (2, 256, 8, 64, 128)])
+def test_backward_plan_routes_bf16_to_tensor_cores_and_f32_to_simt(
+        Bc, Q, H, P, N):
+    mma = ss.plan_bwd(Bc, Q, H, P, N, torch.bfloat16)
+    simt = ss.plan_bwd(Bc, Q, H, P, N, F32)
+    assert mma.route == "mma" and mma.chunk >= 1
+    assert mma.threads == 32 * ss.bwd_warps(-(-Q // 16), mma.chunk)
+    assert mma.threads <= 32 * ss.BWD_MMA_MAX_WARPS
+    assert mma.tri_smem == (Q <= ss.TRI_SMEM_ROWS)
+    assert mma.st_scratch == ((0,) if mma.tri_smem else mma.scratch)
+    assert (simt.route, simt.chunk, simt.tri_smem, simt.threads) == \
+        ("simt", 0, False, ss.BWD_THREADS)
+    assert simt.st_scratch == (0,)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("P", ss.HEAD_DIMS)
+def test_backward_plan_shared_memory_fits_every_shape(P, dtype):
+    """Every (Q, N) the forward takes, at H = 112 (the largest head group
+    of both routes, 14 and 16): each launch's shared memory fits a
+    block's."""
+    for Q in range(1, ss.MAX_CHUNK + 1):
+        for N in range(1, ss.MAX_STATE + 1):
+            p = ss.plan_bwd(2, Q, 112, P, N, dtype)
+            assert 0 < p.smem <= ss.SMEM_LIMIT, (Q, N)
+            assert 0 < p.reduce_smem <= ss.SMEM_LIMIT, (Q, N)
+
+
+def bwd_covered(p, Bc, Q, H):
+    """How often launch 1 reaches each (chunk row, head), on "mma" each
+    (chunk row, head, strip of keys, subtile of rows) pair through the
+    warps' runs, and launch 2 each (chunk row, 64-row tile) for dC and for
+    dB, by the ``.cu`` file's index arithmetic."""
+    groups = H // p.head_group
+    ns = -(-Q // 16)
+    heads = np.zeros((Bc, H), int)
+    pairs = np.zeros((Bc, H, ns, ns), int)
+    for blk in range(p.grid[0]):
+        b, g = divmod(blk, groups)
+        h0 = g * p.head_group
+        heads[b, h0:h0 + p.head_group] += 1
+        if p.route == "mma":
+            runs = ss.bwd_runs(ns, p.chunk)
+            assert len(runs) == p.threads // 32
+            for s, _, us in runs:
+                for u in us:
+                    pairs[b, h0:h0 + p.head_group, s, u] += 1
+    nt = p.reduce_grid[1] // 2
+    tiles = np.zeros((Bc, 2, nt), int)
+    for bx in range(p.reduce_grid[0] - 1):
+        for by in range(p.reduce_grid[1]):
+            tiles[bx, by // nt, by % nt] += 1
+    return heads, pairs, tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Bc,Q,H,P,N", [(32, 128, 112, 64, 64),
+                                        (3, 72, 6, 32, 13),
+                                        (2, 256, 8, 64, 128),
+                                        (2, 100, 5, 64, 32),
+                                        (1, 16, 3, 32, 8)])
+def test_backward_grids_cover_each_row_and_head_once(Bc, Q, H, P, N,
+                                                     dtype):
+    """Launch 1 reaches every (chunk row, head) once, and on "mma" every
+    causal (strip, subtile) pair of it exactly once through the runs and
+    none above the diagonal; launch 2 every 64-row tile of dC and of dB
+    of every chunk row once."""
+    p = ss.plan_bwd(Bc, Q, H, P, N, dtype)
+    heads, pairs, tiles = bwd_covered(p, Bc, Q, H)
+    assert (heads == 1).all()
+    if p.route == "mma":
+        causal = np.triu(np.ones(pairs.shape[-2:], int))     # u >= s
+        assert (pairs == causal).all()
+    assert (tiles == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Q,H,P,N", [(128, 112, 64, 64), (72, 6, 32, 13),
+                                     (256, 8, 64, 128), (1, 5, 32, 1)])
+def test_backward_plan_order_of_sums_does_not_change_with_bc(Q, H, P, N,
+                                                             dtype):
+    """Every field that sets an order of sums (the route, the head group
+    that dS sums over, the runs whose dxdt add in order, the warps, where
+    the triangles live) is the same for any number of chunk rows."""
+    def order(p):
+        return p.route, p.head_group, p.chunk, p.threads, p.tri_smem
+
+    base = order(ss.plan_bwd(1, Q, H, P, N, dtype))
+    for Bc in (1, 3, 32, 1000):
+        assert order(ss.plan_bwd(Bc, Q, H, P, N, dtype)) == base
 
 
 def test_backward_plan_refuses_what_the_forward_refuses():

@@ -14,6 +14,13 @@ emulation of that arithmetic in torch is held to ``SSD_TOL`` of max|y|
 against ``ref.ssd_reference`` at the hybrid prefill's widths and against
 ``ssd_scan_pallas`` in interpret mode; a third test records why the split
 exists: one bf16 rounding of W' misses the tolerance many times over.
+
+The backward's bf16 route feeds its f32 operands (dY, W = S L, dS) the same
+way, as hi/lo pairs, and x, B and C as they are: an emulation of that
+arithmetic is held to ``SSD_BWD_TOL`` of each output's max against
+``ref.ssd_bwd_reference`` and to a fifth of it against float64, and against
+``jax.vjp`` of the JAX package's ``ssd_chunked``; one rounding of dY and W
+misses ddt's and dA's 1e-4.
 """
 
 import numpy as np
@@ -230,3 +237,130 @@ def test_one_bf16_rounding_of_the_weights_misses_the_tolerance():
            for feed in ("once", "xdt", "pair")}
     assert err["once"] > 10 * SSD_TOL and err["xdt"] > 10 * SSD_TOL, err
     assert err["pair"] < SSD_TOL / 5, err
+
+
+# ------------------------------------------------- bf16 backward arithmetic
+# The backward against its plain version, as a fraction of each output's
+# largest entry, by the output's dtype (tests/test_torch_gpu.py).
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def emulate_mma_bwd(x, dt, A, Bm, Cm, dy, feed: str = "pair",
+                    rounded: bool = True):
+    """The bf16 backward route's arithmetic in torch, every sum in f32: x,
+    B and C as the exact bf16 they are; the f32 operands dY (into dW' and
+    W^T dY), W = S L (into W^T dY) and dS (into dS B and dS^T C) as a bf16
+    pair hi = bf16(v), lo = bf16(v - hi) with ``feed="pair"`` (the
+    kernel's: x.hi + x.lo for dW', hi.hi + hi.lo + lo.hi for W^T dY, hi + lo
+    against B and C), or rounded once to bf16 with ``feed="once"``; dt
+    factored out of dW (dW = dt_j (dY_i . x_j)).  The decays are exp in
+    float64 rounded to f32: the kernel's ex2.approx is within 2 ulp, and
+    torch's f32 exp on the CPU is not always (about 3e-5 in some
+    processes).  ``rounded=False`` returns dx, dB and dC in f32, before
+    the final rounding to bf16 that every version takes."""
+    f32, bf = torch.float32, torch.bfloat16
+    Q = x.shape[1]
+
+    def parts(v):
+        hi = v.to(bf).to(f32)
+        return [hi] if feed == "once" else [hi, (v - hi).to(bf).to(f32)]
+
+    xf, Bf, Cf = x.to(f32), Bm.to(f32), Cm.to(f32)
+    c = torch.cumsum(dt * A, dim=1)                            # (Bc,Q,H)
+    diff = (c[:, :, None, :] - c[:, None, :, :]).double()      # (Bc,i,j,H)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool))[None, :, :,
+                                                              None]
+    zero = torch.zeros((), dtype=f32)
+    L = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)).to(f32),
+                    zero)
+    S = torch.einsum("bin,bjn->bij", Cf, Bf)
+    W = S[..., None] * L
+    dyp, wp = parts(dy), parts(W)
+    dWp = sum(torch.einsum("bihp,bjhp->bijh", d, xf) for d in dyp)
+    dW = torch.where(causal, dWp * dt[:, None, :, :], zero)
+    pairs = ([(0, 0), (0, 1), (1, 0)] if feed == "pair" else [(0, 0)])
+    dxdt = sum(torch.einsum("bijh,bihp->bjhp", wp[a], dyp[b])
+               for a, b in pairs)
+    G = dW * W
+    dc = G.sum(dim=2) - G.sum(dim=1)
+    da = torch.flip(torch.cumsum(torch.flip(dc, (1,)), dim=1), (1,))
+    ddt = (xf * dxdt).sum(-1) + A * da
+    dA = (da * dt).sum(dim=(0, 1))
+    dsp = parts((dW * L).sum(-1))
+    dC = sum(torch.einsum("bij,bjn->bin", d, Bf) for d in dsp)
+    dB = sum(torch.einsum("bij,bin->bjn", d, Cf) for d in dsp)
+    dx = dt[..., None] * dxdt
+    if rounded:
+        dx, dB, dC = (t.to(x.dtype) for t in (dx, dB, dC))
+    return dx, ddt, dA, dB, dC
+
+
+def bwd_inputs(seed, Bc, Q, H, P, N):
+    """``ssd_inputs`` and an f32 output gradient dy."""
+    x, dt, A, Bm, Cm = ssd_inputs(seed, Bc, Q, H, P, N)
+    rng = np.random.default_rng(seed + 1000)
+    dy = torch.from_numpy(rng.normal(size=(Bc, Q, H, P)).astype(np.float32))
+    return x, dt, A, Bm, Cm, dy
+
+
+def bwd_float64_truth(monkeypatch, *args):
+    """``ref.ssd_bwd_reference`` with every value and sum in float64."""
+    with monkeypatch.context() as m:
+        m.setattr(ref, "F32", torch.float64)
+        return ref.ssd_bwd_reference(*(t.double() for t in args))
+
+
+def test_emulated_backward_split_is_within_tolerance_at_the_hybrid_widths(
+        monkeypatch):
+    """At two chunk rows of hybrid training's call: every output within
+    SSD_BWD_TOL of ``ref.ssd_bwd_reference`` (in the output's dtype), and
+    within a fifth of it of a float64 truth before dx, dB and dC round to
+    bf16 (that rounding alone moves an entry by up to 2^-8 of it, which
+    every version takes)."""
+    args = bwd_inputs(0, *HYBRID_SMALL)
+    want = ref.ssd_bwd_reference(*args)
+    got = emulate_mma_bwd(*args)
+    for name, g, w in zip(BWD_NAMES, got, want):
+        assert g.dtype == w.dtype and torch.isfinite(g).all(), name
+        assert scaled_err(g.float(), w.float()) <= SSD_BWD_TOL[g.dtype], name
+    truth = bwd_float64_truth(monkeypatch, *args)
+    raw = emulate_mma_bwd(*args, rounded=False)
+    for name, g, w, t in zip(BWD_NAMES, raw, want, truth):
+        assert scaled_err(g.double(), t) <= SSD_BWD_TOL[w.dtype] / 5, name
+
+
+def test_emulated_backward_matches_the_jax_chunked_vjp():
+    """``jax.vjp`` of the JAX package's ``ssd_chunked`` with S == Q and no
+    initial state (the intra-chunk block alone, the final state's
+    cotangent zero) on the same bf16-exact x, B and C: every output of
+    the emulation within SSD_BWD_TOL of it, in the output's dtype."""
+    from repro.models import ssm as jssm
+
+    Bc, Q, H, P, N = 2, 64, 8, 32, 16
+    args = bwd_inputs(2, Bc, Q, H, P, N)
+    x, dt, A, Bm, Cm, dy = (t.to(torch.float32).numpy() for t in args)
+    cfg = jssm.SSMConfig(d_model=8, d_inner=H * P, head_dim=P, state_dim=N,
+                         chunk=Q)
+    (_, final), vjp = jax.vjp(lambda *a: jssm.ssd_chunked(*a, cfg),
+                              *(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)))
+    want = vjp((jnp.asarray(dy), jnp.zeros_like(final)))
+    got = emulate_mma_bwd(*args)
+    for name, g, w in zip(BWD_NAMES, got, want):
+        w = torch.from_numpy(np.array(w, np.float32))
+        assert scaled_err(g.float(), w) <= SSD_BWD_TOL[g.dtype], name
+
+
+def test_one_bf16_rounding_of_dy_and_w_misses_the_tolerance(monkeypatch):
+    """Why the backward feeds dY and W as hi/lo pairs: rounded once to
+    bf16, ddt and dA (f32 outputs, held to 1e-4 of their max) miss it
+    several times over; the pairs stay inside with a wide margin (errors
+    against float64, as fractions of each output's max, with this seed:
+    once ddt 1.8e-3 and dA 7.6e-4; pair ddt 3.4e-6 and dA 1.7e-6)."""
+    args = bwd_inputs(0, *HYBRID_SMALL)
+    truth = bwd_float64_truth(monkeypatch, *args)
+    err = {feed: [scaled_err(g.double(), t) for g, t in zip(
+        emulate_mma_bwd(*args, feed=feed, rounded=False), truth)][1:3]
+        for feed in ("once", "pair")}
+    assert min(err["once"]) > 5 * SSD_BWD_TOL[torch.float32], err
+    assert max(err["pair"]) < SSD_BWD_TOL[torch.float32] / 5, err
