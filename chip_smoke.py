@@ -185,6 +185,41 @@ Phases, each of which raises on failure:
    7 layers on 256 tokens against a plain path (``ref.ssd_reference`` and
    ``ref.ssd_bwd_reference`` per chunk, ``ref.mha_reference``) to 1e-4.
 
+12. The four newer decoder configs served on the card:
+   ``LLM.from_arch(arch, smoke=False).generate`` for ``granite_8b``,
+   ``minitron_4b`` and ``stablelm_3b`` (dh 80) at their published widths:
+   4 requests of 512 prompt + 16 new tokens (one sampled), max_batch 2,
+   80 HBM pages, so that about half the sessions fit and pages migrate
+   under gdt; launches, tokens/s, peak memory; one-shot == chunked prefill
+   bitwise on a 300-token prompt.  Then ``mixtral_8x7b`` at its published
+   widths cut to 8 of 32 layers: one-shot == chunked, then 2 requests of
+   4160 prompt tokens (past its 4096 window) + 16 new, resident and tiered
+   (24 of its 64 expert blocks on the card, the rest in pinned host
+   memory), bitwise equal, the same grouped-expert launches, and the
+   tiered build's device bytes down by the blocks off the card.
+
+13. ``stablelm_3b`` trained whole at its published widths with remat and
+   phase 6's AdamW on 2 x 2048 batches, 4 steps unguided (64 flash forward
+   and 32 flash backward launches a step, all at dh 80), two profiled
+   steps, 4 guided with 60% of the state on HBM (losses equal to rtol
+   1e-5), and an f32 2-layer copy against the plain path to 1e-4.  Then
+   the contiguous cache (``Model.init_cache`` / ``prefill`` / ``decode``):
+   ``granite_8b`` whole, 2 prompts of 1024 tokens and 16 greedy steps (36
+   flash launches), and the 8-layer mixtral, one 4160-token prompt over a
+   4096-slot ring and 16 greedy steps (8 windowed flash and 136
+   grouped-expert launches), each held to its launch counts; an f32 copy
+   of each cut to 2 layers: prefill against the plain path, and
+   prefill-then-decode against stepwise decode (greedy tokens equal,
+   logits within 2e-3).
+
+Phase 3 also checks flash attention at dh 80 and 96 (2 x 2048 tokens,
+32/32 heads, bf16 and f32, forward and backward, bitwise repeats, timed
+beside SDPA, ptxas's registers and spills), the flash forward at dh 128
+on the contiguous prefill's shapes (granite's and mixtral's, windowed),
+paged attention at stablelm's 32/32 heads of 80 and granite's 32/8 of
+128 (the per-row contract included), and the grouped-expert forward at
+mixtral's widths (32 and 2048 rows, 8 experts top-2, bf16 and f32).
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -232,8 +267,10 @@ SOURCES = {"ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_bwd":
                "src/repro_torch/kernels/csrc/flash_attention.cu"}
-SOURCES["flash_attention_fwd_dh112"] = SOURCES["flash_attention_fwd"]
-SOURCES["flash_attention_bwd_dh112"] = SOURCES["flash_attention_bwd"]
+for _dh in (112, 80, 96):
+    for _way in ("fwd", "bwd"):
+        SOURCES[f"flash_attention_{_way}_dh{_dh}"] = \
+            SOURCES[f"flash_attention_{_way}"]
 SOURCES["ssd_scan_bwd"] = SOURCES["ssd_scan"]
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:113",
             "paged_prefill": "src/repro/kernels/paged_attention.py:95",
@@ -242,18 +279,25 @@ REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:113",
             "flash_attention_fwd": "src/repro/kernels/flash_attention.py:153",
             "flash_attention_bwd": "src/repro/kernels/flash_attention.py:166",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:65"}
-REPLACES["flash_attention_fwd_dh112"] = REPLACES["flash_attention_fwd"]
-REPLACES["flash_attention_bwd_dh112"] = REPLACES["flash_attention_bwd"]
+for _dh in (112, 80, 96):
+    for _way in ("fwd", "bwd"):
+        REPLACES[f"flash_attention_{_way}_dh{_dh}"] = \
+            REPLACES[f"flash_attention_{_way}"]
 # The SSD backward stands for the autograd the JAX package takes through
 # its jnp ssd_chunked (ssd_scan_pallas has no VJP).
 REPLACES["ssd_scan_bwd"] = "src/repro/models/ssm.py:84"
 # flash_attention_fwd_dh112 is the flash forward at zamba2's head dim, its
 # launches those of the hybrid prefill; flash_attention_bwd_dh112 the
-# backward at that head dim, its launches those of hybrid training.
+# backward at that head dim, its launches those of hybrid training.  The
+# dh 80 pair's launches are stablelm_3b training's (phase 13); dh 96
+# (phi3_vision_4_2b) has no path in the port yet (ROADMAP.md A10), so its
+# pair shows 0 launches.
 KERNELS = ("paged_attention", "paged_prefill", "moe_grouped_ffn",
            "moe_grouped_ffn_bwd", "flash_attention_fwd",
            "flash_attention_bwd", "ssd_scan", "flash_attention_fwd_dh112",
-           "ssd_scan_bwd", "flash_attention_bwd_dh112")
+           "ssd_scan_bwd", "flash_attention_bwd_dh112",
+           "flash_attention_fwd_dh80", "flash_attention_bwd_dh80",
+           "flash_attention_fwd_dh96", "flash_attention_bwd_dh96")
 F32_CHECK_LAYERS = 2
 DENSE, MOE, HYBRID = "llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b"
 # The SSD kernel against its plain version: as a fraction of max|y| (the
@@ -419,7 +463,8 @@ CONTRACT_ROWS = (1, 2, 15, 16, 17, 37, 38, 63, 64, 65, 127, 128, 129, 200,
                  201, 255, 256)
 
 
-def check_paged_contract(gen, dtype, H, K, MP, N, S, window, hole) -> None:
+def check_paged_contract(gen, dtype, H, K, MP, N, S, window, hole,
+                         dh: int = 64) -> None:
     """The per-row contract at a serving shape: every row of an S-row
     prefill equals, bit for bit, the decode of the same query, table and
     length, in batches of 4 (the serving ``max_batch``; row t at slot t % 4)
@@ -431,14 +476,14 @@ def check_paged_contract(gen, dtype, H, K, MP, N, S, window, hole) -> None:
 
     from repro_torch.kernels import paged_attention as pa
 
-    dh, P = 64, 16
+    P = 16
     q, kp, vp, table, lens = paged_case(gen, S, H, K, dh, P, MP, N,
                                         list(range(1, S + 1)), True, dtype)
     if hole:
         table[-(-S // P) // 2] = -1
     pre = pa.paged_prefill_cuda(q, kp, vp, table, lens, window=window)
     tables = table[None].expand(4, -1).contiguous()
-    label = (f"{H}/{K} heads S={S} {dtype} window={window} "
+    label = (f"{H}/{K} heads of {dh} S={S} {dtype} window={window} "
              f"hole={hole}")
     for start in range(0, S, 4):
         dec = pa.paged_attention_cuda(q[start:start + 4], kp, vp,
@@ -591,6 +636,103 @@ def check_paged_kernels(card) -> dict:
                 "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": lib_ms}
     return rows_out
+
+
+# Phase 12's dense serving shapes (NEW_SERVING: max_batch 2, 40 pages a
+# sequence, 80 HBM pages) at the head layouts this slice puts on the paged
+# kernel's path: stablelm_3b's 32/32 heads of 80 and granite_8b's 32/8 of
+# 128 (minitron_4b's 24/8 of 128 and mixtral's 32/8 of 128 share it).
+NEW_PAGED = (("stablelm_3b", 32, 32, 80), ("granite_8b", 32, 8, 128))
+NEW_PAGED_MP, NEW_PAGED_N = 40, 80
+
+
+def check_paged_new_paths(card) -> None:
+    """Phase 3, paged attention at NEW_PAGED's head layouts: decode B=2 and
+    a 512-row prefill, bf16 and f32, with and without a window, against
+    the plain version, prefill rows == decode rows bitwise; the per-row
+    contract; then timed in bf16 beside the plain version, SDPA and the
+    bound (events and the profiler)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    lengths = torch.Generator().manual_seed(SEED + 8)
+    MP, N, P = NEW_PAGED_MP, NEW_PAGED_N, 16
+    for arch, H, K, dh in NEW_PAGED:
+        cases = [(f"decode B=2 {arch} serving", False, 2,
+                  torch.randint(513, 529, (2,), generator=lengths).tolist()),
+                 (f"prefill S=512 {arch} serving", True, 512,
+                  list(range(1, 512)) + [0])]
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                                  ("float32", torch.float32)):
+            for window in (None, 200):
+                for label, prefill, rows, lens_ in cases:
+                    q, kp, vp, table, lens = paged_case(
+                        gen, rows, H, K, dh, P, MP, N, lens_, prefill, dtype)
+                    if prefill:
+                        got = pa.paged_prefill_cuda(q, kp, vp, table, lens,
+                                                    window=window)
+                        want = ref.paged_prefill_reference(
+                            q, kp, vp, table, lens, window=window)
+                        dec = pa.paged_attention_cuda(
+                            q, kp, vp,
+                            table[None].expand(rows, -1).contiguous(), lens,
+                            window=window)
+                        if not torch.equal(dec, got):
+                            raise AssertionError(f"{label} {dtype_name}: "
+                                                 f"prefill rows differ from "
+                                                 f"decode rows")
+                    else:
+                        got = pa.paged_attention_cuda(q, kp, vp, table, lens,
+                                                      window=window)
+                        want = ref.paged_attention_reference(
+                            q, kp, vp, table, lens, window=window)
+                    torch.cuda.synchronize()
+                    diff = (got.float() - want.float()).abs()
+                    tol = TOL[dtype_name]
+                    if not torch.isfinite(got).all() or not bool(
+                            (diff <= tol + tol * want.float().abs()).all()):
+                        raise AssertionError(
+                            f"{label} {dtype_name} window={window}: max abs "
+                            f"err {float(diff.max())} outside atol=rtol={tol}")
+                    log(f"kernel check paged {H}/{K} heads dh={dh} {label} "
+                        f"{dtype_name} window={window}: max abs err "
+                        f"{float(diff.max()):.3e} (atol=rtol={tol})")
+        for dtype in (torch.bfloat16, torch.float32):
+            for window in (None, 37):
+                check_paged_contract(gen, dtype, H, K, MP, N, 512, window,
+                                     window is not None, dh=dh)
+        for label, prefill, rows, lens_ in cases:
+            q, kp, vp, table, lens = paged_case(
+                gen, rows, H, K, dh, P, MP, N, lens_, prefill, torch.bfloat16)
+            if prefill:
+                kern = lambda: pa.paged_prefill_cuda(q, kp, vp, table, lens)
+                plain = lambda: ref.paged_prefill_reference(q, kp, vp, table,
+                                                            lens)
+                name = "paged_prefill"
+            else:
+                kern = lambda: pa.paged_attention_cuda(q, kp, vp, table,
+                                                       lens)
+                plain = lambda: ref.paged_attention_reference(
+                    q, kp, vp, table, lens)
+                name = "paged_attention"
+            sq, sk, sv, mask, causal = sdpa_inputs(q, kp, vp, table, lens,
+                                                   prefill)
+            lib = lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, is_causal=causal,
+                enable_gqa=True)
+            ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain, iters=10), \
+                time_ms(lib)
+            b_ms, b_by = bound_ms(q, kp, table, lens, P)
+            log(f"time {name} {H}/{K} heads dh={dh} {label} bf16: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+                f"ms, bound {b_ms:.5f} ms ({b_by}); device (profiler) kernel "
+                f"{device_ms(kern):.4f} ms, sdpa {device_ms(lib):.4f} ms "
+                f"{card.tag()}")
+    free_card()
 
 
 def routed_sizes(gen, tokens, E, k):
@@ -835,6 +977,68 @@ def check_moe_kernel(card) -> dict:
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     return row
 
+
+
+# mixtral_8x7b's experts: 8 of d 4096, f 14336, top-2.
+MIXTRAL_FFN = (8, 2, 4096, 14336)
+
+
+def check_moe_mixtral(card) -> None:
+    """Phase 3, the grouped-expert FFN at mixtral_8x7b's widths: decode (32
+    rows: 16 tokens' top-2 picks) and prefill (2048 rows) in bf16 and f32
+    against the plain version, two launches bitwise equal, rows past the
+    segments zero, each call's route; then timed in bf16 beside the plain
+    version and the bound (events and the profiler)."""
+    import torch
+
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    host = torch.Generator().manual_seed(SEED + 9)
+    E, k, d, f = MIXTRAL_FFN
+    cases = [("decode T=32", 32, routed_sizes(host, 16, E, k)),
+             ("prefill T=2048", 2048, routed_sizes(host, 1024, E, k))]
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        for label, T, sizes in cases:
+            x, wg, wu, wd = moe_case(gen, T, E, d, f, dtype)
+            gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+            got = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs)
+            again = mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs)
+            want = ref.moe_grouped_ffn_reference(x, wg, wu, wd, gs)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            tol = TOL[dtype_name]
+            if not torch.isfinite(got).all() or not bool(
+                    (diff <= tol + tol * want.float().abs()).all()):
+                raise AssertionError(
+                    f"moe mixtral {label} {dtype_name}: max abs err "
+                    f"{float(diff.max())} outside atol=rtol={tol}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"moe mixtral {label} {dtype_name}: two "
+                                     f"launches differ")
+            log(f"kernel check moe_grouped_ffn mixtral {label} (d {d}, f "
+                f"{f}, {E} experts top-{k}) {dtype_name}: max abs err "
+                f"{float(diff.max()):.3e} (atol=rtol={tol}); two launches "
+                f"bitwise equal; route {mg.plan(T, d, f, E, E, dtype).route}")
+            del x, wg, wu, wd, got, again, want, diff
+            free_card()
+    for label, T, sizes in cases:
+        x, wg, wu, wd = moe_case(gen, T, E, d, f, torch.bfloat16)
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        kern = lambda: mg.moe_grouped_ffn_cuda(x, wg, wu, wd, gs)
+        ms, dev = time_ms(kern), device_ms(kern)
+        plain_ms = time_ms(lambda: ref.moe_grouped_ffn_reference(
+            x, wg, wu, wd, gs), iters=10)
+        b_ms, b_by = moe_bound_ms(x, wg, sizes, list(range(E)))
+        log(f"time moe_grouped_ffn mixtral {label} bf16 "
+            f"({sum(n > 0 for n in sizes)} experts with rows): kernel "
+            f"{ms:.4f} ms (events), device {dev:.4f} ms (profiler), plain "
+            f"{plain_ms:.4f} ms, library none, bound {b_ms:.5f} ms ({b_by}) "
+            f"{card.tag()}")
+        del x, wg, wu, wd
+        free_card()
 
 
 def moe_bwd_bound_ms(x, wg, sizes, experts, dtype_name) -> tuple:
@@ -1313,7 +1517,78 @@ def check_flash_kernel(card) -> dict:
     del q, k, v, qs, ks, vs
     rows["flash_attention_bwd_dh112"] = check_flash_bwd_112(card, case)
     free_card()
+    rows.update(check_flash_new_dims(card, case))
+    check_flash_prefill_128(card, case)
     return rows
+
+
+# The flash forward at dh 128 on the contiguous prefill's paths (phase 13):
+# (label, B, S, H, K, window): granite_8b's 2 x 1024 tokens and mixtral's
+# 4160 tokens under its 4096-token window.
+FLASH_PREFILL_128 = (("granite_8b prefill", 2, 1024, 32, 8, None),
+                     ("mixtral_8x7b prefill", 1, 4160, 32, 8, 4096))
+
+
+def check_flash_prefill_128(card, case) -> None:
+    """Phase 3, the flash forward at dh 128 at FLASH_PREFILL_128's shapes,
+    bf16: against the plain version (TOL), two launches bitwise equal,
+    timed beside the plain version and SDPA (the window as a boolean mask)
+    and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dh, tol = 128, TOL["bfloat16"]
+    for label, B, S, H, K, window in FLASH_PREFILL_128:
+        q, k, v, _ = case(B, S, S, H, K, dh, torch.bfloat16)
+        out, _ = fa.flash_attention_fwd_cuda(q, k, v, True, window)
+        again, _ = fa.flash_attention_fwd_cuda(q, k, v, True, window)
+        want = ref.mha_reference(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        diff = (out.float() - want.float()).abs()
+        if not torch.equal(out, again) or not bool(
+                (diff <= tol + tol * want.float().abs()).all()):
+            raise AssertionError(f"flash dh=128 {label}: max abs err "
+                                 f"{float(diff.max())} (atol=rtol={tol}) or "
+                                 f"two launches differ")
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = None
+        if window is not None:
+            pos = torch.arange(S, device="cuda")
+            gap = pos[:, None] - pos[None, :]
+            mask = (gap >= 0) & (gap < window)
+
+        def kern():
+            fa.flash_attention_fwd_cuda(q, k, v, True, window)
+
+        def plain():
+            with torch.no_grad():
+                ref.mha_reference(q, k, v, causal=True, window=window)
+
+        def lib():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True)
+
+        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain, iters=5), \
+            time_ms(lib)
+        b_ms, b_by = flash_bound_ms(B, S, S, H, K, dh, True, 2, False)
+        log(f"kernel check flash_attention_fwd dh=128 {label} B={B} S={S} "
+            f"{H}/{K} heads window={window} bf16: max abs err "
+            f"{float(diff.max()):.3e} (atol=rtol={tol}); two launches "
+            f"bitwise equal")
+        log(f"time flash_attention_fwd dh=128 {label} B={B} S={S} {H}/{K} "
+            f"heads window={window} bf16: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}: the causal half of the pairs; the window drops "
+            f"0.02% of mixtral's); device "
+            f"(profiler) kernel {device_ms(kern):.4f} ms, sdpa "
+            f"{device_ms(lib):.4f} ms {card.tag()}")
+        del q, k, v, out, again, want, diff, qs, ks, vs, mask
+        free_card()
 
 
 def check_flash_bwd_112(card, case) -> dict:
@@ -1380,6 +1655,136 @@ def check_flash_bwd_112(card, case) -> dict:
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": worst,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
+
+
+# (B, S, S, H, K) of stablelm_3b's training attention (2 x 2048 tokens,
+# 32/32 heads of 80), which phi3_vision_4_2b's 32/32 heads of 96 share.
+NEW_FLASH_SHAPE = (2, 2048, 2048, 32, 32)
+NEW_FLASH_DIMS = (80, 96)
+
+
+def check_flash_new_dims(card, case) -> dict:
+    """Phase 3, flash attention at head dims 80 (stablelm_3b) and 96
+    (phi3_vision_4_2b), at NEW_FLASH_SHAPE, causal: forward and backward in
+    bf16 and f32 against the plain version and its autograd gradients
+    (TOL, GRAD_TOL), two launches of each bitwise equal, each dtype's route
+    from its plan; then, in bf16, timed beside the plain version and SDPA
+    forward and backward, by CUDA events and by the profiler.  Returns the
+    four kernel rows (launches filled in by phase 13: dh 80's; dh 96 has no
+    path yet)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    B, S, _, H, K = NEW_FLASH_SHAPE
+    rows = {}
+    # Every instantiation at the new head dims: registers and spills.
+    log_ptxas("flash_attention", [f"ILi{dh}E" for dh in NEW_FLASH_DIMS])
+    for dh in NEW_FLASH_DIMS:
+        worst = {}
+        for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                                  ("float32", torch.float32)):
+            p = fa.plan(B, S, S, H, K, dh, dtype)
+            log(f"flash route {dtype_name} dh={dh}: {p.route} (forward "
+                f"{p.rows_per_cta} rows over {p.warps} warps, dK/dV steps "
+                f"of {p.bwd_rows} rows, shared {p.fwd_smem}/{p.dkdv_smem}/"
+                f"{p.dq_smem} bytes)")
+            q, k, v, do = case(B, S, S, H, K, dh, dtype)
+            out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+            out2, lse2 = fa.flash_attention_fwd_cuda(q, k, v)
+            grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+            again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+            qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+            want = ref.mha_reference(qr, kr, vr)
+            want_grads = torch.autograd.grad(want, (qr, kr, vr), do)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2)
+                    and all(torch.equal(a, b)
+                            for a, b in zip(grads, again))):
+                raise AssertionError(f"flash dh={dh} {dtype_name}: two "
+                                     f"launches differ")
+            errs = {}
+            for name, got, w, tol in (
+                    ("out", out, want, TOL[dtype_name]),
+                    *((n, g, wg, GRAD_TOL[dtype_name]) for n, g, wg in
+                      zip(("dq", "dk", "dv"), grads, want_grads))):
+                w = w.detach().float()
+                diff = (got.float() - w).abs()
+                if not torch.isfinite(got).all() or not bool(
+                        (diff <= tol + tol * w.abs()).all()):
+                    raise AssertionError(
+                        f"flash dh={dh} {dtype_name} {name}: max abs err "
+                        f"{float(diff.max())} outside atol=rtol={tol}")
+                errs[name] = float(diff.max())
+            if dtype == torch.bfloat16:
+                worst = errs
+            log(f"kernel check flash_attention dh={dh} B={B} S={S} {H}/{K} "
+                f"heads causal {dtype_name}: forward max abs err "
+                f"{errs['out']:.3e} (atol=rtol={TOL[dtype_name]}), dq/dk/dv "
+                f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} "
+                f"(atol=rtol={GRAD_TOL[dtype_name]}); two forward and two "
+                f"backward launches bitwise equal")
+            del q, k, v, do, out, lse, out2, lse2, grads, again, qr, kr, vr
+            del want, want_grads
+        q, k, v, do = case(B, S, S, H, K, dh, torch.bfloat16)
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+        plain_out = ref.mha_reference(qr, kr, vr)
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dos = do.transpose(1, 2).contiguous()
+        sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+        def fwd():
+            fa.flash_attention_fwd_cuda(q, k, v)
+
+        def bwd():
+            fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+
+        def plain_fwd():
+            with torch.no_grad():
+                ref.mha_reference(q, k, v)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+
+        def sdpa_bwd():
+            torch.autograd.grad(sdpa_out, (qs, ks, vs), dos,
+                                retain_graph=True)
+
+        timed = {
+            f"flash_attention_fwd_dh{dh}": (
+                fwd, plain_fwd, sdpa_fwd, False, "out"),
+            f"flash_attention_bwd_dh{dh}": (
+                bwd, lambda: torch.autograd.grad(
+                    plain_out, (qr, kr, vr), do, retain_graph=True),
+                sdpa_bwd, True, "dq"),
+        }
+        for name, (kern, plain, lib, backward, err_key) in timed.items():
+            ms, plain_ms, lib_ms = (time_ms(kern), time_ms(plain, iters=10),
+                                    time_ms(lib))
+            b_ms, b_by = flash_bound_ms(B, S, S, H, K, dh, True, 2,
+                                        backward)
+            err = (max(worst["dq"], worst["dk"], worst["dv"]) if backward
+                   else worst["out"])
+            log(f"time {name} B={B} S={S} {H}/{K} heads dh={dh} causal "
+                f"bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); device "
+                f"(profiler) kernel {device_ms(kern):.4f} ms, sdpa "
+                f"{device_ms(lib):.4f} ms {card.tag()}")
+            rows[name] = {"name": name, "route": "cuda",
+                          "source": SOURCES[name],
+                          "replaces": REPLACES[name], "launches": 0,
+                          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": lib_ms}
+        del q, k, v, do, out, lse, qr, kr, vr, plain_out, qs, ks, vs, dos
+        del sdpa_out
+        free_card()
+    return rows
 
 
 # (B, S, S, H, K, dh) of the hybrid prefill's shared attention: 4 prompts
@@ -3081,8 +3486,9 @@ def hybrid_expected(cfg) -> dict:
 def plain_kernels():
     """Within this context the model's kernel entry points take their plain
     versions on any device: ``ref.ssd_reference`` per chunk (its gradient
-    ``ref.ssd_bwd_reference``) and ``ref.mha_reference`` (its gradient by
-    autograd).  The comparison path of the f32 hybrid checks."""
+    ``ref.ssd_bwd_reference``), ``ref.mha_reference`` (its gradient by
+    autograd) and ``ref.moe_grouped_ffn_reference`` (forward only).  The
+    comparison path of the f32 hybrid and contiguous-cache checks."""
     import torch
 
     from repro_torch.kernels import ops, ref
@@ -3098,13 +3504,14 @@ def plain_kernels():
             return ref.ssd_bwd_reference(*ctx.saved_tensors,
                                          dy.contiguous())
 
-    saved = ops.ssd_scan, ops.flash_attention
+    saved = ops.ssd_scan, ops.flash_attention, ops.moe_grouped_ffn
     ops.ssd_scan = PlainSSD.apply
     ops.flash_attention = ref.mha_reference
+    ops.moe_grouped_ffn = ref.moe_grouped_ffn_reference
     try:
         yield
     finally:
-        ops.ssd_scan, ops.flash_attention = saved
+        ops.ssd_scan, ops.flash_attention, ops.moe_grouped_ffn = saved
 
 
 def profile_hybrid(card, model, tokens, n_decode: int = 4) -> None:
@@ -3392,6 +3799,406 @@ def train_hybrid(card, kernel_rows) -> None:
     train_f32_check(batches[0], HYBRID)
 
 
+# ------------------------------------------------ the new decoder configs
+# Phase 12: granite_8b, minitron_4b and stablelm_3b whole at their
+# published widths, 4 requests of 512 prompt + 16 new tokens (request 3
+# sampled), max_batch 2 and 80 HBM pages of 16 tokens: a request needs 33
+# pages, so HBM holds about two of the four sessions and pages migrate
+# under gdt (phase 4's ratio).
+NEW_DENSE = ("granite_8b", "minitron_4b", "stablelm_3b")
+NEW_SERVING = (dict(max_batch=2, page_size=16, max_pages_per_seq=40,
+                    hbm_pages=80, host_pages=256, policy="gdt",
+                    interval_steps=4), 4, 512, 16)
+# mixtral_8x7b at its published widths cut to 8 of 32 layers: 22.5 GB of
+# bf16 experts (all 32 layers hold 90.2 GB, which tiered serving would pin
+# in host memory, against the machine's 96 GiB).  Served tiered with 24 of
+# its 64 (layer, expert) blocks on the card, 2 requests of 4160 prompt
+# tokens (past the 4096 window) + 16 new, greedy; 560 HBM pages hold both.
+MIXTRAL, MIXTRAL_LAYERS, MIXTRAL_CACHE = "mixtral_8x7b", 8, 24
+MIXTRAL_PROMPT, MIXTRAL_NEW = 4160, 16
+MIXTRAL_SERVING = dict(max_batch=2, page_size=16, max_pages_per_seq=264,
+                       hbm_pages=560, host_pages=64, policy="gdt",
+                       interval_steps=4)
+STABLELM, GRANITE8B = "stablelm_3b", "granite_8b"
+
+
+def mixtral_model(seed: int):
+    """mixtral_8x7b at its published widths cut to MIXTRAL_LAYERS layers,
+    random weights from ``seed``, on the card."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get(MIXTRAL), n_layers=MIXTRAL_LAYERS)
+    model = Model(cfg, device="cuda")
+    return model.init(torch.Generator(device="cuda").manual_seed(seed))
+
+
+def mixtral_run(card, model, label, prompts, **extra):
+    """One ``LLM(model, cfg).generate`` of ``prompts`` (greedy,
+    MIXTRAL_NEW tokens each) on MIXTRAL_SERVING plus ``extra``, the launch
+    counters zeroed just before and read just after.  Returns (streams,
+    launches, wall, device bytes the LLM took when built, stats)."""
+    import torch
+
+    from repro_torch.serve import LLM, SamplingParams, ServeConfig
+
+    free_card()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    llm = LLM(model, ServeConfig(**MIXTRAL_SERVING, **extra))
+    free_card()
+    built = torch.cuda.memory_allocated() - before
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, SamplingParams(max_tokens=MIXTRAL_NEW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    st = llm.stats()
+    for o in outs:
+        if len(o.token_ids) != MIXTRAL_NEW or o.finish_reason != "length":
+            raise AssertionError(f"{label} request {o.request_id}: "
+                                 f"{len(o.token_ids)} tokens, finish "
+                                 f"{o.finish_reason}")
+    L = model.cfg.n_layers
+    need = {"paged_attention": L * st["decode_dispatches"],
+            "paged_prefill": L * st["prefill_dispatches"],
+            "moe_grouped_ffn": L * (st["decode_dispatches"]
+                                    + st["prefill_dispatches"])}
+    for name, n in need.items():
+        if launches[name] < n or launches[name] == 0:
+            raise AssertionError(f"{label} {name}: {launches[name]} launches"
+                                 f" < {n} (layers x dispatches)")
+    n_tok = len(prompts) * MIXTRAL_NEW
+    log(f"serving {label}: {len(prompts)} requests x {len(prompts[0])} "
+        f"prompt + {MIXTRAL_NEW} new tokens in {wall:.3f} s: "
+        f"{n_tok / wall:.2f} generated tokens/s, {st['steps']} steps; built "
+        f"in {build_s:.1f} s, device bytes {built:+d} by the build; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB; launches {launches} {card.tag()}")
+    streams = [o.token_ids for o in outs]
+    del llm, outs
+    free_card()
+    return streams, launches, wall, built, st
+
+
+def serve_mixtral(card) -> None:
+    """Phase 12's mixtral part: one-shot == chunked on the resident model,
+    the resident run, then the tiered run (MIXTRAL_CACHE blocks on the
+    card, the rest in pinned host memory), bitwise equal to it."""
+    import numpy as np
+
+    model = mixtral_model(SEED + 10)
+    mc = model.cfg
+    log(f"model {MIXTRAL}: {mc.n_layers} of 32 layers (cut: the 32 layers' "
+        f"experts hold 90.2 GB of bf16, which tiered serving pins in host "
+        f"memory), d_model {mc.d_model}, {mc.n_heads}/{mc.kv_heads} heads of "
+        f"{model.head_dim}, d_ff {mc.d_ff}, {mc.n_experts} experts top-"
+        f"{mc.top_k}, window {mc.window}, vocab {mc.vocab}, {mc.dtype}")
+    one_shot_equals_chunked(model, long_prompt(mc.vocab))
+    rng = np.random.default_rng(SEED + 10)
+    prompts = [rng.integers(0, mc.vocab, MIXTRAL_PROMPT).tolist()
+               for _ in range(2)]
+    resident, r_launches, _, r_built, _ = mixtral_run(
+        card, model, f"{MIXTRAL} resident", prompts)
+    blocks = mc.n_layers * mc.n_experts
+    block_bytes = 3 * mc.d_model * mc.d_ff * 2
+    tiered, t_launches, wall, t_built, st = mixtral_run(
+        card, model, f"{MIXTRAL} tiered", prompts, expert_offchip=True,
+        expert_cache_size=MIXTRAL_CACHE)
+    # The tiered build moves the model's expert stacks off the card: the
+    # device holds less after it than before.
+    drop, need = r_built - t_built, (blocks - MIXTRAL_CACHE) * block_bytes
+    if drop < need:
+        raise AssertionError(f"{MIXTRAL} tiered: {drop} fewer device bytes "
+                             f"than the resident build, less than the "
+                             f"{need} of the blocks off the card")
+    if tiered != resident:
+        raise AssertionError(f"{MIXTRAL}: tiered streams {tiered} differ "
+                             f"from resident {resident}")
+    name = "moe_grouped_ffn"
+    if t_launches[name] != r_launches[name]:
+        raise AssertionError(f"{MIXTRAL}: tiered {t_launches[name]} grouped-"
+                             f"FFN launches, resident {r_launches[name]}")
+    log(f"{MIXTRAL} tiered == resident: {len(prompts)} streams bitwise "
+        f"equal (first tokens {[s[:4] for s in tiered]}); the tiered build "
+        f"took {drop} device bytes fewer than the resident one (>= {need}: "
+        f"{blocks - MIXTRAL_CACHE} of {blocks} blocks of {block_bytes} "
+        f"bytes on pinned host); {wall:.3f} s; demand fetches "
+        f"{st['expert_demand_fetches']}, prefetch hits "
+        f"{st['expert_prefetch_hits']}, evictions {st['expert_evictions']}, "
+        f"bytes fetched {st['expert_bytes_fetched']}, host syncs "
+        f"{st['expert_host_syncs']} {card.tag()}")
+    del model
+    free_card()
+
+
+def serve_new_archs(card, kernel_rows) -> None:
+    """Phase 12: the dense archs granite_8b, minitron_4b and stablelm_3b
+    whole at their published widths through ``LLM.from_arch(arch,
+    smoke=False).generate`` on NEW_SERVING (launches, tokens/s, peak
+    memory; pages migrate), one-shot == chunked on a 300-token prompt;
+    then mixtral_8x7b (``serve_mixtral``)."""
+    import numpy as np
+
+    from repro_torch.serve import ServeConfig
+
+    fields, n_req, n_prompt, n_new = NEW_SERVING
+    for i, arch in enumerate(NEW_DENSE):
+        t0 = time.perf_counter()
+        llm, _, _, _, launches = main_run(
+            card, arch, ServeConfig(**fields), n_req, n_prompt, n_new,
+            np.random.default_rng(SEED + 20 + i))
+        model = llm.engine.model
+        if arch == STABLELM:
+            log(f"serving {arch}: the paged kernels at dh "
+                f"{model.head_dim}: {launches['paged_attention']} decode and "
+                f"{launches['paged_prefill']} prefill launches")
+        del llm
+        free_card()
+        one_shot_equals_chunked(model, long_prompt(model.cfg.vocab))
+        del model
+        free_card()
+        log(f"phase 12 {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_mixtral(card)
+    log(f"phase 12 {MIXTRAL}: {time.perf_counter() - t0:.1f} s")
+
+
+# Phase 13: stablelm_3b trained whole (2,795,276,800 parameters: 33.5 GB
+# of bf16 parameters and gradients and f32 moments), 4 steps a run; the
+# contiguous cache at granite_8b's and mixtral's published widths.
+STABLELM_TRAIN_STEPS = 4
+CONTIG_DENSE = (2, 1024, 16)          # granite_8b: prompts, tokens, steps
+CONTIG_CHECK_PROMPT = 256
+
+
+def train_stablelm(card, kernel_rows) -> None:
+    """Phase 13a: stablelm_3b (dh 80) trained whole at its published widths,
+    unguided, two profiled steps, then guided with 60% of the state on HBM,
+    and the 2-layer f32 check against the plain path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.core import GuidanceConfig
+    from repro_torch.data import SyntheticLM
+
+    cfg = get(STABLELM)                    # bf16, remat on
+    src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda")
+                for k, v in src.batch_np(i).items()}
+               for i in range(STABLELM_TRAIN_STEPS)]
+    log(f"model {STABLELM} training: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}, remat {cfg.remat}; batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"{STABLELM_TRAIN_STEPS} steps a run")
+    losses, launches, trainer = train_run(card, f"{STABLELM} unguided", cfg,
+                                          batches, None)
+    for way in ("fwd", "bwd"):
+        kernel_rows[f"flash_attention_{way}_dh80"]["launches"] = \
+            launches[f"flash_attention_{way}"]
+    profile_training(card, trainer, batches[:2])
+    n_params = sum(p.numel() for p in trainer.params.values())
+    state = sum(p.numel() * p.element_size()
+                for p in trainer.params.values()) + 2 * 4 * n_params
+    log(f"training state ({STABLELM}): {n_params} parameters, {state} bytes "
+        f"of parameters and f32 moments")
+    del trainer
+    free_card()
+    gdt = GuidanceConfig(enabled=True, fast_capacity_bytes=int(state * 0.6),
+                         interval_steps=2, promotion_threshold=64 * 1024)
+    guided, _, trainer = train_run(card, f"{STABLELM} guided", cfg, batches,
+                                   gdt)
+    if not np.allclose(guided, losses, rtol=1e-5, atol=0):
+        raise AssertionError(f"{STABLELM} guided losses {guided} != unguided "
+                             f"{losses} (rtol 1e-5)")
+    if trainer.placer.slow_bytes() <= 0:
+        raise AssertionError(f"{STABLELM} guided training kept nothing on "
+                             f"pinned host")
+    log(f"{STABLELM} guided == unguided losses (rtol 1e-5), max rel diff "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(guided, losses)):.3e}; "
+        f"{trainer.placer.slow_bytes()} bytes on pinned host")
+    del trainer
+    free_card()
+    train_f32_check(batches[0], STABLELM)
+
+
+def contiguous_run(card, model, tokens, n_new, expect) -> list:
+    """A warm-up prefill, then the counted one: ``prefill`` of ``tokens``
+    into a fresh ``init_cache`` and ``n_new`` greedy ``decode`` steps, the
+    launch counters zeroed just before and read just after, held to
+    ``expect`` exactly.  Returns the generated tokens."""
+    import torch
+
+    cfg = model.cfg
+    B, S = tokens.shape
+    model.prefill(tokens, model.init_cache(B, S + n_new))
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(B, S + n_new)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens, cache)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = []
+    for pos in range(S, S + n_new):
+        nxt = logits.argmax(-1)
+        out.append(nxt)
+        logits, cache = model.decode(nxt, cache, pos)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = read_launches()
+    generated = torch.stack(out, 1).cpu()
+    if not torch.isfinite(logits).all() or logits.shape != (B, cfg.vocab):
+        raise AssertionError(f"{cfg.arch} contiguous logits shaped "
+                             f"{tuple(logits.shape)} or not finite")
+    for name in launches:
+        if launches[name] != expect.get(name, 0):
+            raise AssertionError(f"{cfg.arch} contiguous serving {name}: "
+                                 f"{launches[name]} launches, expected "
+                                 f"{expect.get(name, 0)}")
+    slots = cache["kv"]["k"].shape[2]
+    prefill_s, decode_s = t1 - t0, t2 - t1
+    log(f"contiguous {cfg.arch} ({cfg.n_layers} layers): prefill of {B} x "
+        f"{S} tokens in {1e3 * prefill_s:.2f} ms, "
+        f"{B * S / prefill_s:.1f} prompt tokens/s; {n_new} decode steps in "
+        f"{decode_s:.3f} s, {1e3 * decode_s / n_new:.2f} ms per step; cache "
+        f"of {slots} slots{' (a ring)' if slots < S + n_new else ''}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+        f" GiB; launches {launches}; first tokens "
+        f"{generated[:, :6].tolist()} {card.tag()}")
+    del cache, logits
+    return generated
+
+
+def contiguous_f32_check(arch, rng) -> None:
+    """``arch`` in f32 at its published widths cut to F32_CHECK_LAYERS
+    layers: the kernel path's prefill logits and cache against the plain
+    path's (``plain_kernels``), then prefill-then-decode against stepwise
+    decode on CONTIG_CHECK_PROMPT tokens, greedy tokens equal and logits
+    within HYBRID_TOL (the JAX package's own tolerance for the two forms),
+    as phase 7 checks the hybrid family."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get(arch), n_layers=F32_CHECK_LAYERS,
+                              dtype=torch.float32)
+    model = Model(cfg, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(SEED + 11))
+    S, n_new = CONTIG_CHECK_PROMPT, 4
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, S))).to("cuda")
+    reset_launches()
+    logits, cache = model.prefill(tokens, model.init_cache(1, S + n_new))
+    torch.cuda.synchronize()
+    if read_launches()["flash_attention_fwd"] != cfg.n_layers:
+        raise AssertionError(f"f32 {arch} prefill: {read_launches()}")
+    reset_launches()
+    with plain_kernels():
+        want, want_cache = model.prefill(tokens,
+                                         model.init_cache(1, S + n_new))
+    torch.cuda.synchronize()
+    if any(read_launches().values()):
+        raise AssertionError(f"the plain path launched kernels: "
+                             f"{read_launches()}")
+    err = float((logits - want).abs().max() / want.abs().max())
+    kv_err = max(float((cache["kv"][n][i] - want_cache["kv"][n][i]).norm()
+                       / want_cache["kv"][n][i].norm())
+                 for n in ("k", "v") for i in range(cfg.n_layers))
+    if err > HYBRID_TOL or kv_err > HYBRID_TOL:
+        raise AssertionError(f"f32 {arch} prefill, kernel vs plain path: "
+                             f"logits {err:.3e}, K/V {kv_err:.3e} (tol "
+                             f"{HYBRID_TOL})")
+    del want, want_cache
+    a, la = [], [logits]
+    for pos in range(S, S + n_new):
+        nxt = logits.argmax(-1)
+        a.append(int(nxt))
+        logits, cache = model.decode(nxt, cache, pos)
+        la.append(logits)
+    cache = model.init_cache(1, S + n_new)
+    for pos in range(S):
+        logits, cache = model.decode(tokens[:, pos], cache, pos)
+    b, lb = [], [logits]
+    for pos in range(S, S + n_new):
+        nxt = logits.argmax(-1)
+        b.append(int(nxt))
+        logits, cache = model.decode(nxt, cache, pos)
+        lb.append(logits)
+    worst = max(float(((x - y).abs() / (HYBRID_TOL + HYBRID_TOL * y.abs()))
+                      .max()) for x, y in zip(la, lb))
+    if a != b or worst > 1.0:
+        raise AssertionError(f"f32 {arch} prefill-then-decode {a} vs "
+                             f"stepwise {b}; logits {worst:.3f} of "
+                             f"atol=rtol={HYBRID_TOL}")
+    diff = max(float((x - y).abs().max()) for x, y in zip(la, lb))
+    log(f"f32 contiguous {arch} ({F32_CHECK_LAYERS} layers, {S}-token "
+        f"prompt): prefill kernel vs plain path logits {err:.3e} of "
+        f"max|logit|, K/V {kv_err:.3e} in norm; prefill-then-decode == "
+        f"stepwise decode, greedy {a}, logits max abs diff {diff:.3e} "
+        f"(atol=rtol={HYBRID_TOL})")
+    del model, cache
+    free_card()
+
+
+def serve_contiguous(card) -> None:
+    """Phase 13b: contiguous-cache ``prefill`` / ``decode``: granite_8b
+    whole (CONTIG_DENSE) and mixtral_8x7b at MIXTRAL_LAYERS layers (one
+    MIXTRAL_PROMPT-token prompt over a 4096-slot ring, MIXTRAL_NEW greedy
+    steps), launches counted; then the f32 2-layer checks of each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    rng = np.random.default_rng(SEED + 12)
+    model = Model(get(GRANITE8B), device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(SEED + 12))
+    B, S, n_new = CONTIG_DENSE
+    tokens = torch.from_numpy(
+        rng.integers(0, model.cfg.vocab, (B, S))).to("cuda")
+    contiguous_run(card, model, tokens, n_new,
+                   {"flash_attention_fwd": model.cfg.n_layers})
+    del model, tokens
+    free_card()
+    model = mixtral_model(SEED + 13)
+    L = model.cfg.n_layers
+    tokens = torch.from_numpy(
+        rng.integers(0, model.cfg.vocab, (1, MIXTRAL_PROMPT))).to("cuda")
+    if model.init_cache(1, MIXTRAL_PROMPT + MIXTRAL_NEW)["kv"]["k"].shape[2] \
+            != model.cfg.window:
+        raise AssertionError(f"{MIXTRAL}: the cache is not a ring of "
+                             f"{model.cfg.window} slots")
+    contiguous_run(card, model, tokens, MIXTRAL_NEW,
+                   {"flash_attention_fwd": L,
+                    "moe_grouped_ffn": L * (1 + MIXTRAL_NEW)})
+    del model, tokens
+    free_card()
+    for arch in (GRANITE8B, MIXTRAL):
+        contiguous_f32_check(arch, rng)
+
+
+def train_and_serve_contiguous(card, kernel_rows) -> None:
+    """Phase 13: stablelm_3b training, then contiguous-cache serving."""
+    t0 = time.perf_counter()
+    train_stablelm(card, kernel_rows)
+    log(f"phase 13 training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve_contiguous(card)
+    log(f"phase 13 contiguous serving: {time.perf_counter() - t0:.1f} s")
+
+
 # ------------------------------------------------------------ serving A/B
 AB_ROUNDS = 5
 
@@ -3506,13 +4313,16 @@ def main() -> int:
     t0 = time.perf_counter()
     kernel_rows = check_paged_kernels(card)
     kernel_rows["moe_grouped_ffn"] = check_moe_kernel(card)
+    check_moe_mixtral(card)
+    check_paged_new_paths(card)
     kernel_rows["moe_grouped_ffn_bwd"] = check_moe_backward(card)
     kernel_rows.update(check_flash_kernel(card))
     kernel_rows["ssd_scan"] = check_ssd_kernel(card)
     kernel_rows["ssd_scan_bwd"] = check_ssd_backward(card)
     log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
     for phase in (serve_dense, serve_moe, serve_shared_tiers, serve_cluster,
-                  train_dense, train_moe, serve_hybrid, train_hybrid):
+                  train_dense, train_moe, serve_hybrid, train_hybrid,
+                  serve_new_archs, train_and_serve_contiguous):
         t0 = time.perf_counter()
         phase(card, kernel_rows)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

@@ -55,7 +55,7 @@
 //     its dK and dV rows in registers; it computes S^T = K Q^T and
 //     dP^T = V dO^T with the keys as the M side, so P^T and dS^T are
 //     already A fragments for dV += P^T dO and dK += dS^T Q (no shared
-//     round trip), over q steps of 64 rows (32 at dh 112 and 128, to hold
+//     round trip), over q steps of 64 rows (32 at dh above 64, to hold
 //     the registers), the G query heads and the q steps in a fixed order.
 //     At dh <= 64 its registers are capped for 3 CTAs an SM (a few bytes
 //     spill, still faster than 2 CTAs; steps of 32 rows were slower).
@@ -486,7 +486,7 @@ constexpr int kMaxWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Query rows per step of the dK/dV kernel: 32 at dh 112 and 128 keep its
+// Query rows per step of the dK/dV kernel: 32 at dh above 64 keep its
 // S^T and dP^T tiles beside the dK and dV rows in registers.
 constexpr int bwd_rows(int dh) { return dh <= 64 ? 64 : 32; }
 
@@ -1178,10 +1178,10 @@ int tiles(int n, int tile) { return (n + tile - 1) / tile; }
 // (B,Sk,K,dh), out/dout/dq like q, dk/dv like k, lse and the backward's
 // row-dot scratch (B,H,Sq) f32, all contiguous, bf16 ones 16-byte aligned.
 // dtype 0 = float32 (SIMT), 1 = bfloat16 (tensor cores); dh in {16, 32,
-// 64, 112, 128}; window <= 0 means none (a window applies only under
-// causal).  rows_per_cta and warps are the forward's; the smem fields are
-// the plan's, checked against this file's.  Every grid is (heads, B,
-// tiles).
+// 64, 80, 96, 112, 128}; window <= 0 means none (a window applies only
+// under causal).  rows_per_cta and warps are the forward's; the smem
+// fields are the plan's, checked against this file's.  Every grid is
+// (heads, B, tiles).
 struct FlashArgs {
   long long B, Sq, Sk, H, K, dh, causal, window, dtype, rows_per_cta, warps,
       fwd_smem, dkdv_smem, dq_smem;
@@ -1194,7 +1194,8 @@ bool plan_ok(const FlashArgs* a) {
   const int dh = (int)a->dh;
   if (a->B <= 0 || a->Sq <= 0 || a->Sk <= 0 || a->K <= 0 || a->H % a->K)
     return false;
-  if (dh != 16 && dh != 32 && dh != 64 && dh != 112 && dh != 128)
+  if (dh != 16 && dh != 32 && dh != 64 && dh != 80 && dh != 96 &&
+      dh != 112 && dh != 128)
     return false;
   if (a->dtype == 0)
     return a->rows_per_cta == kTile && a->warps == kThreads / 32 &&
@@ -1309,6 +1310,8 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
     case 16: return (int)fwd<16>(q, k, v, out, l, a, s);
     case 32: return (int)fwd<32>(q, k, v, out, l, a, s);
     case 64: return (int)fwd<64>(q, k, v, out, l, a, s);
+    case 80: return (int)fwd<80>(q, k, v, out, l, a, s);
+    case 96: return (int)fwd<96>(q, k, v, out, l, a, s);
     case 112: return (int)fwd<112>(q, k, v, out, l, a, s);
     case 128: return (int)fwd<128>(q, k, v, out, l, a, s);
     default: return (int)cudaErrorInvalidValue;
@@ -1331,6 +1334,8 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
     case 16: return (int)bwd<16>(q, k, v, out, dout, l, d, dq, dk, dv, a, s);
     case 32: return (int)bwd<32>(q, k, v, out, dout, l, d, dq, dk, dv, a, s);
     case 64: return (int)bwd<64>(q, k, v, out, dout, l, d, dq, dk, dv, a, s);
+    case 80: return (int)bwd<80>(q, k, v, out, dout, l, d, dq, dk, dv, a, s);
+    case 96: return (int)bwd<96>(q, k, v, out, dout, l, d, dq, dk, dv, a, s);
     case 112: return (int)bwd<112>(q, k, v, out, dout, l, d, dq, dk, dv, a, s);
     case 128: return (int)bwd<128>(q, k, v, out, dout, l, d, dq, dk, dv, a, s);
     default: return (int)cudaErrorInvalidValue;

@@ -4,7 +4,10 @@ The CUDA kernels replace the TPU kernel ``flash_attention_pallas``
 (``repro/kernels/flash_attention.py``): blockwise online-softmax attention
 with GQA, causal and sliding-window masks and ``q_offset = Sk - Sq``, in
 the model's ``(B, S, heads, dh)`` layout, scores in f32, dh 16, 32, 64,
-112 (zamba2's shared attention) or 128.  The JAX backward recomputes
+80 (stablelm), 96 (phi3-vision), 112 (zamba2's shared attention) or 128:
+every head dim a multiple of 16 runs the same templates, whose k-loops
+step 16 columns of dh at a time, so an odd number of steps (5 at dh 80, 7
+at 112) needs no case of its own.  The JAX backward recomputes
 through the oracle; here the backward is kernels as well (dK/dV per key
 tile, then dQ per query tile, no atomics, bitwise the same from run to
 run).  bf16 runs on tensor cores (``mma.sync`` fed by ``ldmatrix`` from a
@@ -41,7 +44,8 @@ from . import _build
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd": 0}
 
-HEAD_DIMS = (16, 32, 64, 112, 128)  # the instantiations in the .cu file
+# The instantiations in the .cu file.
+HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 227 * 1024           # H100: shared memory one block may use
 MAX_TILES = 65535                 # gridDim.y and .z: batch, tiles

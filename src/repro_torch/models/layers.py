@@ -16,9 +16,10 @@ Training forms.  ``norm``, ``project``, ``attention``, ``swiglu``,
 ``rmsnorm``, the einsums, ``attention``, ``mlp``, ``cross_entropy``,
 ``chunked_lm_loss``) run on whole tensors and are differentiable;
 attention goes through ``kernels.ops.flash_attention`` (the hand-written
-forward and backward kernels on the card).  The hybrid family's
-contiguous-cache serving uses them too, with ``attention_decode`` for one
-token against a contiguous KV cache.
+forward and backward kernels on the card).  Contiguous-cache serving
+uses them too, with ``attention_decode`` for one token against a
+contiguous KV cache and ``attention_decode_ring`` against a sliding-window
+arch's ring of ``window`` slots.
 """
 
 from __future__ import annotations
@@ -134,34 +135,49 @@ def attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 def attention_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
-                     freqs: torch.Tensor,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     freqs: torch.Tensor, window: Optional[int] = None,
+                     ring: bool = False) -> torch.Tensor:
     """One-token decode against a contiguous KV cache
     (``repro/models/layers.py`` ``attention_decode``): x (B, 1, d);
     cache_k/v (B, S_max, K, dh), written in place at ``pos`` with this
     token's roped k and v.  Scores over the keys at positions <= pos (and
     inside the window, if any) in f32, softmax, the product with V in f32,
-    a cast to x's dtype, then ``wo``.  Plain torch: the JAX package has no
+    a cast to x's dtype, then ``wo``.  With ``ring``, the cache is a ring
+    (``attention_decode_ring``).  Plain torch: the JAX package has no
     kernel here.  Returns y (B, 1, d)."""
     B, S_max, K, dh = cache_k.shape
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = rope(project(x, p["wq"]), positions, freqs)          # (B,1,H,dh)
     k1 = rope(project(x, p["wk"]), positions, freqs)
     v1 = project(x, p["wv"])
-    cache_k[:, pos] = k1[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v1[:, 0].to(cache_v.dtype)
+    slot = pos % S_max if ring else pos
+    cache_k[:, slot] = k1[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v1[:, 0].to(cache_v.dtype)
     H = q.shape[2]
     qg = q.reshape(B, K, H // K, dh).to(F32)
     s = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.to(F32))
     s = s * (1.0 / np.sqrt(dh))
     k_pos = torch.arange(S_max, device=x.device)
     allowed = k_pos <= pos
-    if window is not None:
+    if window is not None and not ring:
         allowed &= (pos - k_pos) < window
     s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", w, cache_v.to(F32)).to(x.dtype)
     return project(o.reshape(B, 1, H, dh), p["wo"], k=2)
+
+
+def attention_decode_ring(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          pos: int, freqs: torch.Tensor) -> torch.Tensor:
+    """One-token decode against the ring KV cache of a sliding-window arch
+    (``repro/models/layers.py`` ``attention_decode_ring``): cache_k/v (B,
+    W, K, dh), this token's roped k and v written at slot pos % W.  Keys
+    are stored roped at their absolute positions, so the ring needs no
+    rotation; until the ring fills (pos < W - 1) only slots <= pos hold
+    data, after that every slot is inside the window.  Returns y (B, 1,
+    d)."""
+    return attention_decode(p, x, cache_k, cache_v, pos, freqs, ring=True)
 
 
 def swiglu(p: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

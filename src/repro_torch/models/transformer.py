@@ -22,11 +22,20 @@ recompute under remat picks the experts the first forward picked.
 The hybrid family (zamba2: Mamba2 layers with one shared attention+MLP
 block after every ``attn_every`` of them) holds ``ssm_layers.<i>.ln`` and
 ``ssm_layers.<i>.ssm`` (``models/ssm.py``) and ``shared_attn.{ln1, attn,
-ln2, mlp}``.  It serves through a contiguous cache: ``init_cache``,
-``prefill`` and ``decode`` (``_prefill_hybrid``, ``_decode_hybrid``), every
-Mamba2 intra-chunk block through the SSD kernel and every shared-attention
-prefill through the flash forward kernel.  The paged ``Engine`` serves the
-dense and MoE families only, as the JAX engine does.
+ln2, mlp}``.
+
+Every family serves through a contiguous cache: ``init_cache``,
+``prefill`` and ``decode`` (``cache_defs``, ``_prefill_attn``,
+``_prefill_hybrid``, ``decode``).  The dense and MoE families' prefill
+runs every attention through the flash forward kernel (with the config's
+window) and every MoE layer through ``moe`` (the grouped-expert kernel);
+their decode is plain torch (``attention_decode``, or
+``attention_decode_ring`` over a ring cache of ``window`` slots, where
+position p lives in slot p % window) with ``moe_decode``, which routes as
+prefill does.  The hybrid family's prefill runs every Mamba2 intra-chunk
+block through the SSD kernel and every shared-attention prefill through
+the flash forward kernel.  The paged ``Engine`` serves the dense and MoE
+families, as the JAX engine does.
 
 Parameters are made with ``requires_grad=False``, so serving builds no
 autograd graph.  Training hands ``loss`` its own leaves (``params``: the
@@ -51,13 +60,8 @@ from ..kernels import ops
 from .config import ModelConfig
 from .layers import (attention, attention_decode, chunked_lm_loss, norm,
                      param, project, rope, rope_freqs, swiglu)
-from .moe import CAPACITY_NOT_PORTED, MoEConfig, moe
+from .moe import CAPACITY_NOT_PORTED, MoEConfig, moe, moe_decode
 from .ssm import SSM, SSMConfig, ssm_decode, ssm_forward
-
-CONTIGUOUS_CACHE_NOT_PORTED = (
-    "contiguous-cache prefill/decode is ported for the hybrid family only; "
-    "the dense and MoE families serve through the paged Engine "
-    "(ROADMAP.md queue A item 13)")
 
 _NOT_PORTED = {
     "xlstm": "ROADMAP.md queue A item 10 (other families)",
@@ -347,32 +351,34 @@ class Model(nn.Module):
         return chunked_lm_loss(P["head.w"], x, batch["labels"])
 
     # ============================================================= serving
-    def _check_hybrid(self) -> None:
-        if self.ssm_cfg is None:
-            raise NotImplementedError(CONTIGUOUS_CACHE_NOT_PORTED)
-
     def init_cache(self, batch: int, seq: int) -> Dict:
         """The contiguous cache of ``batch`` rows and ``seq`` positions
-        (``cache_defs``), zeros on the model's device: ``kv`` {``k``, ``v``}
-        (n_attn, B, S, K, dh) and ``conv`` (L, B, W-1, d_inner) in
-        ``cfg.dtype``, ``ssm`` (L, B, H, N, P) in f32; n_attn is
-        ``n_layers // attn_every``."""
-        self._check_hybrid()
-        cfg, sc = self.cfg, self.ssm_cfg
-        n_attn = cfg.n_layers // cfg.attn_every
-        kv_shape = (n_attn, batch, seq, cfg.kv_heads, self.head_dim)
+        (``cache_defs``), zeros on the model's device.  ``kv`` {``k``,
+        ``v``} (n, B, S, K, dh) in ``cfg.dtype``, where S is ``seq``, or
+        ``min(seq, window)`` for a windowed arch (a ring: decode at
+        position p writes slot p % window); n is ``n_layers``, or
+        ``n_layers // attn_every`` for the hybrid family, whose cache also
+        holds ``conv`` (L, B, W-1, d_inner) in ``cfg.dtype`` and ``ssm``
+        (L, B, H, N, P) in f32."""
+        cfg = self.cfg
+        if cfg.window is not None:
+            seq = min(seq, cfg.window)
+        n_kv = (cfg.n_layers if self.ssm_cfg is None
+                else cfg.n_layers // cfg.attn_every)
+        kv_shape = (n_kv, batch, seq, cfg.kv_heads, self.head_dim)
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        return {
-            "kv": {"k": zeros(kv_shape, cfg.dtype),
-                   "v": zeros(kv_shape, cfg.dtype)},
-            "conv": zeros((cfg.n_layers, batch, sc.conv_width - 1,
-                           cfg.d_inner), cfg.dtype),
-            "ssm": zeros((cfg.n_layers, batch, sc.n_heads, sc.state_dim,
-                          sc.head_dim), torch.float32),
-        }
+        cache = {"kv": {"k": zeros(kv_shape, cfg.dtype),
+                        "v": zeros(kv_shape, cfg.dtype)}}
+        sc = self.ssm_cfg
+        if sc is not None:
+            cache["conv"] = zeros((cfg.n_layers, batch, sc.conv_width - 1,
+                                   cfg.d_inner), cfg.dtype)
+            cache["ssm"] = zeros((cfg.n_layers, batch, sc.n_heads,
+                                  sc.state_dim, sc.head_dim), torch.float32)
+        return cache
 
     def _segments(self):
         """(layer range, shared-block index or None) in order: each full
@@ -409,12 +415,16 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: Dict):
         """Consume prompts ``tokens`` (B, S) and fill ``cache`` (from
-        ``init_cache`` with at least S positions) in place: each Mamba2
-        layer's conv and SSM state, and each shared application's roped K/V
-        at the head of its slot.  Returns (f32 logits (B, vocab) of the last
-        position, cache).  S must be at most the SSD chunk or a multiple of
-        it."""
-        self._check_hybrid()
+        ``init_cache``) in place; returns (f32 logits (B, vocab) of the last
+        position, cache).  The dense and MoE families write each layer's
+        roped K/V at the head of the cache, which holds at least S
+        positions, or, for a windowed arch whose prompt is longer than the
+        window, the last ``window`` of them at their ring slots
+        (``_prefill_attn``).  The hybrid family writes each Mamba2 layer's
+        conv and SSM state and each shared application's K/V at the head of
+        its slot; S must be at most the SSD chunk or a multiple of it."""
+        if self.ssm_cfg is None:
+            return self._prefill_attn(tokens, cache)
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         freqs = self._freqs(tokens.device)
@@ -446,8 +456,11 @@ class Model(nn.Module):
     def decode(self, tokens: torch.Tensor, cache: Dict, pos: int):
         """One step for every row: ``tokens`` (B,) or (B, 1) at position
         ``pos`` (the same for all rows).  Updates ``cache`` in place and
-        returns (f32 logits (B, vocab), cache)."""
-        self._check_hybrid()
+        returns (f32 logits (B, vocab), cache).  A windowed arch's cache of
+        at most ``window`` positions is a ring (``attention_decode_ring``),
+        as in the JAX package."""
+        if self.ssm_cfg is None:
+            return self._decode_attn(tokens, cache, pos)
         x = self.embed.tok[tokens.reshape(-1, 1).long()]        # (B,1,d)
         freqs = self._freqs(x.device)
         sp = self._shared()
@@ -467,4 +480,73 @@ class Model(nn.Module):
                                      cache["kv"]["v"][j], pos, freqs,
                                      window=self.cfg.window)
             x = x + swiglu(sp["mlp"], norm(sp["ln2"], x))
+        return self._logits(x[:, 0]), cache
+
+    def _decoder_layer(self, i: int):
+        """Layer i's tensors nested as the JAX layer tree is (the module's
+        own)."""
+        return self._layer_params(dict(self.layers[i].named_parameters(
+            prefix=f"layers.{i}")), i)
+
+    def _ffn(self, lp: Mapping, h: torch.Tensor, decode: bool = False
+             ) -> torch.Tensor:
+        if self.moe_cfg is None:
+            return swiglu(lp["mlp"], h)
+        return (moe_decode if decode else moe)(lp["moe"], h, self.moe_cfg)
+
+    def _prefill_attn(self, tokens: torch.Tensor, cache: Dict):
+        """The dense and MoE prefill (``_prefill_attn``): each layer's
+        attention through the flash forward with the config's window, its
+        roped K/V into the cache; past the window (S > W) only the last W
+        positions are kept, position p at slot p % W, so decode continues
+        on the ring."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        ck, cv = cache["kv"]["k"], cache["kv"]["v"]
+        W = cfg.window
+        ring = W is not None and S > W
+        want = W if ring else S
+        if (ck.shape[2] != W) if ring else (ck.shape[2] < S):
+            raise ValueError(
+                f"prefill of {S} positions needs a cache of "
+                f"{'exactly' if ring else 'at least'} {want} positions, got "
+                f"{ck.shape[2]} (init_cache(batch, seq) with seq >= {S})")
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        slots = (torch.arange(S - W, S, device=tokens.device) % W
+                 if ring else None)
+        freqs = self._freqs(tokens.device)
+        x = self.embed.tok[tokens.long()]
+        for i in range(cfg.n_layers):
+            lp = self._decoder_layer(i)
+            h = norm(lp["ln1"], x)
+            q = rope(project(h, lp["attn"]["wq"]), positions, freqs)
+            k = rope(project(h, lp["attn"]["wk"]), positions, freqs)
+            v = project(h, lp["attn"]["wv"])
+            if ring:
+                ck[i][:, slots] = k[:, S - W:].to(ck.dtype)
+                cv[i][:, slots] = v[:, S - W:].to(cv.dtype)
+            else:
+                ck[i, :, :S] = k.to(ck.dtype)
+                cv[i, :, :S] = v.to(cv.dtype)
+            o = ops.flash_attention(q, k, v, causal=True, window=W)
+            x = x + project(o, lp["attn"]["wo"], k=2)
+            x = x + self._ffn(lp, norm(lp["ln2"], x))
+        return self._logits(x[:, -1]), cache
+
+    def _decode_attn(self, tokens: torch.Tensor, cache: Dict, pos: int):
+        """The dense and MoE branch of ``decode``: a ring cache
+        (``attention_decode_ring``) when the arch has a window and the cache
+        holds at most that many positions, else attention over positions <=
+        pos (and inside the window)."""
+        cfg = self.cfg
+        ck, cv = cache["kv"]["k"], cache["kv"]["v"]
+        ring = cfg.window is not None and ck.shape[2] <= cfg.window
+        x = self.embed.tok[tokens.reshape(-1, 1).long()]        # (B,1,d)
+        freqs = self._freqs(x.device)
+        for i in range(cfg.n_layers):
+            lp = self._decoder_layer(i)
+            x = x + attention_decode(lp["attn"], norm(lp["ln1"], x), ck[i],
+                                     cv[i], pos, freqs, window=cfg.window,
+                                     ring=ring)
+            x = x + self._ffn(lp, norm(lp["ln2"], x), decode=True)
         return self._logits(x[:, 0]), cache

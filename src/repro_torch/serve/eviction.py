@@ -14,7 +14,7 @@ wanted slow), tie-breaking by least-recently-scheduled request.  ``lru`` and
 
 from __future__ import annotations
 
-from typing import Dict, List, Type
+from typing import Dict, List, Optional, Type
 
 from .kvcache import Page
 
@@ -22,10 +22,14 @@ from .kvcache import Page
 class EvictionPolicy:
     """Ranks the pages that may lose their HBM slot.  Stateless by default.
 
-    A policy gives each candidate a sort key; ``pick_many`` ranks the
-    candidates once by a stable sort on it, so victims come in key order
-    and, among equal keys, in candidate order (what repeating ``min`` and
-    dropping the winner gives, at one ranking instead of one per victim).
+    A policy implements ``pick`` (the reference's hook: the one victim of
+    ``candidates``) or ``keys`` (one sort key per candidate).  The built-ins
+    give keys, and their ``pick`` is the candidate with the least key, the
+    first among equals.  ``pick_many`` ranks by one stable sort on the keys,
+    so victims come in key order and, among equal keys, in candidate order
+    (what repeating ``pick`` and dropping the winner gives, at one ranking
+    instead of one per victim); a class whose ``pick`` is its own, below
+    the class that gives its ``keys``, is ranked by repeated ``pick``.
     """
 
     name = "base"
@@ -34,15 +38,43 @@ class EvictionPolicy:
         """One sort key per candidate, in candidate order."""
         raise NotImplementedError
 
+    def pick(self, candidates: List[Page], engine) -> Optional[int]:
+        """The page id of the next victim, or None when there is none."""
+        if not candidates:
+            return None
+        keys = self.keys(candidates, engine)
+        return candidates[min(range(len(candidates)),
+                              key=keys.__getitem__)].page_id
+
     def pick_many(self, candidates: List[Page], engine,
                   n: int) -> List[int]:
         """Up to ``n`` victims, best first; the engine swaps them out in
         ONE batched migration rather than one transfer per victim."""
         if n <= 0 or not candidates:
             return []
+        if _ranks_by_pick(type(self)):
+            pool, victims = list(candidates), []
+            while len(victims) < n and pool:
+                vid = self.pick(pool, engine)
+                if vid is None:
+                    break
+                victims.append(vid)
+                pool = [p for p in pool if p.page_id != vid]
+            return victims
         keys = self.keys(candidates, engine)
         ranked = sorted(range(len(candidates)), key=keys.__getitem__)
         return [candidates[i].page_id for i in ranked[:n]]
+
+
+def _ranks_by_pick(cls: type) -> bool:
+    """Whether ``cls`` overrides ``pick`` below the class that gives its
+    ``keys``: then only repeated ``pick`` honours it."""
+    mro = cls.__mro__
+
+    def owner(attr: str) -> int:
+        return next(i for i, c in enumerate(mro) if attr in vars(c))
+
+    return owner("pick") < owner("keys")
 
 
 class LRUEviction(EvictionPolicy):

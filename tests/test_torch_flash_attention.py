@@ -196,7 +196,7 @@ def test_plan_grids_cover_every_tile(B, Sq, Sk, H, K, dtype):
 
 @pytest.mark.parametrize("args,match", [
     ((1, 16, 16, 4, 2, 48, torch.bfloat16), "head_dim"),
-    ((1, 16, 16, 4, 2, 80, torch.float32), "head_dim"),
+    ((1, 16, 16, 4, 2, 72, torch.float32), "head_dim"),
     ((1, 16, 16, 6, 4, 64, torch.bfloat16), "group"),
     ((1, 16, 16, 4, 0, 64, torch.bfloat16), "group"),
     ((1, 0, 16, 4, 2, 64, torch.bfloat16), "nothing to attend"),

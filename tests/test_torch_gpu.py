@@ -53,6 +53,8 @@ def case(dev, dtype, B, H, K, dh, N, P, MP, seed=0):
     (4, 32, 8, 64, 256, 16, 64, None),
     (4, 24, 8, 64, 80, 16, 32, None),       # the MoE serving path's shape
     (4, 24, 8, 64, 80, 16, 32, 200),
+    (4, 32, 32, 80, 96, 16, 24, None),      # stablelm_3b: 32/32 of dh 80
+    (4, 32, 32, 80, 96, 16, 24, 37),
 ])
 def test_paged_attention_kernel_matches_plain(cuda, dtype, B, H, K, dh, N,
                                               P, MP, window):
@@ -117,7 +119,7 @@ def contract_case(dev, dtype, H, K, dh, S, pad, hole, seed):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("H,K", [(24, 8), (32, 8)])       # G = 3 and 4
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 80, 128])
 @pytest.mark.parametrize("window", [None, 37])   # ends mid-page, mid-block
 @pytest.mark.parametrize("hole", [False, True])
 def test_prefill_rows_bitwise_equal_decode_rows(cuda, dtype, H, K, dh,
@@ -249,6 +251,8 @@ EDGES = [15, 16, 17, 63, 64, 65]
     (200, 8, 256, 128, [40, 0, 33, 1, 60, 0, 50, 16], None),
     (32, 40, 1536, 512, routed(4, 40, 8, 0), None),     # granite decode
     (2048, 40, 1536, 512, routed(256, 40, 8, 1), None),  # granite prefill
+    (32, 8, 4096, 14336, routed(16, 8, 2, 2), None),    # mixtral decode
+    (2048, 8, 4096, 14336, routed(1024, 8, 2, 3), None),  # mixtral prefill
     (243, 6, 128, 96, EDGES, None),                     # 64-row tiles
     (243, 40, 128, 96, EDGES + [0] * 34, None),         # 16-row tiles
     # 40 groups (a last chunk of 8 for the kernel's 32-lane scan) and rows
@@ -613,6 +617,11 @@ FLASH_CASES = [
     (1, 300, 100, 8, 2, 64, True, None),      # rows that see no key, dh 64
     (1, 300, 100, 8, 2, 112, True, None),     # and dh 112
     (1, 300, 100, 4, 1, 112, True, 30),       # and under a window
+    (2, 130, 130, 4, 4, 80, True, None),      # dh 80 (stablelm_3b)
+    (1, 96, 160, 8, 4, 80, False, None),      # dh 80, non-causal, Sq < Sk
+    (1, 300, 100, 4, 2, 80, True, 30),        # dh 80, rows that see nothing
+    (1, 257, 257, 4, 4, 96, True, None),      # dh 96 (phi3_vision_4_2b)
+    (1, 200, 200, 8, 2, 96, True, 37),        # dh 96 under a window
 ]
 
 
@@ -654,7 +663,7 @@ def test_flash_attention_backward_is_bitwise_reproducible(cuda):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dh", [112, 128])
+@pytest.mark.parametrize("dh", [80, 96, 112, 128])
 def test_flash_attention_backward_is_bitwise_reproducible_at_wide_heads(
         cuda, dh):
     from repro_torch.kernels import flash_attention as fa

@@ -232,6 +232,10 @@ def test_what_the_slice_does_not_serve_raises(pair):
         Engine(tm, ServeConfig())
     with pytest.raises(ValueError, match="paged engine serves decoder LMs"):
         LLM.from_arch(ARCH, device="cpu")
+    # A dense model's contiguous cache has the JAX package's shape.
     dense = Model(configs.get_smoke("llama3_2_1b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        dense.init_cache(1, 8)
+    want = build_model(jget_smoke("llama3_2_1b")).init_cache(1, 8)
+    got = dense.init_cache(1, 8)
+    assert set(got) == set(want) == {"kv"}
+    for leaf in ("k", "v"):
+        assert tuple(got["kv"][leaf].shape) == want["kv"][leaf].shape
