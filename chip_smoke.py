@@ -76,9 +76,8 @@ Phases, each of which raises on failure:
    the published widths in bf16 with random weights: 8 requests of 512
    prompt tokens, KV pages migrating between HBM and pinned host memory
    under the guidance runtime.  The launch counters are zeroed just before
-   and read just after.  Then a synchronised breakdown and a profiler pass
-   of the same workload (the paged kernels' share of the device's time),
-   one-shot prefill == chunked prefill on a 100-token prompt and on a
+   and read just after.  Then a synchronised breakdown of the same
+   workload, one-shot prefill == chunked prefill on a 100-token prompt and on a
    300-token one (across the kernel's key-block edges), and an f32 copy
    cut to 2 layers against a plain contiguous forward pass.
 5. MoE serving, after the dense model is freed:
@@ -86,9 +85,7 @@ Phases, each of which raises on failure:
    published widths (32 layers, 40 experts, top-8) in bf16: 8 requests of
    256 prompt tokens with pages migrating both ways, every expert FFN
    through the grouped-expert kernel (counters zeroed just before, read
-   just after); then a synchronised breakdown and a profiler pass of the
-   same workload (the grouped-expert and paged kernels' device time,
-   launches and share of the busy time, and the device's idle share);
+   just after); then a synchronised breakdown of the same workload;
    one-shot == chunked on a 64-token and a 300-token prompt at all 32
    layers;
    an f32 copy cut to 2 layers against a plain forward pass with plain
@@ -131,8 +128,7 @@ Phases, each of which raises on failure:
    streams and grouped-FFN launches equal phase 5's resident run, the
    engine's device memory after build lower by at least the 960 blocks
    left on the host; then 2 requests with double buffering off and on,
-   bitwise equal, and a synchronised breakdown and a profiled pass of
-   the 2-request run (the host-to-device copies' share of the busy time).
+   bitwise equal, and a synchronised breakdown of the 2-request run.
 
 9. Cluster serving, run after phase 8 (before training): ``llama3_2_1b``
    at its published widths behind ``LLM(model, cfg, replicas=N)``, phase
@@ -212,7 +208,33 @@ Phases, each of which raises on failure:
    prefill-then-decode against stepwise decode (greedy tokens equal,
    logits within 2e-3).
 
-Phase 3 also checks flash attention at dh 80 and 96 (2 x 2048 tokens,
+14. The last three families at their published widths in bf16, random
+   weights from seeded generators, the launch counters zeroed just before
+   each run and read just after.  14a: ``phi3_vision_4_2b`` whole (dh 96):
+   ``prefill`` of 2 x (576 seeded patch embeddings + 448 tokens) and 16
+   greedy ``decode`` steps (32 flash launches at dh 96), ``Trainer`` 4
+   steps of 2 x (576 + 1472) with remat and phase 6's AdamW (64 forward
+   and 32 backward flash launches a step) and two profiled steps; an f32
+   copy cut to 2 layers, its attention projections scaled to unit score
+   deviation: loss and each gradient leaf against the plain path
+   (``plain_kernels``) to 1e-4, prefill logits and cache to 1e-4, each
+   greedy decode step after the prefill against the full forward of the
+   sequence so far (logits within 2e-3).  14b: ``seamless_m4t_medium``
+   whole (12 + 12 layers, dh 64, vocab 256206): prefill of 2 x (1024
+   frames + 256 tokens) and 16 greedy steps (36 flash launches: 12
+   causal in the encoder, 12 causal self and 12 non-causal cross in the
+   decoder), 2 training steps of 2 x (1024 frames, 1024 tokens), the f32
+   2-layer check.  14c: ``xlstm_350m`` whole (plain torch, every counter
+   0): prefill of 4 x 1024 and 32 greedy steps, 2 ``Trainer`` steps at 2
+   x 1024 (the sLSTM's time loop), and an f32 copy at the smoke depth (4
+   layers, one sLSTM):
+   prefill-then-decode against stepwise decode.
+
+Phase 3 also checks the flash kernels on the encoder-decoder's cross
+attention (B=2, 16/16 heads of 64, non-causal, bf16 and f32, forward and
+backward, bitwise repeats: Sq 256 on Sk 1024, timed beside SDPA, and
+training's Sq = Sk = 1024), and flash
+attention at dh 80 and 96 (2 x 2048 tokens,
 32/32 heads, bf16 and f32, forward and backward, bitwise repeats, timed
 beside SDPA, ptxas's registers and spills), the flash forward at dh 128
 on the contiguous prefill's shapes (granite's and mixtral's, windowed),
@@ -267,10 +289,10 @@ SOURCES = {"ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "flash_attention_bwd":
                "src/repro_torch/kernels/csrc/flash_attention.cu"}
-for _dh in (112, 80, 96):
+for _dh in (112, 80, 96, "cross"):
     for _way in ("fwd", "bwd"):
-        SOURCES[f"flash_attention_{_way}_dh{_dh}"] = \
-            SOURCES[f"flash_attention_{_way}"]
+        _name = f"flash_attention_{_way}_{'' if _dh == 'cross' else 'dh'}{_dh}"
+        SOURCES[_name] = SOURCES[f"flash_attention_{_way}"]
 SOURCES["ssd_scan_bwd"] = SOURCES["ssd_scan"]
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:113",
             "paged_prefill": "src/repro/kernels/paged_attention.py:95",
@@ -279,25 +301,28 @@ REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:113",
             "flash_attention_fwd": "src/repro/kernels/flash_attention.py:153",
             "flash_attention_bwd": "src/repro/kernels/flash_attention.py:166",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:65"}
-for _dh in (112, 80, 96):
+for _dh in (112, 80, 96, "cross"):
     for _way in ("fwd", "bwd"):
-        REPLACES[f"flash_attention_{_way}_dh{_dh}"] = \
-            REPLACES[f"flash_attention_{_way}"]
+        _name = f"flash_attention_{_way}_{'' if _dh == 'cross' else 'dh'}{_dh}"
+        REPLACES[_name] = REPLACES[f"flash_attention_{_way}"]
 # The SSD backward stands for the autograd the JAX package takes through
 # its jnp ssd_chunked (ssd_scan_pallas has no VJP).
 REPLACES["ssd_scan_bwd"] = "src/repro/models/ssm.py:84"
 # flash_attention_fwd_dh112 is the flash forward at zamba2's head dim, its
 # launches those of the hybrid prefill; flash_attention_bwd_dh112 the
 # backward at that head dim, its launches those of hybrid training.  The
-# dh 80 pair's launches are stablelm_3b training's (phase 13); dh 96
-# (phi3_vision_4_2b) has no path in the port yet (ROADMAP.md A10), so its
-# pair shows 0 launches.
+# dh 80 pair's launches are stablelm_3b training's (phase 13); the dh 96
+# pair's phi3_vision_4_2b's prefill and training (phase 14a).  The dh 64
+# pair counts dense training's (phase 6) and the encoder-decoder's (phase
+# 14b); the cross pair is the encoder-decoder's non-causal calls among
+# them (its cross attention, Sq != Sk).
 KERNELS = ("paged_attention", "paged_prefill", "moe_grouped_ffn",
            "moe_grouped_ffn_bwd", "flash_attention_fwd",
            "flash_attention_bwd", "ssd_scan", "flash_attention_fwd_dh112",
            "ssd_scan_bwd", "flash_attention_bwd_dh112",
            "flash_attention_fwd_dh80", "flash_attention_bwd_dh80",
-           "flash_attention_fwd_dh96", "flash_attention_bwd_dh96")
+           "flash_attention_fwd_dh96", "flash_attention_bwd_dh96",
+           "flash_attention_fwd_cross", "flash_attention_bwd_cross")
 F32_CHECK_LAYERS = 2
 DENSE, MOE, HYBRID = "llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b"
 # The SSD kernel against its plain version: as a fraction of max|y| (the
@@ -1518,6 +1543,7 @@ def check_flash_kernel(card) -> dict:
     rows["flash_attention_bwd_dh112"] = check_flash_bwd_112(card, case)
     free_card()
     rows.update(check_flash_new_dims(card, case))
+    rows.update(check_flash_cross(card, case))
     check_flash_prefill_128(card, case)
     return rows
 
@@ -1784,6 +1810,130 @@ def check_flash_new_dims(card, case) -> dict:
         del q, k, v, do, out, lse, qr, kr, vr, plain_out, qs, ks, vs, dos
         del sdpa_out
         free_card()
+    return rows
+
+
+# The encoder-decoder's cross attention (phase 14b's shapes, seamless's
+# 16/16 heads of 64): (B, Sq, Sk, H, K, dh), no mask.  CROSS_FLASH is the
+# prefill's call (256 tokens on 1024 frames), checked and timed;
+# CROSS_FLASH_TRAIN training's (1024 tokens on 1024 frames), checked.
+CROSS_FLASH = (2, 256, 1024, 16, 16, 64)
+CROSS_FLASH_TRAIN = (2, 1024, 1024, 16, 16, 64)
+
+
+def check_flash_cross(card, case) -> dict:
+    """Phase 3, the flash kernels on the encoder-decoder's non-causal
+    calls (CROSS_FLASH: Sq != Sk, and CROSS_FLASH_TRAIN): forward and
+    backward in bf16 and f32 against the plain version and its autograd
+    gradients (TOL, GRAD_TOL), two launches of each bitwise equal; then,
+    in bf16 at CROSS_FLASH, timed beside the plain version and SDPA
+    forward and backward, by CUDA events and by the profiler.  Returns the
+    two kernel rows (launches filled in by phase 14b)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    worst = {}
+    for shape, dtype_name, dtype in (
+            (s, n, d) for s in (CROSS_FLASH, CROSS_FLASH_TRAIN)
+            for n, d in (("bfloat16", torch.bfloat16),
+                         ("float32", torch.float32))):
+        B, Sq, Sk, H, K, dh = shape
+        q, k, v, do = case(B, Sq, Sk, H, K, dh, dtype)
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v, causal=False)
+        out2, lse2 = fa.flash_attention_fwd_cuda(q, k, v, causal=False)
+        grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                            causal=False)
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                            causal=False)
+        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+        want = ref.mha_reference(qr, kr, vr, causal=False)
+        want_grads = torch.autograd.grad(want, (qr, kr, vr), do)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)
+                and all(torch.equal(a, b) for a, b in zip(grads, again))):
+            raise AssertionError(f"flash cross Sq={Sq} Sk={Sk} {dtype_name}:"
+                                 f" two launches differ")
+        errs = {}
+        for name, got, w, tol in (
+                ("out", out, want, TOL[dtype_name]),
+                *((n, g, wg, GRAD_TOL[dtype_name]) for n, g, wg in
+                  zip(("dq", "dk", "dv"), grads, want_grads))):
+            w = w.detach().float()
+            diff = (got.float() - w).abs()
+            if not torch.isfinite(got).all() or not bool(
+                    (diff <= tol + tol * w.abs()).all()):
+                raise AssertionError(
+                    f"flash cross Sq={Sq} Sk={Sk} {dtype_name} {name}: max "
+                    f"abs err "
+                    f"{float(diff.max())} outside atol=rtol={tol}")
+            errs[name] = float(diff.max())
+        if shape == CROSS_FLASH and dtype == torch.bfloat16:
+            worst = errs
+        log(f"kernel check flash_attention cross B={B} Sq={Sq} Sk={Sk} "
+            f"{H}/{K} heads dh={dh} non-causal {dtype_name}: forward max abs "
+            f"err {errs['out']:.3e} (atol=rtol={TOL[dtype_name]}), dq/dk/dv "
+            f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} "
+            f"(atol=rtol={GRAD_TOL[dtype_name]}); two forward and two "
+            f"backward launches bitwise equal")
+        del q, k, v, do, out, lse, out2, lse2, grads, again, qr, kr, vr
+        del want, want_grads
+    B, Sq, Sk, H, K, dh = CROSS_FLASH
+    q, k, v, do = case(B, Sq, Sk, H, K, dh, torch.bfloat16)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, causal=False)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    plain_out = ref.mha_reference(qr, kr, vr, causal=False)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+
+    def fwd():
+        fa.flash_attention_fwd_cuda(q, k, v, causal=False)
+
+    def bwd():
+        fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=False)
+
+    def plain_fwd():
+        with torch.no_grad():
+            ref.mha_reference(q, k, v, causal=False)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qs, ks, vs)
+
+    def sdpa_bwd():
+        torch.autograd.grad(sdpa_out, (qs, ks, vs), dos, retain_graph=True)
+
+    rows = {}
+    timed = {
+        "flash_attention_fwd_cross": (fwd, plain_fwd, sdpa_fwd, False),
+        "flash_attention_bwd_cross": (
+            bwd, lambda: torch.autograd.grad(plain_out, (qr, kr, vr), do,
+                                             retain_graph=True),
+            sdpa_bwd, True),
+    }
+    for name, (kern, plain, lib, backward) in timed.items():
+        ms, plain_ms, lib_ms = (time_ms(kern), time_ms(plain, iters=10),
+                                time_ms(lib))
+        b_ms, b_by = flash_bound_ms(B, Sq, Sk, H, K, dh, False, 2, backward)
+        err = (max(worst["dq"], worst["dk"], worst["dv"]) if backward
+               else worst["out"])
+        log(f"time {name} B={B} Sq={Sq} Sk={Sk} {H}/{K} heads dh={dh} "
+            f"non-causal bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); device "
+            f"(profiler) kernel {device_ms(kern):.4f} ms, sdpa "
+            f"{device_ms(lib):.4f} ms {card.tag()}")
+        rows[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
+                      "replaces": REPLACES[name], "launches": 0,
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib_ms}
+    del q, k, v, do, out, lse, qr, kr, vr, plain_out, qs, ks, vs, dos
+    del sdpa_out
+    free_card()
     return rows
 
 
@@ -2199,54 +2349,19 @@ def breakdown(card, label, engines, run, idle_ok=()) -> None:
         f"{card.tag()}")
 
 
-def where_time_goes(card, arch, cfg, prompts, params, main_wall,
-                    shares, label=None, idle_ok=()) -> None:
-    """The serving workload twice more on fresh engines.  First through
-    ``breakdown`` on the single replica's engine (``idle_ok`` passes on).
-    Then under ``torch.profiler`` for the device's time by kernel; the
-    device's busy time over the main run's wall time gives its idle share
-    there (the
-    profiler slows the host, not the kernels).  ``shares``: (what, needle)
-    pairs, each kernel family whose device time, launches and share of the
-    busy time are logged.  ``label`` names the run in the log (default
-    ``arch``)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+def where_time_goes(card, arch, cfg, prompts, params, label=None,
+                    idle_ok=()) -> None:
+    """The serving workload again on a fresh engine, through ``breakdown``
+    on the single replica's engine (``idle_ok`` passes on).  ``label``
+    names the run in the log (default ``arch``).  No profiled pass: the
+    profiler slowed the host about eightfold here, and the passes of
+    phases 4, 5 and 8b took 155.7 s of a run's 1200 s limit."""
     from repro_torch.serve import LLM
 
     label = label or arch
-
-    def fresh():
-        return LLM.from_arch(arch, smoke=False, cfg=cfg, seed=SEED,
-                             device="cuda")
-
-    llm = fresh()
+    llm = LLM.from_arch(arch, smoke=False, cfg=cfg, seed=SEED, device="cuda")
     breakdown(card, label, [llm.cluster.replicas[0].engine],
               lambda: llm.generate(prompts, params), idle_ok)
-    del llm
-
-    llm = fresh()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    # The device's activity only: recording every host operator too (the
-    # tiered run issues 133,234 copies) slows the pass by minutes.
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        llm.generate(prompts, params)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
-
-    busy = sum(dev_us(e) for e in events) / 1e6
-    log(f"device {label}: kernels and copies busy {busy:.3f} s, "
-        f"{100 * busy / main_wall:.1f}% of the main run's {main_wall:.3f} s: "
-        f"idle share {100 * (1 - busy / main_wall):.1f}% (profiled pass "
-        f"{time.perf_counter() - t0:.1f} s) {card.tag()}")
-    for e in sorted(events, key=dev_us, reverse=True)[:12]:
-        log(f"  device {dev_us(e) / 1e3:10.2f} ms  calls {e.count:7d}  "
-            f"{e.key[:90]}")
-    for what, needle in shares:
-        log_kernel_share(card, label, events, busy, what, needle)
     del llm
     free_card()
 
@@ -2487,11 +2602,10 @@ def serving_run(card, arch):
 
 def serve_dense(card, kernel_rows) -> None:
     """Phase 4: the dense main path, its breakdown and its checks."""
-    llm, cfg, prompts, params, wall, launches, rng = serving_run(card, DENSE)
+    llm, cfg, prompts, params, _, launches, rng = serving_run(card, DENSE)
     for name in ("paged_attention", "paged_prefill"):
         kernel_rows[name]["launches"] = launches[name]
-    where_time_goes(card, DENSE, cfg, prompts, params, wall,
-                    [("paged attention", "paged_attention")])
+    where_time_goes(card, DENSE, cfg, prompts, params)
     model = llm.engine.model
     one_shot_equals_chunked(model,
                             rng.integers(0, model.cfg.vocab, 100).tolist())
@@ -2505,11 +2619,9 @@ def serve_moe(card, kernel_rows) -> None:
     """Phase 5: the MoE main path at the published widths, where its time
     goes (the grouped-expert kernels' share of the device time), and its
     checks."""
-    llm, cfg, prompts, params, wall, launches, rng = serving_run(card, MOE)
+    llm, cfg, prompts, params, _, launches, rng = serving_run(card, MOE)
     kernel_rows["moe_grouped_ffn"]["launches"] = launches["moe_grouped_ffn"]
-    where_time_goes(card, MOE, cfg, prompts, params, wall,
-                    [("paged attention", "paged_attention"),
-                     ("grouped-expert", "moe_")])
+    where_time_goes(card, MOE, cfg, prompts, params)
     model = llm.engine.model
     one_shot_equals_chunked(model,
                             rng.integers(0, model.cfg.vocab, 64).tolist())
@@ -2693,7 +2805,7 @@ def serve_tiered(card, kernel_rows) -> None:
         f"{card.tag()}")
     del llm, store
     free_card()
-    streams, walls = {}, {}
+    streams = {}
     for db in (False, True):
         cfg = ServeConfig(**fields, expert_offchip=True,
                           expert_cache_size=EXPERT_CACHE,
@@ -2704,7 +2816,7 @@ def serve_tiered(card, kernel_rows) -> None:
         t0 = time.perf_counter()
         outs = llm.generate(prompts[:2], params[:2])
         torch.cuda.synchronize()
-        t = walls[db] = time.perf_counter() - t0
+        t = time.perf_counter() - t0
         streams[db] = [o.token_ids for o in outs]
         st = llm.stats()
         log(f"tiered experts, 2 requests, double buffer {db}: "
@@ -2719,11 +2831,7 @@ def serve_tiered(card, kernel_rows) -> None:
         raise AssertionError("tiered experts: double buffer on, off and the "
                              "resident run differ")
     log("tiered experts: double buffer off == on == resident, bitwise")
-    # Where the time goes, on the 2-request run (the profiler's cost grows
-    # with the 3 copies a fetched block takes: 8 requests took 96 s).
-    where_time_goes(card, MOE, cfg, prompts[:2], params[:2], walls[True],
-                    [("grouped-expert", "moe_"),
-                     ("host-to-device copy", "Memcpy HtoD")],
+    where_time_goes(card, MOE, cfg, prompts[:2], params[:2],
                     label=f"{MOE} tiered, 2 requests",
                     idle_ok=("migration", "eviction"))
 
@@ -3070,7 +3178,16 @@ def per_step_launches(cfg, steps: int) -> dict:
     """Kernel launches a training run makes under remat: each layer's
     forward twice (the step's and the recompute's) and its backward once.
     The hybrid family's shared block runs outside the checkpoints, as in
-    the JAX package: its flash forward runs once an application."""
+    the JAX package: its flash forward runs once an application.  The
+    encoder-decoder's flash calls a step: one per encoder layer and two per
+    decoder layer (self and cross attention); the xLSTM family launches
+    none."""
+    if cfg.family == "xlstm":
+        return {}
+    if cfg.family == "encdec":
+        n_attn = cfg.enc_layers + 2 * cfg.n_layers
+        return {"flash_attention_fwd": 2 * n_attn * steps,
+                "flash_attention_bwd": n_attn * steps}
     if cfg.family == "hybrid":
         n_attn = cfg.n_layers // cfg.attn_every
         return {"ssd_scan": 2 * cfg.n_layers * steps,
@@ -3120,10 +3237,13 @@ def train_run(card, label, cfg, batches, gdt):
         raise AssertionError(f"training {label}: losses {losses}")
     step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
     wall = stamps[-1] - stamps[0]
-    tokens = steps * TRAIN_BATCH * TRAIN_SEQ
+    # Positions a step: the tokens, and the VLM's patches before them.
+    per_batch = sum(batches[0][k].shape[0] * batches[0][k].shape[1]
+                    for k in ("tokens", "patches") if k in batches[0])
+    tokens = steps * per_batch
     log(f"training {label}: losses "
         f"{', '.join(f'{x:.6f}' for x in losses)}")
-    steady = 1e3 * (steps - 1) * TRAIN_BATCH * TRAIN_SEQ / sum(step_ms[1:])
+    steady = 1e3 * (steps - 1) * per_batch / sum(step_ms[1:])
     log(f"training {label}: step ms {', '.join(f'{t:.1f}' for t in step_ms)}"
         f"; {wall:.3f} s for {steps} steps, {tokens / wall:.1f} "
         f"training tokens/s ({steady:.1f} after the first step) "
@@ -3137,6 +3257,10 @@ def train_run(card, label, cfg, batches, gdt):
                                  f"{launches[name]} launches, expected {n} "
                                  f"(remat: 2 forwards and 1 backward per "
                                  f"layer and step)")
+    for name, n in launches.items():
+        if name not in per_step and n:
+            raise AssertionError(f"training {label}: {n} launches of {name}"
+                                 f", which its path does not run")
     log(f"training {label}: launches "
         f"{', '.join(f'{n} {launches[n]}' for n in per_step)}")
     if gdt is not None:
@@ -3514,31 +3638,38 @@ def plain_kernels():
         ops.ssd_scan, ops.flash_attention, ops.moe_grouped_ffn = saved
 
 
-def profile_hybrid(card, model, tokens, n_decode: int = 4) -> None:
-    """One more prefill, then ``n_decode`` decode steps, each part under
-    ``torch.profiler``: the device's busy time by kernel, and its idle
-    share over the part's wall time (the profiler slows the host, not the
-    kernels, so the decode's idle share is an upper bound)."""
+def profile_contiguous(card, model, tokens, n_decode: int = 4,
+                       label: str = "hybrid",
+                       shares=(("flash attention", "flash_"),
+                               ("SSD", "ssd_chunk")), **frontend) -> None:
+    """One more prefill (of ``tokens`` and the ``frontend`` embeddings),
+    then ``n_decode`` decode steps, each part under ``torch.profiler``
+    recording the device only (recording every host operator too slows
+    the xLSTM's 76,611-launch prefill pass by about half a minute): the
+    device's busy time by kernel, and its idle share over the part's wall
+    time (the profiler slows the host, not the kernels, so the idle share
+    is an upper bound); the prefill's share of each ``(what, kernel name
+    part)`` of ``shares``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    S = tokens.shape[1]
+    S = tokens.shape[1] + sum(t.shape[1] for k, t in frontend.items()
+                              if k == "patches")
     cache = model.init_cache(tokens.shape[0], S + n_decode)
     state = {}
 
     def prefill():
-        state["logits"], _ = model.prefill(tokens, cache)
+        state["logits"], _ = model.prefill(tokens, cache, **frontend)
 
     def decode():
         logits = state["logits"]
         for pos in range(S, S + n_decode):
             logits, _ = model.decode(logits.argmax(-1), cache, pos)
 
-    for label, part, top in (("prefill", prefill, 12),
-                             (f"{n_decode} decode steps", decode, 6)):
+    for part_label, part, top in (("prefill", prefill, 12),
+                                  (f"{n_decode} decode steps", decode, 6)):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             part()
             torch.cuda.synchronize()
@@ -3546,18 +3677,17 @@ def profile_hybrid(card, model, tokens, n_decode: int = 4) -> None:
         events = [e for e in prof.key_averages()
                   if str(e.device_type).endswith("CUDA")]
         busy = sum(dev_us(e) for e in events) / 1e6
-        log(f"device hybrid {label}: kernels and copies busy {busy:.3f} s "
-            f"of {wall:.3f} s, {sum(e.count for e in events)} launches: "
-            f"idle share {100 * max(0.0, 1 - busy / wall):.1f}% "
+        log(f"device {label} {part_label}: kernels and copies busy "
+            f"{busy:.3f} s of {wall:.3f} s, {sum(e.count for e in events)} "
+            f"launches: idle share {100 * max(0.0, 1 - busy / wall):.1f}% "
             f"{card.tag()}")
         for e in sorted(events, key=dev_us, reverse=True)[:top]:
             log(f"  device {dev_us(e) / 1e3:10.2f} ms  calls {e.count:7d}  "
                 f"{e.key[:90]}")
-        if label == "prefill":
-            log_kernel_share(card, f"hybrid {label}", events, busy,
-                             "flash attention", "flash_")
-            log_kernel_share(card, f"hybrid {label}", events, busy, "SSD",
-                             "ssd_chunk")
+        if part_label == "prefill":
+            for what, needle in shares:
+                log_kernel_share(card, f"{label} {part_label}", events, busy,
+                                 what, needle)
     del cache, state
 
 
@@ -3727,7 +3857,7 @@ def serve_hybrid(card, kernel_rows) -> None:
     log(f"serving {HYBRID}: launches {launches}; first generated tokens "
         f"{generated[:, :8].tolist()}")
     del cache, logits
-    profile_hybrid(card, model, tokens)
+    profile_contiguous(card, model, tokens)
     del model, tokens
     free_card()
     hybrid_f32_checks(rng)
@@ -4030,23 +4160,26 @@ def train_stablelm(card, kernel_rows) -> None:
     train_f32_check(batches[0], STABLELM)
 
 
-def contiguous_run(card, model, tokens, n_new, expect) -> list:
+def contiguous_run(card, model, tokens, n_new, expect,
+                   **frontend) -> list:
     """A warm-up prefill, then the counted one: ``prefill`` of ``tokens``
-    into a fresh ``init_cache`` and ``n_new`` greedy ``decode`` steps, the
-    launch counters zeroed just before and read just after, held to
-    ``expect`` exactly.  Returns the generated tokens."""
+    (and the VLM's ``patches`` or the encoder-decoder's ``frames`` in
+    ``frontend``) into a fresh ``init_cache`` and ``n_new`` greedy
+    ``decode`` steps, the launch counters zeroed just before and read just
+    after, held to ``expect`` exactly.  Returns the generated tokens."""
     import torch
 
     cfg = model.cfg
-    B, S = tokens.shape
-    model.prefill(tokens, model.init_cache(B, S + n_new))
+    B, T = tokens.shape
+    S = T + (frontend["patches"].shape[1] if "patches" in frontend else 0)
+    model.prefill(tokens, model.init_cache(B, S + n_new), **frontend)
     free_card()
     torch.cuda.reset_peak_memory_stats()
     cache = model.init_cache(B, S + n_new)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(tokens, cache)
+    logits, cache = model.prefill(tokens, cache, **frontend)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     out = []
@@ -4066,13 +4199,17 @@ def contiguous_run(card, model, tokens, n_new, expect) -> list:
             raise AssertionError(f"{cfg.arch} contiguous serving {name}: "
                                  f"{launches[name]} launches, expected "
                                  f"{expect.get(name, 0)}")
-    slots = cache["kv"]["k"].shape[2]
+    slots = cache["kv"]["k"].shape[2] if "kv" in cache else None
+    inputs = " + ".join(f"{t.shape[1]} {name}" for name, t in
+                        frontend.items())
     prefill_s, decode_s = t1 - t0, t2 - t1
     log(f"contiguous {cfg.arch} ({cfg.n_layers} layers): prefill of {B} x "
-        f"{S} tokens in {1e3 * prefill_s:.2f} ms, "
-        f"{B * S / prefill_s:.1f} prompt tokens/s; {n_new} decode steps in "
-        f"{decode_s:.3f} s, {1e3 * decode_s / n_new:.2f} ms per step; cache "
-        f"of {slots} slots{' (a ring)' if slots < S + n_new else ''}; "
+        f"({inputs + ' + ' if inputs else ''}{T} tokens) in "
+        f"{1e3 * prefill_s:.2f} ms, {B * S / prefill_s:.1f} prompt "
+        f"positions/s; {n_new} decode steps in {decode_s:.3f} s, "
+        f"{1e3 * decode_s / n_new:.2f} ms per step; "
+        f"{'no KV cache' if slots is None else f'cache of {slots} slots'}"
+        f"{' (a ring)' if slots and slots < S + n_new else ''}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f}"
         f" GiB; launches {launches}; first tokens "
         f"{generated[:, :6].tolist()} {card.tag()}")
@@ -4120,6 +4257,25 @@ def contiguous_f32_check(arch, rng) -> None:
                              f"logits {err:.3e}, K/V {kv_err:.3e} (tol "
                              f"{HYBRID_TOL})")
     del want, want_cache
+    a, diff = prefill_then_decode_vs_stepwise(model, tokens, logits, cache,
+                                              n_new, arch)
+    log(f"f32 contiguous {arch} ({F32_CHECK_LAYERS} layers, {S}-token "
+        f"prompt): prefill kernel vs plain path logits {err:.3e} of "
+        f"max|logit|, K/V {kv_err:.3e} in norm; prefill-then-decode == "
+        f"stepwise decode, greedy {a}, logits max abs diff {diff:.3e} "
+        f"(atol=rtol={HYBRID_TOL})")
+    del model, cache
+    free_card()
+
+
+def prefill_then_decode_vs_stepwise(model, tokens, logits, cache, n_new,
+                                    label):
+    """Greedy decode of ``n_new`` tokens on from a prefill of ``tokens``
+    (its ``logits`` and ``cache``) against the same from ``tokens``
+    stepped through ``decode`` one by one: greedy tokens equal and every
+    step's logits within HYBRID_TOL (atol = rtol).  Returns (the greedy
+    tokens, the largest logit difference)."""
+    S = tokens.shape[1]
     a, la = [], [logits]
     for pos in range(S, S + n_new):
         nxt = logits.argmax(-1)
@@ -4138,17 +4294,10 @@ def contiguous_f32_check(arch, rng) -> None:
     worst = max(float(((x - y).abs() / (HYBRID_TOL + HYBRID_TOL * y.abs()))
                       .max()) for x, y in zip(la, lb))
     if a != b or worst > 1.0:
-        raise AssertionError(f"f32 {arch} prefill-then-decode {a} vs "
+        raise AssertionError(f"f32 {label} prefill-then-decode {a} vs "
                              f"stepwise {b}; logits {worst:.3f} of "
                              f"atol=rtol={HYBRID_TOL}")
-    diff = max(float((x - y).abs().max()) for x, y in zip(la, lb))
-    log(f"f32 contiguous {arch} ({F32_CHECK_LAYERS} layers, {S}-token "
-        f"prompt): prefill kernel vs plain path logits {err:.3e} of "
-        f"max|logit|, K/V {kv_err:.3e} in norm; prefill-then-decode == "
-        f"stepwise decode, greedy {a}, logits max abs diff {diff:.3e} "
-        f"(atol=rtol={HYBRID_TOL})")
-    del model, cache
-    free_card()
+    return a, max(float((x - y).abs().max()) for x, y in zip(la, lb))
 
 
 def serve_contiguous(card) -> None:
@@ -4197,6 +4346,371 @@ def train_and_serve_contiguous(card, kernel_rows) -> None:
     t0 = time.perf_counter()
     serve_contiguous(card)
     log(f"phase 13 contiguous serving: {time.perf_counter() - t0:.1f} s")
+
+
+# Phase 14: the last three families at their published widths.
+VLM, ENCDEC, XLSTM = "phi3_vision_4_2b", "seamless_m4t_medium", "xlstm_350m"
+VLM_SERVE = (2, 448, 16)            # prompts, tokens after the 576 patches,
+VLM_TRAIN_TOKENS = 1472             # greedy steps; 576 + 1472 = 2048
+VLM_TRAIN_STEPS = 4
+ENCDEC_SERVE = (2, 1024, 256, 16)   # prompts, frames, tokens, greedy steps
+ENCDEC_TRAIN = (1024, 1024)         # frames, tokens a row
+ENCDEC_TRAIN_STEPS = 2
+XLSTM_SERVE = (4, 1024, 32)         # prompts, tokens, greedy steps
+# The sLSTM's time loop is launch-bound: 2 x 2048 took 13.2-15.5 s a step
+# on an H100 (700 W), so xLSTM training runs at 2 x 1024.
+XLSTM_TRAIN_SEQ = 1024
+XLSTM_TRAIN_STEPS = 2
+# The f32 checks' inputs: the VLM's 576 patches and 128 tokens, the
+# encoder-decoder's 512 frames and 256 tokens; 4 greedy steps.
+FAMILY_CHECK = {VLM: 128, ENCDEC: 256}
+FAMILY_CHECK_FRAMES = 512
+FAMILY_CHECK_NEW = 4
+FAMILY_TOL = 1e-4                   # f32 kernel path vs plain path
+
+
+def frontend_inputs(cfg, gen, B, n_frames=None) -> dict:
+    """The batch's stub-frontend embeddings in ``cfg.dtype``, N(0, 1) from
+    ``gen``: the VLM's ``patches`` (B, frontend_tokens, d), the
+    encoder-decoder's ``frames`` (B, n_frames, d); nothing for the other
+    families."""
+    import torch
+
+    if cfg.family == "vlm":
+        shape, name = (B, cfg.frontend_tokens, cfg.d_model), "patches"
+    elif cfg.family == "encdec":
+        shape, name = (B, n_frames, cfg.d_model), "frames"
+    else:
+        return {}
+    return {name: torch.randn(shape, generator=gen, device="cuda").to(
+        cfg.dtype)}
+
+
+def family_batches(cfg, n_tokens, steps, seed, n_frames=None) -> list:
+    """``steps`` training batches of TRAIN_BATCH rows: ``SyntheticLM``
+    tokens and labels of ``n_tokens`` a row, with the family's frontend
+    embeddings from a seeded generator."""
+    import torch
+
+    from repro_torch.data import SyntheticLM
+
+    src = SyntheticLM(cfg.vocab, n_tokens, TRAIN_BATCH, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [{**{k: torch.from_numpy(v).to("cuda")
+                for k, v in src.batch_np(i).items()},
+             **frontend_inputs(cfg, gen, TRAIN_BATCH, n_frames)}
+            for i in range(steps)]
+
+
+def unsaturate(model) -> None:
+    """Scales ``model``'s attention projections (``attn``, ``xattn``) to
+    N(0, 1/fan_in) over all the dimensions they contract: ``wq``, ``wk``,
+    ``wv`` (d, heads, dh) by sqrt(heads / d), ``wo`` (H, dh, d) by
+    1/sqrt(H).  The reference's init takes fan_in = shape[-2] (the heads,
+    dh), which at published widths gives scores of standard deviation in
+    the tens: the softmax saturates, and f32 round-off alone then moves
+    some gradients by percents (the encoder-decoder's layer-0 ``wk`` by
+    over 100% in norm against float64), in the plain path as in the
+    kernel path.  Scaled so, the scores have unit deviation."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            block, leaf = name.split(".")[-2:]
+            if block not in ("attn", "xattn"):
+                continue
+            if leaf in ("wq", "wk", "wv"):
+                p.mul_(math.sqrt(p.shape[1] / p.shape[0]))
+            elif leaf == "wo":
+                p.mul_(1.0 / math.sqrt(p.shape[0]))
+
+
+def family_f32_check(arch, rng) -> None:
+    """``arch`` (the VLM or the encoder-decoder) in f32 at its published
+    widths cut to F32_CHECK_LAYERS layers (encoder and decoder), its
+    attention projections ``unsaturate``d: the kernel path's loss and
+    gradients against the plain path's (``Model`` under
+    ``plain_kernels``), the loss to FAMILY_TOL relative, each gradient
+    leaf to FAMILY_TOL of that leaf's largest entry (as the CPU parity
+    tests hold the port to the JAX package).  Then its prefill logits and
+    cache against the plain path's to FAMILY_TOL, and FAMILY_CHECK_NEW
+    greedy decode steps after the prefill, each step's logits against the
+    full forward pass of the sequence so far at its last position (greedy
+    tokens equal, logits within HYBRID_TOL)."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+    from repro_torch.models.layers import norm, project
+    from repro_torch.train import value_and_grad
+
+    base = get(arch)
+    cfg = dataclasses.replace(
+        base, n_layers=F32_CHECK_LAYERS, dtype=torch.float32,
+        enc_layers=F32_CHECK_LAYERS if base.enc_layers else 0)
+    model = Model(cfg, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(SEED + 14))
+    unsaturate(model)
+    T, n_new = FAMILY_CHECK[arch], FAMILY_CHECK_NEW
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    front = frontend_inputs(cfg, gen, 1, FAMILY_CHECK_FRAMES)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (1, T))).to("cuda")
+    labels = torch.roll(tokens, -1, 1)
+    batch = {"tokens": tokens, "labels": labels, **front}
+    params = dict(model.named_parameters())
+    reset_launches()
+    loss, grads = value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    if read_launches() != per_step_launches(cfg, 1) | {
+            n: 0 for n in read_launches() if "flash" not in n}:
+        raise AssertionError(f"f32 {arch} training: launches "
+                             f"{read_launches()}")
+    reset_launches()
+    with plain_kernels():
+        want, want_grads = value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    if any(read_launches().values()):
+        raise AssertionError(f"the plain path launched kernels: "
+                             f"{read_launches()}")
+    rel_loss = abs(float(loss) - float(want)) / abs(float(want))
+    worst, worst_name = max(
+        (float((grads[n] - w).abs().max() / w.abs().max().clamp_min(1e-30)),
+         n) for n, w in want_grads.items())
+    if not (rel_loss <= FAMILY_TOL and worst <= FAMILY_TOL):
+        raise AssertionError(
+            f"f32 {arch} training, kernel vs plain path: loss rel err "
+            f"{rel_loss:.3e}, worst gradient {worst_name} {worst:.3e} of its "
+            f"largest entry (tol {FAMILY_TOL})")
+    del grads, want_grads, want
+    S = T + (front["patches"].shape[1] if "patches" in front else 0)
+    reset_launches()
+    logits, cache = model.prefill(tokens, model.init_cache(1, S + n_new),
+                                  **front)
+    torch.cuda.synchronize()
+    if read_launches()["flash_attention_fwd"] == 0:
+        raise AssertionError(f"f32 {arch} prefill: {read_launches()}")
+    with plain_kernels():
+        want, want_cache = model.prefill(
+            tokens, model.init_cache(1, S + n_new), **front)
+    err = float((logits - want).abs().max() / want.abs().max())
+    kv_err = max(float((cache[k][n] - want_cache[k][n]).norm()
+                       / want_cache[k][n].norm())
+                 for k in ("kv", "xk", "xv") if k in cache
+                 for n in (("k", "v") if k == "kv" else range(cfg.n_layers)))
+    if not (err <= FAMILY_TOL and kv_err <= FAMILY_TOL):
+        raise AssertionError(f"f32 {arch} prefill, kernel vs plain path: "
+                             f"logits {err:.3e}, cache {kv_err:.3e} (tol "
+                             f"{FAMILY_TOL})")
+    del want, want_cache
+    seq, greedy, diff = tokens, [], 0.0
+    for pos in range(S, S + n_new):
+        nxt = logits.argmax(-1)
+        greedy.append(int(nxt))
+        seq = torch.cat([seq, nxt[:, None]], 1)
+        logits, cache = model.decode(nxt, cache, pos)
+        with torch.no_grad():
+            h = model(seq, **front)[:, -1]
+            full = project(norm(model.final_ln.scale, h),
+                           model.head.w).float()
+        if int(full.argmax(-1)) != int(logits.argmax(-1)) or not bool(
+                ((logits - full).abs()
+                 <= HYBRID_TOL + HYBRID_TOL * full.abs()).all()):
+            raise AssertionError(f"f32 {arch}: decode at {pos} vs the full "
+                                 f"forward: max abs diff "
+                                 f"{float((logits - full).abs().max())}")
+        diff = max(diff, float((logits - full).abs().max()))
+    log(f"f32 {arch} ({F32_CHECK_LAYERS} layers, "
+        f"{' + '.join(f'{v.shape[1]} {k}' for k, v in front.items())} + {T} "
+        f"tokens): kernel vs plain path loss {float(loss):.6f} rel err "
+        f"{rel_loss:.3e}, worst gradient {worst_name} {worst:.3e} of its "
+        f"largest entry; prefill kernel vs plain path logits {err:.3e} of max|logit|, "
+        f"cache {kv_err:.3e} in norm; prefill-then-decode == the full "
+        f"forward, greedy {greedy}, logits max abs diff {diff:.3e} "
+        f"(atol=rtol={HYBRID_TOL})")
+    del model, cache
+    free_card()
+
+
+def family_model(arch, seed):
+    """``arch`` at its published widths in bf16 on the card, random weights
+    from a seeded generator; its size logged."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models import Model
+
+    model = Model(get(arch), device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(seed))
+    cfg = model.cfg
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"model {arch} ({cfg.family}): {cfg.n_layers} layers"
+        f"{f' + {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}"
+        f", d_model {cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}; {n} parameters, {nbytes} bytes")
+    return model
+
+
+def family_train(card, arch, batches, profile=False) -> dict:
+    """``train_run`` (Trainer, remat, phase 6's AdamW, unguided) of
+    ``arch`` at its published widths on ``batches``; with ``profile``, two
+    more steps under the profiler.  Returns the run's launches, with the
+    non-causal flash launches as ``*_cross``."""
+    from repro_torch.configs import get
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get(arch)
+    n_front = {k: tuple(v.shape) for k, v in batches[0].items()
+               if k in ("patches", "frames")}
+    log(f"model {arch} training: batch {tuple(batches[0]['tokens'].shape)} "
+        f"tokens{f', {n_front}' if n_front else ''}, {len(batches)} steps, "
+        f"remat {cfg.remat}")
+    _, launches, trainer = train_run(card, f"{arch} unguided", cfg, batches,
+                                     None)
+    launches = dict(launches, **{f"{n}_cross": c for n, c in
+                                 fa.NONCAUSAL_LAUNCHES.items()})
+    if profile:
+        profile_training(card, trainer, batches[:2])
+    del trainer
+    free_card()
+    return launches
+
+
+def serve_and_train_vlm(card, kernel_rows) -> None:
+    """Phase 14a: phi3_vision_4_2b whole (dh 96): contiguous serving of
+    VLM_SERVE with 576 patches a prompt and a profiled prefill and decode,
+    training, then the f32 check."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED + 16)
+    model = family_model(VLM, SEED + 16)
+    cfg = model.cfg
+    B, T, n_new = VLM_SERVE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    front = frontend_inputs(cfg, gen, B)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (B, T))).to("cuda")
+    contiguous_run(card, model, tokens, n_new,
+                   {"flash_attention_fwd": cfg.n_layers}, **front)
+    served = cfg.n_layers
+    profile_contiguous(card, model, tokens, label=VLM,
+                       shares=(("flash attention", "flash_"),), **front)
+    del model, tokens, front
+    free_card()
+    batches = family_batches(cfg, VLM_TRAIN_TOKENS, VLM_TRAIN_STEPS,
+                             SEED + 18)
+    launches = family_train(card, VLM, batches, profile=True)
+    del batches
+    for way in ("fwd", "bwd"):
+        kernel_rows[f"flash_attention_{way}_dh96"]["launches"] = \
+            launches[f"flash_attention_{way}"] + (served if way == "fwd"
+                                                   else 0)
+    family_f32_check(VLM, rng)
+
+
+def serve_and_train_encdec(card, kernel_rows) -> None:
+    """Phase 14b: seamless_m4t_medium whole (dh 64): contiguous serving of
+    ENCDEC_SERVE and a profiled prefill and decode, training, then the f32
+    check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(SEED + 19)
+    model = family_model(ENCDEC, SEED + 19)
+    cfg = model.cfg
+    B, Se, T, n_new = ENCDEC_SERVE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    front = frontend_inputs(cfg, gen, B, Se)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (B, T))).to("cuda")
+    n_fwd = cfg.enc_layers + 2 * cfg.n_layers
+    contiguous_run(card, model, tokens, n_new,
+                   {"flash_attention_fwd": n_fwd}, **front)
+    if fa.NONCAUSAL_LAUNCHES["flash_attention_fwd"] != cfg.n_layers:
+        raise AssertionError(f"{ENCDEC} prefill: non-causal launches "
+                             f"{fa.NONCAUSAL_LAUNCHES}, expected "
+                             f"{cfg.n_layers} (cross attention)")
+    served = {"flash_attention_fwd": n_fwd,
+              "flash_attention_fwd_cross": cfg.n_layers}
+    profile_contiguous(card, model, tokens, label=ENCDEC,
+                       shares=(("flash attention", "flash_"),), **front)
+    del model, tokens, front
+    free_card()
+    frames, n_tok = ENCDEC_TRAIN
+    batches = family_batches(cfg, n_tok, ENCDEC_TRAIN_STEPS, SEED + 21,
+                             frames)
+    launches = family_train(card, ENCDEC, batches)
+    del batches
+    steps = ENCDEC_TRAIN_STEPS
+    want = {"flash_attention_fwd_cross": 2 * cfg.n_layers * steps,
+            "flash_attention_bwd_cross": cfg.n_layers * steps}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{ENCDEC} training: {launches[name]} "
+                                 f"non-causal launches of {name}, expected "
+                                 f"{n}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "flash_attention_fwd_cross", "flash_attention_bwd_cross"):
+        kernel_rows[name]["launches"] += launches[name] + served.get(name, 0)
+    family_f32_check(ENCDEC, rng)
+
+
+def serve_and_train_xlstm(card) -> None:
+    """Phase 14c: xlstm_350m whole (plain torch, no kernel on its path):
+    contiguous serving of XLSTM_SERVE and a profiled prefill and decode,
+    Trainer steps at XLSTM_TRAIN_SEQ,
+    then an f32 copy at the smoke depth (4 layers, one of them sLSTM):
+    prefill-then-decode against stepwise decode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.models import Model
+
+    rng = np.random.default_rng(SEED + 22)
+    model = family_model(XLSTM, SEED + 22)
+    cfg = model.cfg
+    B, S, n_new = XLSTM_SERVE
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (B, S))).to("cuda")
+    contiguous_run(card, model, tokens, n_new, {})
+    profile_contiguous(card, model, tokens, label=XLSTM, shares=())
+    del model, tokens
+    free_card()
+    batches = family_batches(cfg, XLSTM_TRAIN_SEQ, XLSTM_TRAIN_STEPS,
+                             SEED + 23)
+    family_train(card, XLSTM, batches)
+    del batches
+    smoke = get_smoke(XLSTM)
+    cfg = dataclasses.replace(get(XLSTM), n_layers=smoke.n_layers,
+                              slstm_every=smoke.slstm_every,
+                              dtype=torch.float32)
+    model = Model(cfg, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(SEED + 24))
+    S = CONTIG_CHECK_PROMPT
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (1, S))).to("cuda")
+    logits, cache = model.prefill(tokens, model.init_cache(1, S + 4))
+    greedy, diff = prefill_then_decode_vs_stepwise(model, tokens, logits,
+                                                   cache, 4, XLSTM)
+    log(f"f32 {XLSTM} ({cfg.n_layers} layers, one sLSTM, {S}-token "
+        f"prompt): prefill-then-decode == stepwise decode, greedy {greedy}, "
+        f"logits max abs diff {diff:.3e} (atol=rtol={HYBRID_TOL})")
+    del model, cache
+    free_card()
+
+
+def serve_and_train_families(card, kernel_rows) -> None:
+    """Phase 14: the VLM, the encoder-decoder and the xLSTM family at
+    their published widths."""
+    for name, part in (("14a", lambda: serve_and_train_vlm(card,
+                                                           kernel_rows)),
+                       ("14b", lambda: serve_and_train_encdec(card,
+                                                              kernel_rows)),
+                       ("14c", lambda: serve_and_train_xlstm(card))):
+        t0 = time.perf_counter()
+        part()
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------ serving A/B
@@ -4322,7 +4836,8 @@ def main() -> int:
     log(f"phase 3 (kernels): {time.perf_counter() - t0:.1f} s")
     for phase in (serve_dense, serve_moe, serve_shared_tiers, serve_cluster,
                   train_dense, train_moe, serve_hybrid, train_hybrid,
-                  serve_new_archs, train_and_serve_contiguous):
+                  serve_new_archs, train_and_serve_contiguous,
+                  serve_and_train_families):
         t0 = time.perf_counter()
         phase(card, kernel_rows)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

@@ -2,9 +2,7 @@
 
 Each ``configs/<arch>.py`` defines ``CONFIG`` (the published configuration)
 and ``SMOKE`` (a reduced same-family configuration for CPU tests), copied
-from the JAX package's registry.  The port carries the architectures it
-serves; the others come with the slices that port their families
-(ROADMAP.md, queue A).
+from the JAX package's registry: all ten of its architectures.
 """
 
 from __future__ import annotations
@@ -16,18 +14,12 @@ from ..models.config import ModelConfig
 
 ARCHS: List[str] = ["llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b",
                     "granite_8b", "minitron_4b", "stablelm_3b",
-                    "mixtral_8x7b"]
-# The reference's archs whose families the port does not run yet.
-NOT_PORTED: List[str] = ["xlstm_350m", "seamless_m4t_medium",
-                         "phi3_vision_4_2b"]
+                    "mixtral_8x7b", "xlstm_350m", "seamless_m4t_medium",
+                    "phi3_vision_4_2b"]
 
 
 def _module(arch: str):
     if arch not in ARCHS:
-        if arch in NOT_PORTED:
-            raise NotImplementedError(
-                f"architecture {arch!r} is not ported yet: ROADMAP.md queue "
-                f"A item 10 brings {NOT_PORTED}; the port serves {ARCHS}")
         raise ValueError(f"unknown architecture {arch!r}; expected one of "
                          f"{ARCHS}")
     return importlib.import_module(f"{__name__}.{arch}")

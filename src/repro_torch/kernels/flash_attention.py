@@ -23,7 +23,8 @@ with the output's gradient.  ``flash_attention_cuda`` is the
 ``torch.autograd.Function`` over the two.  Each entry point checks what the
 kernel takes and raises on anything else, launches on PyTorch's current
 stream, raises if a launch is refused, and adds one to its count in
-``LAUNCHES``.  It never falls back to the plain version: ``kernels.ops``
+``LAUNCHES`` (and in ``NONCAUSAL_LAUNCHES`` when it ran unmasked).  It
+never falls back to the plain version: ``kernels.ops``
 sends CPU tensors to ``ref.mha_reference`` and CUDA tensors here.
 """
 
@@ -43,6 +44,10 @@ from . import _build
 # through the kernels.  A backward is one count for all its launches.
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd": 0}
+# The launches of LAUNCHES that ran without the causal mask (the
+# encoder-decoder's cross attention), counted where LAUNCHES counts them.
+NONCAUSAL_LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
+                                      "flash_attention_bwd": 0}
 
 # The instantiations in the .cu file.
 HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128)
@@ -56,8 +61,9 @@ SIMT_ROWS, SIMT_WARPS = 64, 8     # f32: 64-row tiles, 256 threads
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, NONCAUSAL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,6 +237,7 @@ def flash_attention_fwd_cuda(q, k, v, causal: bool = True,
         raise RuntimeError(f"flash attention forward launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["flash_attention_fwd"] += 1
+    NONCAUSAL_LAUNCHES["flash_attention_fwd"] += not causal
     return out, lse
 
 
@@ -261,6 +268,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True,
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["flash_attention_bwd"] += 1
+    NONCAUSAL_LAUNCHES["flash_attention_bwd"] += not causal
     return dq, dk, dv
 
 

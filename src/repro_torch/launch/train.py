@@ -12,9 +12,13 @@ Examples:
       --steps 8 --batch 2 --seq 2048 --lr 3e-4
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_7b \\
       --smoke --device cpu --steps 4 --batch 2 --seq 256 --gdt-budget-mb 1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_350m \\
+      --smoke --device cpu --steps 4 --batch 2 --seq 128 --gdt-budget-mb 1
 
-The hybrid family's sequence must be at most the SSD chunk (128) or a
-multiple of it.
+The hybrid and xLSTM families' sequence must be at most their chunk (128)
+or a multiple of it.  The VLM and encoder-decoder families are refused:
+their batches need ``patches`` or ``frames``, which ``SyntheticLM`` does
+not make (the JAX launcher fails on the missing key).
 """
 
 from __future__ import annotations
@@ -34,6 +38,11 @@ from ..ft import HeartbeatMonitor
 from ..models import Model
 from ..optim import AdamW, cosine_schedule
 from ..train import StepConfig, Trainer, TrainerConfig
+
+
+# The families whose batches carry a stub frontend's embeddings beside the
+# tokens: the VLM's patches, the encoder-decoder's frames.
+FRONTEND_INPUTS = {"vlm": "patches", "encdec": "frames"}
 
 
 def main(argv=None):
@@ -63,6 +72,11 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get(args.arch)
+    if cfg.family in FRONTEND_INPUTS:
+        raise SystemExit(
+            f"--arch {args.arch}: the {cfg.family} family's batches need "
+            f"{FRONTEND_INPUTS[cfg.family]!r}, which SyntheticLM does not "
+            f"make (it makes tokens and labels only)")
     cfg = dataclasses.replace(cfg, remat=not args.smoke)
     model = Model(cfg, device=device)
     opt = AdamW(lr=cosine_schedule(args.lr, warmup=max(args.steps // 20, 1),

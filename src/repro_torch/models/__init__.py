@@ -1,5 +1,6 @@
-"""Models of the port: config, layers, the MoE layer, the Mamba2 block and
-the decoder (dense, MoE and hybrid families)."""
+"""Models of the port: config, layers, the MoE layer, the Mamba2 block, the
+xLSTM blocks and the model of every family (dense, MoE, hybrid, xLSTM,
+encoder-decoder and VLM)."""
 
 from .config import ModelConfig
 from .transformer import Model

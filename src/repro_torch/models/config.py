@@ -1,8 +1,8 @@
 """ModelConfig — the port's copy of ``repro/models/config.py``, with a
 torch dtype.  Every field of the JAX config is kept, so a reference config
-converts field by field (``repro_torch.convert.config_from_reference``);
-the port serves the ``dense``, ``moe`` and ``hybrid`` families so far and
-says so where it is asked for another."""
+converts field by field (``repro_torch.convert.config_from_reference``).
+The port runs every family of the JAX package: ``dense``, ``moe``,
+``hybrid``, ``xlstm``, ``encdec`` and ``vlm``."""
 
 from __future__ import annotations
 
@@ -65,4 +65,7 @@ class ModelConfig:
             raise ValueError(f"a hybrid config needs ssm_state > 0 and "
                              f"attn_every > 0, got {self.ssm_state} and "
                              f"{self.attn_every}")
+        if self.family == "encdec" and self.enc_layers <= 0:
+            raise ValueError(f"an encdec config needs enc_layers > 0, got "
+                             f"{self.enc_layers}")
         return self

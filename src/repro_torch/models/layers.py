@@ -18,8 +18,9 @@ Training forms.  ``norm``, ``project``, ``attention``, ``swiglu``,
 attention goes through ``kernels.ops.flash_attention`` (the hand-written
 forward and backward kernels on the card).  Contiguous-cache serving
 uses them too, with ``attention_decode`` for one token against a
-contiguous KV cache and ``attention_decode_ring`` against a sliding-window
-arch's ring of ``window`` slots.
+contiguous KV cache, ``attention_decode_ring`` against a sliding-window
+arch's ring of ``window`` slots and ``cross_attention_decode`` against an
+encoder's memory.
 """
 
 from __future__ import annotations
@@ -122,10 +123,23 @@ def project(x: torch.Tensor, w: torch.Tensor, k: int = 1) -> torch.Tensor:
 
 def attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
               positions: torch.Tensor, freqs: torch.Tensor,
-              window: Optional[int] = None) -> torch.Tensor:
-    """Causal self-attention for training: x (B, S, d); p holds ``wq``
-    (d,H,dh), ``wk``/``wv`` (d,K,dh) and ``wo`` (H,dh,d); positions (S,).
-    QKV, rope, ``ops.flash_attention``, then ``wo``."""
+              window: Optional[int] = None,
+              kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention for training and prefill (``repro/models/layers.py``
+    ``attention``): x (B, S, d); p holds ``wq`` (d,H,dh), ``wk``/``wv``
+    (d,K,dh) and ``wo`` (H,dh,d); positions (S,).  Self-attention (no
+    ``kv_x``): QKV, rope, ``ops.flash_attention`` causal with the window,
+    then ``wo``.  It is causal whatever the caller's config says, as the
+    reference's ``_mask`` is, the encoder's included.  Cross attention
+    (``kv_x`` (B, Sk, d), the encoder's output): q from x and k, v from
+    ``kv_x``, no rope, ``ops.flash_attention`` unmasked over all Sk keys
+    (Sk need not be S)."""
+    if kv_x is not None:
+        q = project(x, p["wq"])
+        k = project(kv_x, p["wk"])
+        v = project(kv_x, p["wv"])
+        out = ops.flash_attention(q, k, v, causal=False)
+        return project(out, p["wo"], k=2)
     q = rope(project(x, p["wq"]), positions, freqs)
     k = rope(project(x, p["wk"]), positions, freqs)
     v = project(x, p["wv"])
@@ -178,6 +192,26 @@ def attention_decode_ring(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     data, after that every slot is inside the window.  Returns y (B, 1,
     d)."""
     return attention_decode(p, x, cache_k, cache_v, pos, freqs, ring=True)
+
+
+def cross_attention_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                           mem_k: torch.Tensor,
+                           mem_v: torch.Tensor) -> torch.Tensor:
+    """Decode-time cross attention over the encoder memory
+    (``repro/models/layers.py`` ``cross_attention_decode``): x (B, 1, d);
+    mem_k/mem_v (B, Se, K, dh), every row attended.  Scores in f32, no
+    rope, softmax, the product with V in f32, a cast to x's dtype, then
+    ``wo``.  Plain torch: the JAX package has no kernel here.  Returns y
+    (B, 1, d)."""
+    B = x.shape[0]
+    K, dh = mem_k.shape[2], mem_k.shape[3]
+    q = project(x, p["wq"])                                  # (B,1,H,dh)
+    H = q.shape[2]
+    qg = q.reshape(B, K, H // K, dh).to(F32)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, mem_k.to(F32)) / np.sqrt(dh)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", w, mem_v.to(F32)).to(x.dtype)
+    return project(o.reshape(B, 1, H, dh), p["wo"], k=2)
 
 
 def swiglu(p: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:

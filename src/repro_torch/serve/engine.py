@@ -287,9 +287,9 @@ class Engine:
         if model.cfg.family not in ("dense", "moe"):
             raise ValueError(
                 f"paged engine serves decoder LMs (the dense and moe "
-                f"families), not {model.cfg.family!r}: the hybrid family "
-                f"serves through Model.init_cache/prefill/decode, as in the "
-                f"JAX package")
+                f"families), not {model.cfg.family!r}: the hybrid, xlstm, "
+                f"encdec and vlm families serve through "
+                f"Model.init_cache/prefill/decode, as in the JAX package")
         if cfg.prefill not in ("one_shot", "chunked"):
             raise ValueError(
                 f"ServeConfig.prefill must be 'one_shot' or 'chunked', "

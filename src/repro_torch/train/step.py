@@ -40,11 +40,18 @@ def value_and_grad(model: Model, params: Mapping[str, torch.Tensor],
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, name -> gradient) of ``model.loss`` at ``params``: each
     tensor becomes a leaf that requires grad (sharing its storage), so the
-    model's own parameters need not."""
+    model's own parameters need not.  A tensor the model declares unread
+    (``Model.unread_leaves``) gets a zero gradient, as ``jax.grad`` gives
+    it; any other tensor the loss does not reach raises."""
     leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
     loss = model.loss(batch, leaves)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    return loss.detach(), dict(zip(leaves, grads))
+    unread = model.unread_leaves
+    read = [n for n in leaves if n not in unread]
+    grads = dict(zip(read, torch.autograd.grad(
+        loss, [leaves[n] for n in read])))
+    return loss.detach(), {
+        n: grads[n] if n in grads else torch.zeros_like(p)
+        for n, p in leaves.items()}
 
 
 def jax_ndim(name: str, t: torch.Tensor) -> int:

@@ -1167,3 +1167,92 @@ def test_cluster_replicas_crash_and_drain_on_the_card(cuda):
     got, cluster = run(3, drain)
     assert got == want and cluster.migrations_warm > 0
     assert cluster.stats()["imported_pages"] > 0
+
+
+# ------------------------------------- the xLSTM, encoder-decoder and VLM
+@pytest.mark.parametrize("arch", ["xlstm_350m", "seamless_m4t_medium",
+                                  "phi3_vision_4_2b"])
+def test_new_family_on_the_card_matches_the_cpu_plain_path(cuda, arch,
+                                                           monkeypatch):
+    """A family's f32 smoke model (remat on) on the card, its attention
+    through the flash kernels, against the same weights and batch on the
+    CPU (the plain versions).  The attention projections are scaled to
+    N(0, 1/fan_in) over all the dimensions they contract: at the
+    reference's init the scores' deviation is in the tens, the softmax
+    saturates, and f32 round-off alone then moves the encoder-decoder's
+    gradients by percents, on the CPU as on the card.  The loss within
+    1e-5; the prefill logits within 1e-4 of the largest; each gradient
+    leaf, the card's and the CPU's, against the CPU's in float64 (the
+    model's f32 islands widened), as a fraction of the leaf's largest
+    entry: the card's within twice the CPU's on the same leaf plus 1e-4
+    (the xLSTM, plain torch on both, has leaves that f32 round-off alone
+    moves by several 1e-5).  The flash launches are one a self or cross
+    attention (the encoder-decoder's cross ones non-causal), twice under
+    remat."""
+    import dataclasses
+
+    import repro_torch.models.layers as tlayers
+    import repro_torch.models.xlstm as txlstm
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import Model
+    from repro_torch.train import value_and_grad
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype=torch.float32,
+                              remat=True)
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            block, leaf = name.split(".")[-2:]
+            if block in ("attn", "xattn") and leaf in ("wq", "wk", "wv"):
+                p.mul_((p.shape[1] / p.shape[0]) ** 0.5)
+            elif block in ("attn", "xattn") and leaf == "wo":
+                p.mul_(p.shape[0] ** -0.5)
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(1, cfg.vocab, (2, 128), generator=gen)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((2, cfg.frontend_tokens, cfg.d_model),
+                                       generator=gen)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((2, 96, cfg.d_model), generator=gen)
+    n_attn = {"xlstm": 0, "vlm": cfg.n_layers,
+              "encdec": cfg.enc_layers + 2 * cfg.n_layers}[cfg.family]
+    fa.reset_launches()
+    loss, grads = value_and_grad(card, dict(card.named_parameters()),
+                                 {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_attention_fwd": 2 * n_attn,
+                           "flash_attention_bwd": n_attn}
+    cross = cfg.n_layers if cfg.family == "encdec" else 0
+    assert fa.NONCAUSAL_LAUNCHES == {"flash_attention_fwd": 2 * cross,
+                                     "flash_attention_bwd": cross}
+    want, want_grads = value_and_grad(cpu, dict(cpu.named_parameters()),
+                                      batch)
+    assert abs(float(loss) - float(want)) <= 1e-5 * abs(float(want))
+    front = {k: v for k, v in batch.items() if k in ("patches", "frames")}
+    S = 128 + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    with torch.no_grad():
+        got, _ = card.prefill(tokens.to(cuda), card.init_cache(2, S),
+                              **{k: v.to(cuda) for k, v in front.items()})
+        logits, _ = cpu.prefill(tokens, cpu.init_cache(2, S), **front)
+    scale = float(logits.abs().max())
+    assert float((got.cpu() - logits).abs().max()) <= 1e-4 * scale
+    for mod in (tlayers, txlstm, ref):
+        monkeypatch.setattr(mod, "F32", torch.float64)
+    cpu64 = Model(dataclasses.replace(cfg, dtype=torch.float64),
+                  device="cpu")
+    cpu64.load_state_dict({k: v.double()
+                           for k, v in cpu.state_dict().items()})
+    _, grads64 = value_and_grad(
+        cpu64, dict(cpu64.named_parameters()),
+        {k: v.double() if v.is_floating_point() else v
+         for k, v in batch.items()})
+    for name, w in grads64.items():
+        scale = max(float(w.abs().max()), 1e-30)
+        on_card = float((grads[name].cpu().double() - w).abs().max())
+        on_cpu = float((want_grads[name].double() - w).abs().max())
+        assert on_card <= (2 * on_cpu + 1e-4 * scale), (
+            name, on_card / scale, on_cpu / scale)

@@ -65,6 +65,7 @@ from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.train import value_and_grad  # noqa: E402
 from repro_torch.train.step import jax_ndim  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCH = "zamba2_7b"
 F32 = torch.float32

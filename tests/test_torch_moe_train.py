@@ -57,6 +57,7 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.train import value_and_grad  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCH = "granite_moe_3b_a800m"
 F32 = torch.float32

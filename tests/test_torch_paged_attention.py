@@ -180,10 +180,12 @@ PLAN_DTYPES = [torch.bfloat16, torch.float32]
 
 
 def port_heads():
-    """(H, K, dh) of each config the port carries (zamba2's shared
-    attention included, as if it were ever paged)."""
+    """(H, K, dh) of each config the port carries that has attention
+    (zamba2's shared attention, the encoder-decoder's and the VLM's
+    included, as if they were ever paged; the xLSTM family's heads are
+    its mLSTM's and sLSTM's, not attention heads)."""
     return [(c.n_heads, c.kv_heads, c.resolved_head_dim)
-            for c in (get(a) for a in ARCHS)]
+            for c in (get(a) for a in ARCHS) if c.family != "xlstm"]
 
 
 @pytest.mark.parametrize("dtype", PLAN_DTYPES)

@@ -67,6 +67,7 @@ from repro_torch.train import (  # noqa: E402
     TrainerConfig,
     value_and_grad,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = torch.float32
