@@ -230,6 +230,25 @@ Phases, each of which raises on failure:
    layers, one sLSTM):
    prefill-then-decode against stepwise decode.
 
+15. The MoE dispatches beside the flat layout, and the paper's simulator.
+   15a: one ``granite_moe_3b_a800m`` MoE layer at its published widths (d
+   1536, f 512, 40 experts, top-8) from the seed, bf16 and f32, at 4 x 512
+   and 2 x 2048 tokens: the per-row dropless layout (the grouped-expert
+   kernels over B*E groups, ``group_experts`` = arange(E) tiled B times,
+   the counters zeroed just before and read just after) against the flat
+   layout: output, input gradient and router gradient bit for bit, the
+   expert weights' gradients bitwise or within ``GRAD_TOL`` of their
+   largest entry (logged which).  15b:
+   the capacity dispatch at the same widths, capacity factor 1.0, 2 x 2048
+   tokens: the dropped picks counted (more than 0), two forward and
+   backward runs bitwise equal, the bf16 output within ``TOL`` of the same
+   call in float64, 64 single-token rows within ``TOL`` of dropless;
+   timed beside the flat dropless layer.  15c: ``granite_moe_3b_a800m``
+   whole with ``moe_dispatch="capacity"``, 2 ``Trainer`` steps of 2 x 2048
+   (finite losses, tokens/s, peak memory; no grouped-expert launch).  15d:
+   the simulator's headline on the host: ``lulesh`` online against
+   first-touch at half its peak RSS (online faster).
+
 Phase 3 also checks the flash kernels on the encoder-decoder's cross
 attention (B=2, 16/16 heads of 64, non-causal, bf16 and f32, forward and
 backward, bitwise repeats: Sq 256 on Sk 1024, timed beside SDPA, and
@@ -240,7 +259,11 @@ beside SDPA, ptxas's registers and spills), the flash forward at dh 128
 on the contiguous prefill's shapes (granite's and mixtral's, windowed),
 paged attention at stablelm's 32/32 heads of 80 and granite's 32/8 of
 128 (the per-row contract included), and the grouped-expert forward at
-mixtral's widths (32 and 2048 rows, 8 experts top-2, bf16 and f32).
+mixtral's widths (32 and 2048 rows, 8 experts top-2, bf16 and f32), and
+the grouped-expert kernels under the per-row layout (2 x 2048 tokens of
+granite: G = 80 groups): forward rows and dx rows bitwise equal to the
+flat call's (G = 40), both against their plain versions, both layouts
+timed beside their bounds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -294,6 +317,10 @@ for _dh in (112, 80, 96, "cross"):
         _name = f"flash_attention_{_way}_{'' if _dh == 'cross' else 'dh'}{_dh}"
         SOURCES[_name] = SOURCES[f"flash_attention_{_way}"]
 SOURCES["ssd_scan_bwd"] = SOURCES["ssd_scan"]
+# The grouped-expert kernels under the per-row layout (G = B*E groups,
+# phase 15a).
+for _way in ("", "_bwd"):
+    SOURCES[f"moe_grouped_ffn{_way}_per_row"] = SOURCES["moe_grouped_ffn"]
 REPLACES = {"paged_attention": "src/repro/kernels/paged_attention.py:113",
             "paged_prefill": "src/repro/kernels/paged_attention.py:95",
             "moe_grouped_ffn": "src/repro/kernels/moe_gemm.py:221",
@@ -308,6 +335,8 @@ for _dh in (112, 80, 96, "cross"):
 # The SSD backward stands for the autograd the JAX package takes through
 # its jnp ssd_chunked (ssd_scan_pallas has no VJP).
 REPLACES["ssd_scan_bwd"] = "src/repro/models/ssm.py:84"
+REPLACES["moe_grouped_ffn_per_row"] = REPLACES["moe_grouped_ffn"]
+REPLACES["moe_grouped_ffn_bwd_per_row"] = REPLACES["moe_grouped_ffn_bwd"]
 # flash_attention_fwd_dh112 is the flash forward at zamba2's head dim, its
 # launches those of the hybrid prefill; flash_attention_bwd_dh112 the
 # backward at that head dim, its launches those of hybrid training.  The
@@ -322,7 +351,8 @@ KERNELS = ("paged_attention", "paged_prefill", "moe_grouped_ffn",
            "ssd_scan_bwd", "flash_attention_bwd_dh112",
            "flash_attention_fwd_dh80", "flash_attention_bwd_dh80",
            "flash_attention_fwd_dh96", "flash_attention_bwd_dh96",
-           "flash_attention_fwd_cross", "flash_attention_bwd_cross")
+           "flash_attention_fwd_cross", "flash_attention_bwd_cross",
+           "moe_grouped_ffn_per_row", "moe_grouped_ffn_bwd_per_row")
 F32_CHECK_LAYERS = 2
 DENSE, MOE, HYBRID = "llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b"
 # The SSD kernel against its plain version: as a fraction of max|y| (the
@@ -406,8 +436,11 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(dev_us(e) for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")) / iters / 1e3
+    total = sum(dev_us(e) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA"))
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / iters / 1e3
 
 
 # ----------------------------------------------------------------- kernels
@@ -1321,6 +1354,99 @@ def check_moe_backward(card) -> dict:
             "replaces": REPLACES["moe_grouped_ffn_bwd"], "launches": 0,
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_moe_per_row_kernel(card) -> dict:
+    """Phase 3, the grouped-expert kernels under the per-row layout at
+    granite's widths and training's routed rows (2 rows of 2048 tokens,
+    top-8: G = 2 x 40 groups, ``group_experts`` = arange(40) twice), bf16:
+    the forward and the backward against their plain versions, and both
+    layouts (per-row, and flat: G = 40, each expert's rows of both batch
+    rows in one segment) timed by CUDA events and the profiler beside
+    their bounds.  Phase 15a holds the per-row layer to the flat one bit
+    for bit.  Returns the per-row rows (launches filled in by phase
+    15a)."""
+    import torch
+
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    host = torch.Generator().manual_seed(SEED + 25)
+    E, k, d, f, B = 40, 8, 1536, 512, TRAIN_BATCH
+    R = MOE_TRAIN_ROWS
+    per_row = [routed_sizes(host, R // (B * k), E, k) for _ in range(B)]
+    sizes = [n for row in per_row for n in row]
+    x, wg, wu, wd = moe_case(gen, R, E, d, f, torch.bfloat16)
+    dy = torch.randn((R, d), generator=gen, device="cuda").to(x.dtype)
+    args = {"per-row": (x, wg, wu, wd, torch.tensor(
+                sizes, dtype=torch.int32, device="cuda"), torch.tensor(
+                list(range(E)) * B, dtype=torch.int32, device="cuda")),
+            "flat": (x, wg, wu, wd, torch.tensor(
+                [sum(row[e] for row in per_row) for e in range(E)],
+                dtype=torch.int32, device="cuda"), None)}
+    y_row = mg.moe_grouped_ffn_cuda(*args["per-row"])
+    g_row = mg.moe_grouped_ffn_bwd_cuda(*args["per-row"], dy)
+    torch.cuda.synchronize()
+    want = ref.moe_grouped_ffn_reference(*args["per-row"]).float()
+    tol = TOL["bfloat16"]
+    worst = {"fwd": float((y_row.float() - want).abs().max())}
+    if not bool(((y_row.float() - want).abs() <= tol + tol * want.abs())
+                .all()):
+        raise AssertionError(f"per-row moe_grouped_ffn: max abs err "
+                             f"{worst['fwd']:.3e} outside atol=rtol={tol}")
+    want = ref.moe_grouped_ffn_bwd_reference(*args["per-row"], dy)
+    worst["bwd"] = 0.0
+    for name, a, b in zip(("dx", "dWg", "dWu", "dWd"), g_row, want):
+        err = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        if err > BWD_TOL["bfloat16"] * scale:
+            raise AssertionError(f"per-row moe_grouped_ffn_bwd: {name} max "
+                                 f"abs err {err:.3e} > {BWD_TOL['bfloat16']}"
+                                 f" x {scale:.3e}")
+        worst["bwd"] = max(worst["bwd"], err)
+    log(f"kernel check per-row layout R={R} G={B * E} bf16: against the "
+        f"plain versions forward {worst['fwd']:.3e} (atol=rtol={tol}), "
+        f"backward {worst['bwd']:.3e} (tol {BWD_TOL['bfloat16']} of each "
+        f"max)")
+    del y_row, g_row, want
+    timed = {}
+    for label, a in args.items():
+        sz = a[4].tolist()
+        ex = list(range(E)) if a[5] is None else a[5].tolist()
+
+        def fwd():
+            return mg.moe_grouped_ffn_cuda(*a)
+
+        def bwd():
+            return mg.moe_grouped_ffn_bwd_cuda(*a, dy)
+
+        timed[label] = {
+            "fwd": (time_ms(fwd, iters=20), device_ms(fwd, iters=10),
+                    *moe_bound_ms(a[0], wg, sz, ex)),
+            "bwd": (time_ms(bwd, iters=20), device_ms(bwd, iters=10),
+                    *moe_bwd_bound_ms(a[0], wg, sz, ex, "bfloat16"))}
+        for way, (ms, dev, b_ms, b_by) in timed[label].items():
+            log(f"time moe_grouped_ffn{'_bwd' if way == 'bwd' else ''} "
+                f"{label} layout R={R} G={len(sz)} bf16: kernel {ms:.4f} ms "
+                f"(events), device {dev:.4f} ms (profiler), bound "
+                f"{b_ms:.5f} ms ({b_by}) {card.tag()}")
+    plain = {"fwd": time_ms(lambda: ref.moe_grouped_ffn_reference(
+        *args["per-row"]), iters=3, warmup=1),
+        "bwd": time_ms(lambda: ref.moe_grouped_ffn_bwd_reference(
+            *args["per-row"], dy), iters=3, warmup=1)}
+    rows = {}
+    for way, name in (("fwd", "moe_grouped_ffn_per_row"),
+                      ("bwd", "moe_grouped_ffn_bwd_per_row")):
+        ms, _, b_ms, b_by = timed["per-row"][way]
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": SOURCES[name], "replaces": REPLACES[name],
+                      "launches": 0, "max_abs_err": worst[way], "ms": ms,
+                      "plain_ms": plain[way], "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None}
+    del args, x, wg, wu, wd, dy
+    free_card()
+    return rows
 
 
 def flash_bound_ms(B, Sq, Sk, H, K, dh, causal, item, backward) -> tuple:
@@ -3181,7 +3307,8 @@ def per_step_launches(cfg, steps: int) -> dict:
     the JAX package: its flash forward runs once an application.  The
     encoder-decoder's flash calls a step: one per encoder layer and two per
     decoder layer (self and cross attention); the xLSTM family launches
-    none."""
+    none, and the MoE family's capacity dispatch no grouped-expert
+    kernel."""
     if cfg.family == "xlstm":
         return {}
     if cfg.family == "encdec":
@@ -3196,7 +3323,7 @@ def per_step_launches(cfg, steps: int) -> dict:
                 "flash_attention_bwd": n_attn * steps}
     out = {"flash_attention_fwd": 2 * cfg.n_layers * steps,
            "flash_attention_bwd": cfg.n_layers * steps}
-    if cfg.family == "moe":
+    if cfg.family == "moe" and cfg.moe_dispatch == "dropless":
         out.update({"moe_grouped_ffn": 2 * cfg.n_layers * steps,
                     "moe_grouped_ffn_bwd": cfg.n_layers * steps})
     return out
@@ -4713,6 +4840,310 @@ def serve_and_train_families(card, kernel_rows) -> None:
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------- phase 15: dispatches, simulator
+DISPATCH_SHAPES = ((4, 512), (2, 2048))   # serving's and training's (B, S)
+CAPACITY_SHAPE = (2, 2048)
+CAPACITY_SINGLE = 64                      # single-token rows against dropless
+CAPACITY_TRAIN_STEPS = 2
+SIM_CAP_FRAC = 0.5
+LAYER_WEIGHTS = ("router", "w_gate", "w_up", "w_down")
+
+
+def moe_layer(seed: int, dtype):
+    """One MoE layer of granite at its published widths, weights from
+    ``seed`` on the card: (MoEConfig, weights, its f32 router in ``dtype``
+    experts)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.models.moe import MoEConfig
+
+    cfg = get(MOE)
+    mcfg = MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                     n_experts=cfg.n_experts, top_k=cfg.top_k,
+                     capacity_factor=cfg.capacity_factor,
+                     parallelism=cfg.moe_parallelism,
+                     ep_axis_size=cfg.moe_ep_axis_size)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    E, d, f = mcfg.padded_experts, mcfg.d_model, mcfg.d_ff
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device="cuda") / math.sqrt(
+            shape[-2])
+
+    p = SimpleNamespace(router=w(d, E), w_gate=w(E, d, f).to(dtype),
+                        w_up=w(E, d, f).to(dtype),
+                        w_down=w(E, f, d).to(dtype))
+    return mcfg, p
+
+
+def layer_grads(fn, p, x, proj):
+    """``fn(p, x)``'s output and the gradients of ``sum(y * proj)`` in x
+    and each layer weight ({"x": ..., "router": ..., ...})."""
+    from types import SimpleNamespace
+
+    import torch
+
+    leaves = {n: getattr(p, n).detach().requires_grad_(True)
+              for n in LAYER_WEIGHTS}
+    xt = x.detach().requires_grad_(True)
+    y = fn(SimpleNamespace(**leaves), xt)
+    grads = torch.autograd.grad((y.float() * proj).sum(),
+                                [xt, *leaves.values()])
+    return y.detach(), dict(zip(["x", *LAYER_WEIGHTS], grads))
+
+
+@contextlib.contextmanager
+def grouped_calls():
+    """Record each grouped-expert kernel call's arguments (its groups,
+    their sizes and map, the rows) while inside; the wrappers still count
+    their launches."""
+    from repro_torch.kernels import moe_gemm as mg
+
+    calls = {"fwd": [], "bwd": []}
+    fwd, bwd = mg.moe_grouped_ffn_cuda, mg.moe_grouped_ffn_bwd_cuda
+
+    def keep(args):
+        return tuple(None if a is None else a.detach() for a in args)
+
+    def rec_fwd(*args):
+        calls["fwd"].append(keep(args))
+        return fwd(*args)
+
+    def rec_bwd(*args):
+        calls["bwd"].append(keep(args))
+        return bwd(*args)
+
+    mg.moe_grouped_ffn_cuda, mg.moe_grouped_ffn_bwd_cuda = rec_fwd, rec_bwd
+    try:
+        yield calls
+    finally:
+        mg.moe_grouped_ffn_cuda, mg.moe_grouped_ffn_bwd_cuda = fwd, bwd
+
+
+def check_per_row(card, kernel_rows) -> None:
+    """Phase 15a.  Fills the per-row kernel rows' launches with the bf16
+    per-row run's at training's shape."""
+    import torch
+
+    from repro_torch.models.moe import _moe_dropless
+
+    weights_bitwise = {}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+        cfg, p = moe_layer(SEED + 21, dtype)
+        E = cfg.padded_experts
+        for B, S in DISPATCH_SHAPES:
+            gen = torch.Generator(device="cuda").manual_seed(SEED + B)
+            x = torch.randn((B, S, cfg.d_model), generator=gen,
+                            device="cuda").to(dtype)
+            proj = torch.randn(x.shape, generator=gen, device="cuda")
+            flat_y, flat_g = layer_grads(
+                lambda q, h: _moe_dropless(q, h, cfg), p, x, proj)
+            torch.cuda.synchronize()
+            reset_launches()
+            with grouped_calls() as calls:
+                y, g = layer_grads(
+                    lambda q, h: _moe_dropless(q, h, cfg, per_row=True), p,
+                    x, proj)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            groups = {c[4].shape[0] for c in calls["fwd"] + calls["bwd"]}
+            if launches["moe_grouped_ffn"] != 1 or \
+                    launches["moe_grouped_ffn_bwd"] != 1 or \
+                    groups != {B * E}:
+                raise AssertionError(
+                    f"per-row layout {dtype_name} {B}x{S}: launches "
+                    f"{launches}, groups {groups}, expected one forward and "
+                    f"one backward launch over {B * E} groups")
+            ge = calls["fwd"][0][5]
+            if not torch.equal(ge, torch.arange(E, dtype=torch.int32,
+                                                device="cuda").repeat(B)):
+                raise AssertionError("per-row layout: group_experts is not "
+                                     "arange(E) tiled B times")
+            for name, a, b in (("output", y, flat_y),
+                               ("x gradient", g["x"], flat_g["x"]),
+                               ("router gradient", g["router"],
+                                flat_g["router"])):
+                if not same_bits(a, b):
+                    raise AssertionError(
+                        f"per-row layout {dtype_name} {B}x{S}: {name} "
+                        f"differs from the flat layout's")
+            errs = []
+            for name in ("w_gate", "w_up", "w_down"):
+                a, b = g[name], flat_g[name]
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"per-row {name} gradient not "
+                                         f"finite")
+                err = float((a.float() - b.float()).abs().max())
+                scale = float(b.float().abs().max())
+                weights_bitwise[(dtype_name, B, name)] = same_bits(a, b)
+                if err > GRAD_TOL[dtype_name] * scale:
+                    raise AssertionError(
+                        f"per-row layout {dtype_name} {B}x{S}: {name} "
+                        f"gradient err {err:.3e} > {GRAD_TOL[dtype_name]} x "
+                        f"{scale:.3e}")
+                errs.append(f"{name} " + ("bitwise" if err == 0 else
+                                          f"{err / scale:.2e} of max"))
+            log(f"per-row layout {dtype_name} B={B} S={S} ({B * E} groups, "
+                f"{B * S * cfg.top_k} routed rows): output, x and router "
+                f"gradients == flat bitwise; expert gradients: "
+                f"{', '.join(errs)} (GRAD_TOL {GRAD_TOL[dtype_name]}); "
+                f"launches {launches['moe_grouped_ffn']} forward, "
+                f"{launches['moe_grouped_ffn_bwd']} backward")
+            if dtype == torch.bfloat16 and (B, S) == DISPATCH_SHAPES[-1]:
+                run_launches = launches
+            del x, proj, y, g, flat_y, flat_g
+        del p
+        free_card()
+    every = list(weights_bitwise.values())
+    log(f"per-row expert gradients bitwise equal to flat in "
+        f"{sum(every)} of {len(every)} (dtype, shape, weight) cases")
+    for name, kernel in (("moe_grouped_ffn_per_row", "moe_grouped_ffn"),
+                         ("moe_grouped_ffn_bwd_per_row",
+                          "moe_grouped_ffn_bwd")):
+        kernel_rows[name]["launches"] = run_launches[kernel]
+
+
+def check_capacity(card) -> None:
+    """Phase 15b."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from repro_torch.models.moe import (_capacity, _moe_dropless,
+                                        dropped_picks, moe)
+
+    cfg, p = moe_layer(SEED + 23, torch.bfloat16)
+    B, S = CAPACITY_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    x = torch.randn((B, S, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    proj = torch.randn(x.shape, generator=gen, device="cuda")
+    drops = dropped_picks(x, p.router, cfg)
+    picks = B * S * cfg.top_k
+    log(f"capacity dispatch B={B} S={S} factor {cfg.capacity_factor}: "
+        f"capacity {_capacity(S, cfg)} a row and "
+        f"expert, {drops} of {picks} picks dropped")
+    if drops <= 0:
+        raise AssertionError("capacity dispatch dropped no pick")
+
+    def cap_fn(q, h):
+        return moe(q, h, cfg, dispatch="capacity")
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    runs = [layer_grads(cap_fn, p, x, proj) for _ in range(2)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if any(read_launches().values()):
+        raise AssertionError(f"capacity dispatch launched kernels: "
+                             f"{read_launches()}")
+    (y1, g1), (y2, g2) = runs
+    if not same_bits(y1, y2) or not all(same_bits(g1[n], g2[n])
+                                        for n in g1):
+        raise AssertionError("capacity dispatch: two runs differ")
+    for name, t in g1.items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"capacity dispatch: {name} gradient not "
+                                 f"finite")
+    p64 = SimpleNamespace(router=p.router, **{
+        n: getattr(p, n).double() for n in ("w_gate", "w_up", "w_down")})
+    with torch.no_grad():
+        y64 = moe(p64, x.double(), cfg, dispatch="capacity")
+    tol = TOL["bfloat16"]
+    diff = (y1.double() - y64).abs()
+    err = float(diff.max())
+    if not bool((diff <= tol + tol * y64.abs()).all()):
+        raise AssertionError(f"capacity dispatch bf16 vs float64: max abs "
+                             f"err {err:.3e} outside atol=rtol={tol}")
+    one = x.reshape(-1, 1, cfg.d_model)[:CAPACITY_SINGLE]
+    with torch.no_grad():
+        c1 = moe(p, one, cfg, dispatch="capacity").float()
+        d1 = moe(p, one, cfg, dispatch="dropless").float()
+    single = float((c1 - d1).abs().max())
+    if not bool(((c1 - d1).abs() <= tol + tol * d1.abs()).all()):
+        raise AssertionError(f"capacity at S=1 vs dropless: max abs err "
+                             f"{single:.3e} outside atol=rtol={tol}")
+    log(f"capacity dispatch: two forward and backward runs bitwise equal; "
+        f"bf16 vs float64 max abs err {err:.3e}, {CAPACITY_SINGLE} "
+        f"single-token rows vs dropless {single:.3e} (atol=rtol={tol}); "
+        f"forward and backward peak {peak / 2**20:.1f} MiB above the "
+        f"inputs {card.tag()}")
+    del runs, y1, g1, y2, g2, p64, y64
+    with torch.no_grad():
+        cap_ms = time_ms(lambda: moe(p, x, cfg, dispatch="capacity"),
+                         iters=10, warmup=2)
+        drop_ms = time_ms(lambda: _moe_dropless(p, x, cfg), iters=10,
+                          warmup=2)
+    both = time_ms(lambda: layer_grads(cap_fn, p, x, proj), iters=5,
+                   warmup=1)
+    log(f"time MoE layer B={B} S={S} bf16: capacity forward {cap_ms:.4f} ms, "
+        f"flat dropless forward {drop_ms:.4f} ms (events); capacity forward "
+        f"and backward {both:.4f} ms {card.tag()}")
+    del p, x, proj
+    free_card()
+
+
+def train_capacity(card) -> None:
+    """Phase 15c."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticLM
+
+    cfg = dataclasses.replace(get(MOE), moe_dispatch="capacity")
+    src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda")
+                for k, v in src.batch_np(i).items()}
+               for i in range(CAPACITY_TRAIN_STEPS)]
+    log(f"model {MOE} training, moe_dispatch capacity (factor "
+        f"{cfg.capacity_factor}): {cfg.n_layers} layers, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {CAPACITY_TRAIN_STEPS} steps")
+    _, _, trainer = train_run(card, "moe capacity", cfg, batches, None)
+    del trainer
+    free_card()
+
+
+def simulator_headline(card) -> None:
+    """Phase 15d: the paper's simulator on the host."""
+    from repro_torch.core import CLX
+    from repro_torch.mem import MemorySimulator
+    from repro_torch.mem.workloads import lulesh
+
+    t0 = time.perf_counter()
+    wl = lulesh("medium")
+    sim = MemorySimulator(CLX, wl)
+    cap = int(wl.peak_rss * SIM_CAP_FRAC)
+    ft = sim.run_first_touch(cap)
+    on = sim.run_online(cap)
+    took = time.perf_counter() - t0
+    speedup = on.speedup_over(ft)
+    log(f"simulator lulesh medium at {SIM_CAP_FRAC} of peak RSS on CLX: "
+        f"online {on.total_seconds:.3f} s vs first-touch "
+        f"{ft.total_seconds:.3f} s simulated, speedup {speedup:.4f}, "
+        f"{on.bytes_migrated} bytes migrated; {took:.2f} s on the host")
+    if not speedup > 1.0:
+        raise AssertionError(f"simulator: online does not beat first-touch "
+                             f"({speedup})")
+
+
+def dispatches_and_simulator(card, kernel_rows) -> None:
+    """Phase 15."""
+    t_all = time.perf_counter()
+    for name, part in (("15a", lambda: check_per_row(card, kernel_rows)),
+                       ("15b", lambda: check_capacity(card)),
+                       ("15c", lambda: train_capacity(card)),
+                       ("15d", lambda: simulator_headline(card))):
+        t0 = time.perf_counter()
+        part()
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 15: {time.perf_counter() - t_all:.1f} s")
+
+
 # ------------------------------------------------------------ serving A/B
 AB_ROUNDS = 5
 
@@ -4830,6 +5261,7 @@ def main() -> int:
     check_moe_mixtral(card)
     check_paged_new_paths(card)
     kernel_rows["moe_grouped_ffn_bwd"] = check_moe_backward(card)
+    kernel_rows.update(check_moe_per_row_kernel(card))
     kernel_rows.update(check_flash_kernel(card))
     kernel_rows["ssd_scan"] = check_ssd_kernel(card)
     kernel_rows["ssd_scan_bwd"] = check_ssd_backward(card)
@@ -4837,7 +5269,7 @@ def main() -> int:
     for phase in (serve_dense, serve_moe, serve_shared_tiers, serve_cluster,
                   train_dense, train_moe, serve_hybrid, train_hybrid,
                   serve_new_archs, train_and_serve_contiguous,
-                  serve_and_train_families):
+                  serve_and_train_families, dispatches_and_simulator):
         t0 = time.perf_counter()
         phase(card, kernel_rows)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

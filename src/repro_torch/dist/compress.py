@@ -1,12 +1,15 @@
-"""Gradient compression: block-wise symmetric int8 quantization
-(``repro/dist/compress.py``: ``quantize``, ``dequantize``,
-``quantize_roundtrip``).
+"""Gradient compression: block-wise symmetric int8 quantization with
+error feedback (``repro/dist/compress.py``: ``quantize``, ``dequantize``,
+``quantize_roundtrip``, ``ErrorFeedback``, ``compress_with_feedback``).
 
 ``quantize`` flattens a tensor, pads it with zeros to a multiple of
 ``BLOCK`` elements and keeps one f32 scale per block (absmax / 127);
 values round half to even.  The round trip's error is at most
-``0.5 * block_absmax / 127`` per element.  ``ErrorFeedback`` waits for
-distribution (ROADMAP.md queue A item 11).
+``0.5 * block_absmax / 127`` per element.
+
+``ErrorFeedback`` is the EF-SGD trick: the quantization residual is carried
+to the next round and added back before compressing, so the accumulated
+compressed signal is unbiased though each single quantization is not.
 """
 
 from __future__ import annotations
@@ -56,3 +59,25 @@ def quantize_roundtrip(x: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
     """quantize -> dequantize (f32): the lossy identity the train step
     applies to gradients."""
     return dequantize(quantize(x, block))
+
+
+@dataclasses.dataclass(frozen=True)
+class ErrorFeedback:
+    """The carried quantization residual (f32), one per compressed
+    tensor."""
+
+    residual: torch.Tensor
+
+    @classmethod
+    def init(cls, x: torch.Tensor) -> "ErrorFeedback":
+        return cls(residual=torch.zeros_like(x, dtype=torch.float32))
+
+
+def compress_with_feedback(x: torch.Tensor, ef: ErrorFeedback,
+                           block: int = BLOCK
+                           ) -> Tuple[QuantizedTensor, ErrorFeedback]:
+    """Compress ``x + residual``; the new residual is what the quantizer
+    dropped this round."""
+    target = x.to(torch.float32) + ef.residual
+    qx = quantize(target, block)
+    return qx, ErrorFeedback(residual=target - dequantize(qx))

@@ -1,6 +1,6 @@
 """Failure detection of the port (``repro/ft``): ``HeartbeatMonitor``, a
-framework-free copy.  Elastic rescaling comes with distribution
-(ROADMAP.md queue A item 11)."""
+framework-free copy.  Elastic rescaling (``ft/elastic.py``) is not ported
+yet (ROADMAP.md queue A item 11)."""
 
 from .heartbeat import HeartbeatMonitor, NodeStats
 

@@ -43,7 +43,8 @@ Every family serves through a contiguous cache: ``init_cache``,
 ``_prefill_hybrid``, ``_prefill_xlstm``, ``decode``).  The dense, MoE and
 VLM families' prefill runs every attention through the flash forward kernel
 (with the config's window) and every MoE layer through ``moe`` (the
-grouped-expert kernel); their decode is plain torch (``attention_decode``,
+grouped-expert kernel, or under ``moe_dispatch="capacity"`` batched
+products); their decode is plain torch (``attention_decode``,
 or ``attention_decode_ring`` over a ring cache of ``window`` slots, where
 position p lives in slot p % window) with ``moe_decode``, which routes as
 prefill does.  The hybrid family's prefill runs every Mamba2 intra-chunk
@@ -78,7 +79,7 @@ from .config import ModelConfig
 from .layers import (attention, attention_decode, chunked_lm_loss,
                      cross_attention_decode, norm, param, project, rope,
                      rope_freqs, swiglu)
-from .moe import CAPACITY_NOT_PORTED, MoEConfig, moe, moe_decode
+from .moe import MoEConfig, moe, moe_decode
 from .ssm import SSM, SSMConfig, ssm_decode, ssm_forward
 from .xlstm import (MLSTM, SLSTM, XLSTMConfig, mlstm_decode, mlstm_parallel,
                     slstm_decode, slstm_forward)
@@ -265,8 +266,6 @@ class Model(nn.Module):
                              f"of {FAMILIES}")
         self.moe_cfg: Optional[MoEConfig] = None
         if cfg.family == "moe":
-            if cfg.moe_dispatch != "dropless":
-                raise NotImplementedError(CAPACITY_NOT_PORTED)
             self.moe_cfg = MoEConfig(
                 d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
                 top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,

@@ -383,7 +383,9 @@ class Engine:
 
     @staticmethod
     def _check_offchip(model: Model, cfg: ServeConfig) -> None:
-        """The JAX engine's checks of ``expert_offchip``, same texts."""
+        """The JAX engine's checks of ``expert_offchip``, same texts, and
+        a refusal of the capacity dispatch, which the tiered path does not
+        run."""
         mc = model.cfg
         if mc.family != "moe":
             raise ValueError(
@@ -394,6 +396,15 @@ class Engine:
                 "ServeConfig.expert_offchip drives the flat dropless "
                 "dispatch; ep parallelism already shards experts across "
                 "the mesh — pick one placement mechanism")
+        if model.moe_cfg.dispatch != "dropless":
+            # The JAX engine runs the tiered path dropless whatever the
+            # config says; the port refuses rather than serve another
+            # function than the resident engine.
+            raise ValueError(
+                "ServeConfig.expert_offchip drives the flat dropless "
+                f"dispatch; the model's moe_dispatch is "
+                f"{model.moe_cfg.dispatch!r}, which the resident path "
+                "would serve instead")
         E = model.moe_cfg.padded_experts
         floor = min(E, cfg.max_batch * model.moe_cfg.top_k)
         size = cfg.expert_cache_size or mc.n_layers * E

@@ -29,7 +29,6 @@ from repro.models import build_model  # noqa: E402
 from repro.serve import Engine as JEngine  # noqa: E402
 from repro.serve import SamplingParams as JSamplingParams  # noqa: E402
 from repro.serve import ServeConfig as JServeConfig  # noqa: E402
-from repro_torch import configs  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
     config_from_reference,
     params_from_numpy,
@@ -376,10 +375,6 @@ def test_out_of_slice_options_raise(port_model):
                    device="cpu")
     with pytest.raises(ValueError, match="paged engine serves decoder LMs"):
         Engine(hybrid, ServeConfig())
-    capacity = dataclasses.replace(configs.get_smoke(MOE),
-                                   moe_dispatch="capacity")
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        Model(capacity, device="cpu")
 
 
 def test_pool_refcounts_and_copy_on_write():

@@ -583,6 +583,93 @@ def test_moe_grouped_ffn_bwd_refuses_what_it_does_not_take(cuda):
         mg.moe_grouped_ffn_bwd_cuda(x, wg, wu, wd, gs.long(), None, dy)
 
 
+
+def moe_layer_case(dev, dtype, B, S, seed=0):
+    """A MoE layer at granite's smoke widths (d 96, f 64, 8 experts,
+    top-2) and its input, weights from ``seed``."""
+    import types
+
+    from repro_torch.models.moe import MoEConfig
+
+    cfg = MoEConfig(d_model=96, d_ff=64, n_experts=8, top_k=2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=dev) / shape[-2] ** .5
+
+    p = types.SimpleNamespace(router=w(96, 8), w_gate=w(8, 96, 64).to(dtype),
+                              w_up=w(8, 96, 64).to(dtype),
+                              w_down=w(8, 64, 96).to(dtype))
+    x = torch.randn((B, S, 96), generator=gen, device=dev).to(dtype)
+    return cfg, p, x
+
+
+def moe_layer_grads(fn, p, x):
+    import types
+
+    leaves = {n: t.detach().requires_grad_(True) for n, t in vars(p).items()}
+    xt = x.detach().requires_grad_(True)
+    y = fn(types.SimpleNamespace(**leaves), xt)
+    proj = torch.linspace(-1, 1, y.numel(), device=y.device).reshape(y.shape)
+    grads = torch.autograd.grad((y.float() * proj).sum(),
+                                [xt, *leaves.values()])
+    return y.detach(), dict(zip(["x", *leaves], grads))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_per_row_layout_equals_flat_on_the_card(cuda, dtype):
+    """The per-row layout launches the grouped-expert kernels once each
+    over B*E groups; its output and input gradient equal the flat
+    layout's bit for bit (the kernels' rows do not depend on the call),
+    the expert gradients within the backward's tolerance."""
+    from repro_torch.models.moe import _moe_dropless
+
+    cfg, p, x = moe_layer_case(cuda, dtype, 3, 40)
+    flat_y, flat_g = moe_layer_grads(
+        lambda q, h: _moe_dropless(q, h, cfg), p, x)
+    mg.reset_launches()
+    y, g = moe_layer_grads(
+        lambda q, h: _moe_dropless(q, h, cfg, per_row=True), p, x)
+    torch.cuda.synchronize()
+    assert mg.LAUNCHES == {"moe_grouped_ffn": 1, "moe_grouped_ffn_bwd": 1}
+    assert torch.equal(y, flat_y)
+    assert torch.equal(g["x"], flat_g["x"])
+    assert torch.equal(g["router"], flat_g["router"])
+    for name in ("w_gate", "w_up", "w_down"):
+        scale = float(flat_g[name].float().abs().max())
+        err = float((g[name].float() - flat_g[name].float()).abs().max())
+        assert err <= GRAD_TOL[dtype] * scale, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_capacity_on_the_card_repeats_and_matches_the_cpu(cuda, dtype):
+    """The capacity dispatch on the card (picks dropped): two runs equal
+    bit for bit in the output and every gradient, no grouped-expert
+    launch, and the output within the dtype's tolerance of the same layer
+    in float64 (which routes as the run does: the router reads x in
+    f32)."""
+    from repro_torch.models.moe import dropped_picks, moe
+
+    cfg, p, x = moe_layer_case(cuda, dtype, 2, 64, seed=1)
+    assert dropped_picks(x, p.router, cfg) > 0
+    mg.reset_launches()
+    runs = [moe_layer_grads(lambda q, h: moe(q, h, cfg, dispatch="capacity"),
+                            p, x) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert not any(mg.LAUNCHES.values())
+    (y1, g1), (y2, g2) = runs
+    assert torch.equal(y1, y2)
+    assert all(torch.equal(g1[n], g2[n]) for n in g1)
+    import types
+
+    p64 = types.SimpleNamespace(router=p.router, **{
+        n: getattr(p, n).double() for n in ("w_gate", "w_up", "w_down")})
+    with torch.no_grad():
+        want = moe(p64, x.double(), cfg, dispatch="capacity")
+    tol = TOL[dtype]
+    assert torch.allclose(y1.double(), want, atol=tol, rtol=tol)
+
+
 # ---------------------------------------------------------- flash attention
 def flash_case(dev, dtype, B, Sq, Sk, H, K, dh, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)

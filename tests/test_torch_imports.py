@@ -101,17 +101,75 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert mg.LAUNCHES == before
 
 
-def test_moe_combine_is_not_a_scatter_add():
+SCATTERS = {"index_add_", "index_add", "scatter_add_", "scatter_add",
+            "scatter_reduce_", "scatter_reduce", "index_put_", "index_put",
+            "put_"}
+# The MoE layer's dispatch and combine of every layout: the flat and
+# per-row combines, the capacity buffer and its combine, the ep exchange.
+MOE_FILES = {"models/moe.py": ("_Dispatch", "_Combine", "_sorted_ffn",
+                               "_apply_dropless_per_row",
+                               "_CapacityDispatch", "_CapacityCombine",
+                               "_moe_dropless_ep", "_TakeSlice",
+                               "_GatherSlices"),
+             "dist/collectives.py": ("_RaggedAllToAll",)}
+
+
+@pytest.mark.parametrize("path", sorted(MOE_FILES))
+def test_moe_combine_is_not_a_scatter_add(path):
     """CUDA's index_add_ and scatter-adds are not deterministic; the MoE
-    combine is a fixed-order sum instead."""
-    path = os.path.join(PORT, "models", "moe.py")
-    with open(path, encoding="utf-8") as f:
-        tree = ast.parse(f.read(), path)
+    combines (flat, per-row, capacity, ep) and the capacity buffer are
+    fixed-order sums and gathers instead."""
+    full = os.path.join(PORT, path)
+    with open(full, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), full)
     calls = {node.attr for node in ast.walk(tree)
              if isinstance(node, ast.Attribute)}
-    assert not calls & {"index_add_", "index_add", "scatter_add_",
-                        "scatter_add", "scatter_reduce_", "scatter_reduce",
-                        "index_put_", "index_put", "put_"}, calls
+    assert not calls & SCATTERS, calls
+    defined = {node.name for node in ast.walk(tree)
+               if isinstance(node, (ast.FunctionDef, ast.ClassDef))}
+    assert set(MOE_FILES[path]) <= defined
+
+
+def backward_nodes(y):
+    seen, stack = set(), [y.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        stack.extend(f for f, _ in fn.next_functions)
+    return {type(fn).__name__ for fn in seen}
+
+
+@pytest.mark.parametrize("layout", ["flat", "per_row", "capacity"])
+def test_moe_backward_accumulates_by_no_index(layout):
+    """The layer's autograd graph in every single-process layout holds no
+    backward that adds by index (advanced indexing's backward is an
+    ``index_put_`` with accumulate; ``index_add`` and scatter-adds): the
+    dispatch and combine gathers have their own fixed-order backwards."""
+    import types
+
+    from repro_torch.models import moe
+
+    cfg = moe.MoEConfig(d_model=16, d_ff=8, n_experts=4, top_k=2,
+                        capacity_factor=0.5)
+    g = torch.Generator().manual_seed(0)
+    p = types.SimpleNamespace(
+        router=torch.randn(16, 4, generator=g).requires_grad_(True),
+        **{n: torch.randn(s, generator=g).requires_grad_(True)
+           for n, s in (("w_gate", (4, 16, 8)), ("w_up", (4, 16, 8)),
+                        ("w_down", (4, 8, 16)))})
+    x = torch.randn(2, 8, 16, generator=g).requires_grad_(True)
+    if layout == "capacity":
+        y = moe.moe(p, x, cfg, dispatch="capacity")
+        assert moe.dropped_picks(x, p.router, cfg) > 0
+    else:
+        y = moe._moe_dropless(p, x, cfg, per_row=layout == "per_row")
+    nodes = backward_nodes(y)
+    assert not nodes & {"IndexBackward0", "IndexPutBackward0",
+                        "IndexAddBackward0", "ScatterAddBackward0",
+                        "ScatterReduceBackward0"}, nodes
+    torch.autograd.grad(y.sum(), [x, p.router, p.w_gate])
 
 
 def test_default_device_is_the_card():

@@ -202,11 +202,20 @@ def test_expert_slots_remap_is_bitwise_equal():
     assert torch.equal(dense, remapped)
 
 
-def test_unported_dispatches_raise():
-    cfg = port_cfg(moe_cfg())
-    _, tp = params(moe_cfg())
-    x = torch.zeros((1, 2, 32))
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        tmoe.moe(tp, x, cfg, dispatch="capacity")
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        tmoe._moe_dropless(tp, x, cfg, per_row=True)
+def test_capacity_and_per_row_dispatches_match_jax():
+    """The two dispatches the port once refused run and agree with the JAX
+    package in f32: ``moe(dispatch="capacity")`` and the per-row dropless
+    layout (``_moe_dropless(per_row=True)``)."""
+    cfg = moe_cfg()
+    jp, tp = params(cfg, seed=4)
+    jx, tx = both(np.random.default_rng(9).normal(size=(2, 7, 32)))
+    got = tmoe.moe(tp, tx, port_cfg(cfg), dispatch="capacity")
+    want = jmoe.moe(jp, jx, cfg, dispatch="capacity")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    got = tmoe._moe_dropless(tp, tx, port_cfg(cfg), per_row=True)
+    want = jmoe._moe_dropless(jp, jx, cfg, per_row=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+

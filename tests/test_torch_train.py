@@ -341,6 +341,32 @@ def test_quantize_roundtrip_of_bf16_is_bitwise_jax():
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+
+@pytest.mark.parametrize("shape", [(700,), (3, 256)])
+def test_error_feedback_rounds_equal_jax(shape):
+    """Five rounds of ``compress_with_feedback``, each on a new gradient
+    and the residual carried from the round before, against the JAX
+    package's: payloads and scales equal, residuals within 1e-6 of each
+    block's absmax (f32 division and subtraction may round apart)."""
+    rng = np.random.default_rng(11 + len(shape))
+    ef = compress.ErrorFeedback.init(torch.zeros(shape))
+    jef = jcompress.ErrorFeedback.init(jnp.zeros(shape, jnp.float32))
+    assert ef.residual.dtype == F32 and not ef.residual.any()
+    for _ in range(5):
+        g = (rng.normal(size=shape) * rng.uniform(0.1, 3)).astype(np.float32)
+        qx, ef = compress.compress_with_feedback(torch.from_numpy(g), ef)
+        jqx, jef = jcompress.compress_with_feedback(jnp.asarray(g), jef)
+        assert np.array_equal(qx.q.numpy(), np.asarray(jqx.q))
+        assert np.array_equal(qx.scale.numpy(), np.asarray(jqx.scale))
+        got = ef.residual.reshape(-1).numpy()
+        want = np.asarray(jef.residual).reshape(-1)
+        pad = (-got.size) % compress.BLOCK
+        err = np.abs(np.pad(got - want, (0, pad))).reshape(-1,
+                                                          compress.BLOCK)
+        absmax = np.asarray(jqx.scale)[:, 0] * 127.0
+        assert (err.max(1) <= 1e-6 * np.maximum(absmax, 1e-30)).all()
+
+
 # ------------------------------------------------------------------- data
 @pytest.mark.parametrize("seed,vocab,seq,batch", [(0, 512, 32, 2),
                                                   (7, 128256, 2048, 2),
