@@ -249,6 +249,24 @@ Phases, each of which raises on failure:
    the simulator's headline on the host: ``lulesh`` online against
    first-touch at half its peak RSS (online faster).
 
+16. The distribution layer on one card (last, after phase 15).  16a:
+   ``llama3_2_1b`` whole, phase 6's unguided training step (2 x 2048,
+   bf16, remat, AdamW) counted by the cost walk
+   (``launch.analysis.cost_of``) on the card and on ``meta``: the two
+   ``flops`` equal (the card's walk launches the flash kernels, counted in
+   ``LAUNCHES``), printed beside the analytic 8 * N * D; then 3 timed steps
+   give the walk's model flops over step time (full Sq x Sk attention,
+   remat's recompute included) and the rate with attention's causal half
+   only, each with its share of the card's 989 TF/s.  16b:
+   4 training steps fed by ``data.ShardedLoader`` (no mesh, prefetch 2,
+   pinned host memory) against the same steps fed ``SyntheticLM.batch_np``
+   directly: the losses bitwise equal; both step times.  16c: the dry
+   run's ``build_cell`` on a 1 x 1 abstract mesh: its per-device parameter
+   and moment bytes equal the bytes the ``Trainer``'s parameters and AdamW
+   moments hold on the card.  The 2-D ep layout, the rings and the
+   overlapped MLP need more than one card (NCCL refuses two ranks on one
+   GPU); they are tested on the CPU over gloo.
+
 Phase 3 also checks the flash kernels on the encoder-decoder's cross
 attention (B=2, 16/16 heads of 64, non-causal, bf16 and f32, forward and
 backward, bitwise repeats: Sq 256 on Sk 1024, timed beside SDPA, and
@@ -5145,6 +5163,205 @@ def dispatches_and_simulator(card, kernel_rows) -> None:
 
 
 # ------------------------------------------------------------ serving A/B
+# Phase 16: the cost walk's count of phase 6's step, ShardedLoader, and
+# the dry run's argument bytes.
+COST_TIMED_STEPS = 3
+LOADER_STEPS = 4
+
+
+def dense_step_parts(cfg, device):
+    """(model, params in the JAX leaf order, AdamW state, the step) of a
+    fresh ``cfg`` model on ``device`` (seeded unless on ``meta``)."""
+    import torch
+
+    from repro_torch.convert import jax_order
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import make_train_step
+
+    model = Model(cfg, device=device)
+    if device != "meta":
+        model.init(torch.Generator(device=device).manual_seed(SEED))
+    named = dict(model.named_parameters())
+    params = {n: named[n] for n in jax_order(named)}
+    opt = AdamW(lr=3e-4)
+    return model, params, opt.init(params), make_train_step(model, opt)
+
+
+def step_flops(card, kernel_rows) -> None:
+    """16a: one training step counted on the card and on ``meta`` (equal
+    flops), then timed steps for the achieved rate."""
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.analysis import cost_of
+    from repro_torch.models.common import count_params
+
+    cfg = get(DENSE)
+    src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [src.batch_np(i) for i in range(1 + COST_TIMED_STEPS)]
+    model, params, state, step = dense_step_parts(cfg, "cuda")
+    on_card = [{k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+               for b in batches]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    card_cost = cost_of(step, params, state, on_card[0])
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    walk_launches = read_launches()
+    meta_model, mp, ms, mstep = dense_step_parts(cfg, "meta")
+    t0 = time.perf_counter()
+    meta_cost = cost_of(mstep, mp, ms, {k: torch.from_numpy(v).to("meta")
+                                        for k, v in batches[0].items()})
+    meta_s = time.perf_counter() - t0
+    if card_cost["flops"] != meta_cost["flops"] or \
+            card_cost["matmul_flops"] != meta_cost["matmul_flops"]:
+        raise AssertionError(f"cost walk: card {card_cost['flops']} flops "
+                             f"({card_cost['matmul_flops']} in products), "
+                             f"meta {meta_cost['flops']} "
+                             f"({meta_cost['matmul_flops']})")
+    n = count_params(model.param_defs())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"cost walk 16a: {DENSE} training step {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: {card_cost['flops']:.6e} flops on the card == "
+        f"{meta_cost['flops']:.6e} on meta ({card_cost['matmul_flops']:.6e}"
+        f" in products; kernels {card_cost['kernels']}); 8*N*D = "
+        f"{8 * n * tokens:.6e} (N {n}), ratio "
+        f"{card_cost['flops'] / (8 * n * tokens):.4f}; walk {walk_s:.2f} s "
+        f"on the card, {meta_s:.2f} s on meta")
+    starts = [torch.cuda.Event(enable_timing=True)
+              for _ in range(COST_TIMED_STEPS)]
+    ends = [torch.cuda.Event(enable_timing=True)
+            for _ in range(COST_TIMED_STEPS)]
+    for i in range(COST_TIMED_STEPS):
+        starts[i].record()
+        step(params, state, on_card[1 + i])
+        ends[i].record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = per_step_launches(cfg, 1 + COST_TIMED_STEPS)
+    if {k: v for k, v in launches.items() if v} != want or \
+            {k: v for k, v in walk_launches.items() if v} != \
+            per_step_launches(cfg, 1):
+        raise AssertionError(f"cost walk 16a: launches {launches} (the "
+                             f"walk's {walk_launches}), expected {want}")
+    for name in want:
+        kernel_rows[name]["launches"] += launches[name]
+    step_ms = [a.elapsed_time(b) for a, b in zip(starts, ends)]
+    step_s = sum(step_ms) / len(step_ms) / 1e3
+    # The walk charges attention over all Sq x Sk pairs (the plain
+    # version's work); every flash call of this step is causal with Sq ==
+    # Sk, whose kernel computes (S + 1) / 2S of them.
+    flash = sum(f for k, f in card_cost["kernels"].items()
+                if k.startswith("flash_attention"))
+    skipped = flash * (1 - (TRAIN_SEQ + 1) / (2 * TRAIN_SEQ))
+    peak = PEAK_OPS_PER_S["bfloat16"]
+    model_rate = card_cost["flops"] / step_s
+    done_rate = (card_cost["flops"] - skipped) / step_s
+    log(f"cost walk 16a: step ms {', '.join(f'{t:.2f}' for t in step_ms)}; "
+        f"model flops over the mean CUDA-event step time (full Sq x Sk "
+        f"attention, remat's recompute included) {model_rate / 1e12:.2f} "
+        f"TFLOP/s, {100 * model_rate / peak:.1f}% of 989 TF/s; with "
+        f"attention's causal half only ({skipped:.6e} flops fewer) "
+        f"{done_rate / 1e12:.2f} TFLOP/s, {100 * done_rate / peak:.1f}% "
+        f"{card.tag()}")
+    del model, params, state, step, on_card
+    free_card()
+
+
+def loader_run(cfg, feed, label):
+    """LOADER_STEPS steps of a fresh seeded ``Trainer`` fed by ``feed``:
+    (losses, step ms, trainer)."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.train import Trainer, TrainerConfig
+
+    trainer = Trainer(Model(cfg, device="cuda"), AdamW(lr=3e-4),
+                      TrainerConfig(steps=LOADER_STEPS, log_every=1,
+                                    seed=SEED))
+    stamps = []
+
+    def timed():
+        for b in feed:
+            stamps.append(time.perf_counter())
+            yield b
+
+    torch.cuda.synchronize()
+    trainer.run(timed())
+    stamps.append(time.perf_counter())
+    losses = [m["loss"] for m in trainer.metrics_log]
+    if len(losses) != LOADER_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"loader 16b {label}: losses {losses}")
+    return losses, [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])], \
+        trainer
+
+
+def loader_and_bytes(card) -> None:
+    """16b: steps fed by ``ShardedLoader`` == steps fed ``batch_np``,
+    bitwise; 16c: the dry run's bytes == the trainer's on the card."""
+    import itertools
+
+    import torch
+
+    from repro_torch.configs import get
+    from repro_torch.data import ShardedLoader, SyntheticLM
+    from repro_torch.dist import abstract_mesh
+    from repro_torch.launch.dryrun import build_cell
+
+    cfg = get(DENSE)
+    src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    direct = ({k: torch.from_numpy(v).to("cuda")
+               for k, v in src.batch_np(i).items()}
+              for i in range(LOADER_STEPS))
+    want, direct_ms, trainer = loader_run(cfg, direct, "batch_np")
+    del trainer
+    free_card()
+    loader = ShardedLoader(src, prefetch=2, device="cuda")
+    try:
+        got, loader_ms, trainer = loader_run(
+            cfg, itertools.islice(iter(loader), LOADER_STEPS), "loader")
+    finally:
+        loader.close()
+    if got != want:
+        raise AssertionError(f"loader 16b: losses {got} != batch_np's "
+                             f"{want}")
+    log(f"loader 16b: {LOADER_STEPS} steps through ShardedLoader (prefetch "
+        f"2, pinned) == batch_np, bitwise: losses "
+        f"{', '.join(f'{x:.6f}' for x in got)}; step ms loader "
+        f"{', '.join(f'{t:.1f}' for t in loader_ms)}, batch_np "
+        f"{', '.join(f'{t:.1f}' for t in direct_ms)} {card.tag()}")
+
+    _, memory, _ = build_cell(DENSE, "train_4k",
+                              abstract_mesh((1, 1), ("data", "model")))
+    params = sum(p.numel() * p.element_size()
+                 for p in trainer.params.values())
+    held = (*trainer.opt_state.m.values(), *trainer.opt_state.v.values())
+    if any(t.device.type != trainer.device.type for t in held):
+        raise AssertionError("dry run 16c: a moment is not on the card")
+    moments = sum(t.numel() * t.element_size() for t in held)
+    if (memory["params_bytes"], memory["moments_bytes"]) != (params,
+                                                             moments):
+        raise AssertionError(f"dry run 16c: params {memory['params_bytes']}"
+                             f" and moments {memory['moments_bytes']} bytes; "
+                             f"the trainer holds {params} and {moments}")
+    log(f"dry run 16c: {DENSE} on a 1 x 1 mesh: parameters "
+        f"{memory['params_bytes']} B and moments {memory['moments_bytes']} B"
+        f" == the trainer's on the card; argument_bytes "
+        f"{memory['argument_bytes']} (with the inputs and the step counter)")
+    del trainer
+    free_card()
+
+
+def distribution(card, kernel_rows) -> None:
+    """Phase 16."""
+    step_flops(card, kernel_rows)
+    loader_and_bytes(card)
+
+
 AB_ROUNDS = 5
 
 
@@ -5269,7 +5486,8 @@ def main() -> int:
     for phase in (serve_dense, serve_moe, serve_shared_tiers, serve_cluster,
                   train_dense, train_moe, serve_hybrid, train_hybrid,
                   serve_new_archs, train_and_serve_contiguous,
-                  serve_and_train_families, dispatches_and_simulator):
+                  serve_and_train_families, dispatches_and_simulator,
+                  distribution):
         t0 = time.perf_counter()
         phase(card, kernel_rows)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

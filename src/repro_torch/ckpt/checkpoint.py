@@ -30,7 +30,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..convert import to_numpy
+from ..convert import params_from_numpy, to_numpy
 
 Tree = Any
 _BF16_VOID = np.dtype("V2")
@@ -111,11 +111,21 @@ def available_steps(directory: str) -> List[int]:
     return sorted(out)
 
 
-def restore(directory: str, step: Optional[int] = None
+def restore(directory: str, step: Optional[int] = None,
+            shardings: Optional[Mapping[str, Any]] = None
             ) -> Tuple[Dict[str, Any], Dict]:
     """(tree of numpy leaves, meta) of ``step`` (default the newest).  0-d
     leaves come back as numpy scalars, as the JAX package's restore gives
-    them."""
+    them.
+
+    ``shardings`` maps a subtree's key (``"params"``) to the
+    ``models.common.param_shardings`` of its tensors: that subtree comes
+    back as a state dict (port tensor names, the stacked leaves split per
+    layer by ``convert.params_from_numpy``) of ``DTensor``s of each
+    rank's block, on the mesh's device; tensors outside this rank's layer
+    range are left out, and those of a stack split over ranks
+    (``layers -> data``) come back as plain tensors of the block
+    (``LeafSharding.place``).  The checkpoint on disk stays unsharded."""
     steps = available_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints in {directory}")
@@ -131,6 +141,16 @@ def restore(directory: str, step: Optional[int] = None
             cur = cur.setdefault(p, {})
         arr = _load_leaf(base, e)
         cur[parts[-1]] = arr[()] if arr.shape == () else arr
+    for key, shards in (shardings or {}).items():
+        state = params_from_numpy(tree[key], device="cpu")
+        placed = {}
+        for name, t in state.items():
+            if name not in shards:
+                raise KeyError(f"checkpoint leaf {key}/{name}: no sharding")
+            dt = shards[name].place(t)
+            if dt is not None:
+                placed[name] = dt
+        tree[key] = placed
     return tree, {"step": manifest["step"], **manifest.get("meta", {})}
 
 

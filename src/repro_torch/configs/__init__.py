@@ -8,14 +8,17 @@ from the JAX package's registry: all ten of its architectures.
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
-from ..models.config import ModelConfig
+from ..models.config import SHAPES, SMOKE_SHAPES, ModelConfig, ShapeConfig
 
 ARCHS: List[str] = ["llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b",
                     "granite_8b", "minitron_4b", "stablelm_3b",
                     "mixtral_8x7b", "xlstm_350m", "seamless_m4t_medium",
                     "phi3_vision_4_2b"]
+
+# Archs whose long_500k cell runs (sub-quadratic decode state).
+LONG_CONTEXT_OK = {"zamba2_7b", "mixtral_8x7b", "xlstm_350m"}
 
 
 def _module(arch: str):
@@ -33,4 +36,12 @@ def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
 
 
-__all__ = ["ARCHS", "get", "get_smoke"]
+def shapes_for(arch: str, smoke: bool = False) -> Dict[str, ShapeConfig]:
+    """The (shape -> ShapeConfig) cells this arch runs, with the documented
+    skips applied."""
+    table = SMOKE_SHAPES if smoke else SHAPES
+    return {name: sc for name, sc in table.items()
+            if name != "long_500k" or arch in LONG_CONTEXT_OK}
+
+
+__all__ = ["ARCHS", "LONG_CONTEXT_OK", "get", "get_smoke", "shapes_for"]

@@ -1,7 +1,7 @@
 """Data of the port: ``SyntheticLM``, numpy only, so its batches are the
-JAX package's bit for bit.  ``ShardedLoader`` is not ported yet
-(ROADMAP.md queue A item 11)."""
+JAX package's bit for bit, and ``ShardedLoader``, which places each rank's
+block of them on its device with background prefetch."""
 
-from .pipeline import SyntheticLM
+from .pipeline import ShardedLoader, SyntheticLM
 
-__all__ = ["SyntheticLM"]
+__all__ = ["ShardedLoader", "SyntheticLM"]

@@ -1,5 +1,6 @@
 """Collectives of the port (``repro/dist/collectives.py``): the ragged
-all-to-all that carries the MoE layer's expert-parallel dispatch.
+all-to-all of the MoE layer's expert-parallel dispatch, the ring matmuls
+and the overlapped tensor-parallel MLP, and the collective counter.
 
 ``ragged_all_to_all`` is the counterpart of ``ring_ragged_all_to_all``
 (``repro/dist/collectives.py:127``).  The JAX version rotates one static
@@ -9,32 +10,115 @@ with split sizes, which is NCCL on the card and gloo on the CPU.  The
 contract is the same: each rank's rows go in grouped by destination rank
 in ascending order, and the rows it receives come out packed, grouped by
 source rank in ascending order.  The port returns exactly the received
-rows (no static capacity, no zero tail).
+rows (no static capacity, no zero tail).  The split sizes are host
+integers: the MoE layer gets them from an all-gather of per-expert counts,
+one host synchronisation per layer.  It is differentiable: the gradient of
+the received rows goes back by the same exchange with the sizes swapped.
+``ragged_all_to_all_reference`` is the all-gather oracle
+(``repro/dist/collectives.py:173``).
 
-The split sizes must be Python integers on the host.  The MoE layer gets
-them from an all-gather of per-expert counts, so the exchange costs one
-host synchronisation per layer (the JAX version keeps the sizes on the
-device and pays for it with a static chunk of the worst-case size).
-Keeping the counts on the device is perf work for later.
+The ring matmuls (``repro/dist/collectives.py:34-93``) decompose an
+all-gather or a reduce-scatter into ``n - 1`` point-to-point hops
+(``dist.batch_isend_irecv``, the counterpart of ``ppermute``), each hop's
+receive posted before the block product it can overlap.
+``make_overlapped_mlp`` is the tensor-parallel ``relu(x @ w1) @ w2`` over
+a mesh's ``model`` group, on the rings or on the fused references.  The
+products are ``torch.matmul``: the reference computes them outside any
+Pallas kernel.
 
-``ragged_all_to_all`` is differentiable: the gradient of the received
-rows goes back by the same exchange with the sizes swapped, so no
-gradient is summed by index.  ``ragged_all_to_all_reference`` is the
-all-gather oracle of ``ragged_all_to_all_reference``
-(``repro/dist/collectives.py:173``): every rank's rows and size table
-gathered, then this rank's blocks selected, a different data path for
-the tests to hold the exchange against.
-
-The ring matmuls and ``make_overlapped_mlp`` are not ported yet (ROADMAP.md
-queue A item 11).
+Every collective the port issues goes through one helper here that adds
+its kind, bytes and group size to every record that ``count_collectives``
+has open: the port's counterpart of the reference's HLO
+``collective_bytes``.  The port has no HLO: it counts each collective
+when it is issued, so a collective in a loop counts once a trip.  Bytes
+are the result's per-device bytes, as the reference counts them; a ring
+hop (``send_recv``) counts the bytes it sends.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import contextlib
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+         "send_recv")
+# The open records of count_collectives, outermost first.  Not
+# thread-local: the card's autograd runs backward collectives on its own
+# thread.
+_RECORDS: List[Dict[str, Dict[str, float]]] = []
+
+
+@contextlib.contextmanager
+def count_collectives() -> Iterator[Dict[str, Dict[str, float]]]:
+    """A record, per kind of ``KINDS``, of the ``bytes``, the ``count`` and
+    the largest group (``max_group``) of every collective issued inside
+    the block."""
+    rec = {k: {"bytes": 0.0, "count": 0.0, "max_group": 0} for k in KINDS}
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def _issued(kind: str, nbytes: int, group) -> None:
+    size = dist.get_world_size(group)
+    for rec in _RECORDS:
+        r = rec[kind]
+        r["bytes"] += float(nbytes)
+        r["count"] += 1.0
+        r["max_group"] = max(r["max_group"], size)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def all_gather_cat(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``t`` (same shapes) concatenated along dim 0 in rank
+    order."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    out = torch.cat(parts)
+    _issued("all_gather", _nbytes(out), group)
+    return out
+
+
+def all_gather_into(out: torch.Tensor, t: torch.Tensor, group=None
+                    ) -> torch.Tensor:
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    _issued("all_gather", _nbytes(out), group)
+    return out
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over the group, in place."""
+    dist.all_reduce(t, group=group)
+    _issued("all_reduce", _nbytes(t), group)
+    return t
+
+
+def reduce_scatter(out: torch.Tensor, t: torch.Tensor, group=None
+                   ) -> torch.Tensor:
+    dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
+    _issued("reduce_scatter", _nbytes(out), group)
+    return out
+
+
+def _hop(send: torch.Tensor, to: int, recv: torch.Tensor, frm: int,
+         group) -> List:
+    """One ring hop: send ``send`` to group rank ``to`` and receive into
+    ``recv`` from group rank ``frm``, both posted at once.  Returns the
+    requests to wait on."""
+    g = lambda r: r if group is None else dist.get_global_rank(group, r)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.irecv, recv, g(frm), group),
+        dist.P2POp(dist.isend, send.contiguous(), g(to), group)])
+    _issued("send_recv", _nbytes(send), group)
+    return reqs
 
 
 def _sizes(sizes: Sequence[int], n: int, what: str) -> List[int]:
@@ -51,6 +135,7 @@ def _exchange(rows: torch.Tensor, send: List[int], recv: List[int],
     dist.all_to_all_single(out, rows[:sum(send)].contiguous(),
                            output_split_sizes=recv, input_split_sizes=send,
                            group=group)
+    _issued("all_to_all", _nbytes(out), group)
     return out
 
 
@@ -108,14 +193,11 @@ def ragged_all_to_all_reference(rows: torch.Tensor,
     dev = rows.device
     table = torch.tensor(send + [rows.shape[0]], dtype=torch.int64,
                          device=dev)
-    tables = [torch.empty_like(table) for _ in range(n)]
-    dist.all_gather(tables, table, group=group)
-    tables = [t.tolist() for t in tables]
+    tables = all_gather_cat(table[None], group).tolist()
     longest = max(t[n] for t in tables)
     padded = torch.cat([rows, rows.new_zeros(
         (longest - rows.shape[0],) + tuple(rows.shape[1:]))])
-    gathered = [torch.empty_like(padded) for _ in range(n)]
-    dist.all_gather(gathered, padded, group=group)
+    gathered = all_gather_cat(padded[None], group)
     blocks = []
     for j, (t, src) in enumerate(zip(tables, gathered)):
         start = sum(t[:me])
@@ -124,3 +206,94 @@ def ragged_all_to_all_reference(rows: torch.Tensor,
                              f"rows here, recv_sizes says {recv[j]}")
         blocks.append(src[start:start + t[me]])
     return torch.cat(blocks)
+
+
+# ------------------------------------------------------- allgather-matmul
+def allgather_matmul_reference(x_shard: torch.Tensor, w_col: torch.Tensor,
+                               group=None) -> torch.Tensor:
+    """allgather(x) @ w_col, the unfused baseline.  ``x_shard``: (m, K)
+    row shard of x; ``w_col``: (K, n_col) column shard.  Returns the
+    full-row (n*m, n_col) product for this rank's columns."""
+    n = dist.get_world_size(group)
+    x = x_shard.new_empty((n * x_shard.shape[0],) + tuple(x_shard.shape[1:]))
+    return torch.matmul(all_gather_into(x, x_shard, group), w_col)
+
+
+def ring_allgather_matmul(x_shard: torch.Tensor, w_col: torch.Tensor,
+                          group=None) -> torch.Tensor:
+    """Ring-overlapped allgather + matmul: each of n steps multiplies the
+    chunk held into the rows of its origin and passes it one hop, received
+    from the right (the reference's ``perm``), the receive posted before
+    the product."""
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    m = x_shard.shape[0]
+    dtype = torch.result_type(x_shard, w_col)
+    out = x_shard.new_empty((n * m, w_col.shape[1]), dtype=dtype)
+    blk = x_shard.contiguous()
+    for i in range(n):
+        src = (idx + i) % n               # origin of the chunk held
+        if i != n - 1:
+            nxt = torch.empty_like(blk)
+            reqs = _hop(blk, (idx - 1) % n, nxt, (idx + 1) % n, group)
+        out[src * m:(src + 1) * m] = torch.matmul(blk, w_col).to(dtype)
+        if i != n - 1:
+            for r in reqs:
+                r.wait()
+            blk = nxt
+    return out
+
+
+# --------------------------------------------------- matmul-reducescatter
+def matmul_reducescatter_reference(h: torch.Tensor, w_row: torch.Tensor,
+                                   group=None) -> torch.Tensor:
+    """scatter(sum over ranks(h @ w_row)), the unfused baseline.  ``h``:
+    (M, k) column shard of activations; ``w_row``: (k, N) row shard.
+    Returns this rank's (M/n, N) row block of the summed product."""
+    partial = torch.matmul(h, w_row)
+    n = dist.get_world_size(group)
+    out = partial.new_empty((partial.shape[0] // n,) + tuple(
+        partial.shape[1:]))
+    return reduce_scatter(out, partial, group)
+
+
+def ring_matmul_reducescatter(h: torch.Tensor, w_row: torch.Tensor,
+                              group=None) -> torch.Tensor:
+    """Ring-overlapped matmul + reduce-scatter: the partial sum bound for
+    each rank gathers the others' block products as it travels the ring,
+    sent to the right (``repro/dist/collectives.py:75-93``); each hop's
+    receive is posted before the block product it overlaps."""
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    m = h.shape[0] // n
+
+    def contrib(dest):
+        return torch.matmul(h[dest * m:(dest + 1) * m], w_row)
+
+    acc = contrib((idx - 1) % n)
+    for i in range(1, n):
+        nxt = torch.empty_like(acc)
+        reqs = _hop(acc, (idx + 1) % n, nxt, (idx - 1) % n, group)
+        c = contrib((idx - i - 1) % n)
+        for r in reqs:
+            r.wait()
+        acc = nxt + c
+    return acc
+
+
+# ------------------------------------------------------------ fused MLP
+def make_overlapped_mlp(mesh, overlap: bool = True) -> Callable:
+    """The tensor-parallel MLP ``relu(x @ w1) @ w2`` over the mesh's
+    ``model`` group, on this rank's shards: x (M/n, K) row-sharded, w1
+    (K, F/n) column-sharded, w2 (F/n, N) row-sharded; the output (M/n, N)
+    row-sharded (the reference's specs).  ``overlap=True`` runs the rings
+    (``send_recv`` hops), ``overlap=False`` the fused references
+    (``all_gather`` and ``reduce_scatter``)."""
+    group = mesh.get_group("model")
+
+    def mlp(x, w1, w2):
+        if overlap:
+            h = torch.relu(ring_allgather_matmul(x, w1, group))
+            return ring_matmul_reducescatter(h, w2, group)
+        h = torch.relu(allgather_matmul_reference(x, w1, group))
+        return matmul_reducescatter_reference(h, w2, group)
+
+    return mlp

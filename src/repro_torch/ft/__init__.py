@@ -1,7 +1,9 @@
-"""Failure detection of the port (``repro/ft``): ``HeartbeatMonitor``, a
-framework-free copy.  Elastic rescaling (``ft/elastic.py``) is not ported
-yet (ROADMAP.md queue A item 11)."""
+"""Fault tolerance of the port (``repro/ft``): ``HeartbeatMonitor``, a
+framework-free copy, and elastic rescaling (``plan_rescale`` and
+``reshard_state``)."""
 
+from .elastic import RescalePlan, plan_rescale, reshard_state
 from .heartbeat import HeartbeatMonitor, NodeStats
 
-__all__ = ["HeartbeatMonitor", "NodeStats"]
+__all__ = ["HeartbeatMonitor", "NodeStats", "RescalePlan", "plan_rescale",
+           "reshard_state"]

@@ -24,7 +24,7 @@ with the output's gradient.  ``flash_attention_cuda`` is the
 kernel takes and raises on anything else, launches on PyTorch's current
 stream, raises if a launch is refused, and adds one to its count in
 ``LAUNCHES`` (and in ``NONCAUSAL_LAUNCHES`` when it ran unmasked).  It
-never falls back to the plain version: ``kernels.ops``
+never falls back to the plain version: ``FlashAttention``
 sends CPU tensors to ``ref.mha_reference`` and CUDA tensors here.
 """
 
@@ -38,7 +38,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, cost, ref
 
 # Launches per entry point: a run reads these to show that its path went
 # through the kernels.  A backward is one count for all its launches.
@@ -273,27 +273,63 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool = True,
 
 
 class FlashAttention(torch.autograd.Function):
-    """Forward and backward both launch the CUDA kernels; the forward
-    saves q, k, v, its output and the log-sum-exp for the backward."""
+    """Attention with its gradient on every device: on CUDA tensors the
+    forward and backward kernels (the forward saves its output and the
+    log-sum-exp), on CPU tensors ``ref.mha_reference`` (the backward
+    recomputes it and takes its gradient by autograd), on ``meta`` empty
+    outputs.  Each charges its cost to an open cost walk
+    (``cost.charging``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        out, lse = flash_attention_fwd_cuda(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
+        with cost.charging("flash_attention",
+                           lambda: cost.flash(q, k, v)[0]):
+            lse = None
+            if q.device.type == "meta":
+                out = torch.empty_like(q)
+            elif q.device.type == "cpu":
+                out = ref.mha_reference(q, k, v, causal=causal,
+                                        window=window)
+            else:
+                q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+                out, lse = flash_attention_fwd_cuda(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, out, lse, dout.contiguous(), ctx.causal, ctx.window)
-        return dq, dk, dv, None, None
+        with cost.charging("flash_attention_bwd",
+                           lambda: cost.flash(q, k, v)[1]):
+            if q.device.type == "meta":
+                grads = [torch.empty_like(t) for t in (q, k, v)]
+            elif q.device.type == "cpu":
+                grads = _plain_grads(q, k, v, dout, ctx)
+            else:
+                grads = flash_attention_bwd_cuda(
+                    q, k, v, out, lse, dout.contiguous(), ctx.causal,
+                    ctx.window)
+        return (*grads, None, None)
+
+
+def _plain_grads(q, k, v, dout, ctx):
+    """``ref.mha_reference``'s gradients in the inputs that need one, by
+    autograd over its forward run again."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip((q, k, v), ctx.needs_input_grad)]
+        out = ref.mha_reference(*leaves, causal=ctx.causal,
+                                window=ctx.window)
+        want = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(out, want, dout))
+    return [next(got) if t.requires_grad else None for t in leaves]
 
 
 def flash_attention_cuda(q, k, v, causal: bool = True,
                          window: Optional[int] = None) -> torch.Tensor:
-    """Differentiable attention on the card.  q: (B,Sq,H,dh); k/v:
-    (B,Sk,K,dh).  Returns (B,Sq,H,dh)."""
-    return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal, window)
+    """Differentiable attention on the card (raises on other devices).
+    q: (B,Sq,H,dh); k/v: (B,Sk,K,dh).  Returns (B,Sq,H,dh)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check(q, k, v, causal, window)
+    return FlashAttention.apply(q, k, v, causal, window)

@@ -45,7 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from . import _build, ref
+from . import _build, cost, ref
 
 # Launches of the entry points — a run reads this to show that its path
 # went through the kernels.  ``reset_launches`` zeroes it.
@@ -476,24 +476,36 @@ class GroupedFFN(torch.autograd.Function):
     """The grouped SwiGLU with its gradient: on CUDA tensors the forward
     and backward kernels, on CPU tensors their plain versions
     (``ref.moe_grouped_ffn_reference`` and
-    ``ref.moe_grouped_ffn_bwd_reference``).  The forward saves its inputs
-    only; the backward recomputes h, as the JAX package's ``_ffn_bwd``
-    does."""
+    ``ref.moe_grouped_ffn_bwd_reference``), on ``meta`` empty outputs.
+    The forward saves its inputs only; the backward recomputes h, as the
+    JAX package's ``_ffn_bwd`` does.  Each charges its cost to an open
+    cost walk (``cost.charging``)."""
 
     @staticmethod
     def forward(ctx, x, w_gate, w_up, w_down, group_sizes, group_experts):
         ctx.save_for_backward(x, w_gate, w_up, w_down, group_sizes,
                               group_experts)
-        fwd = (ref.moe_grouped_ffn_reference if x.device.type == "cpu"
-               else moe_grouped_ffn_cuda)
-        return fwd(x, w_gate, w_up, w_down, group_sizes, group_experts)
+        with cost.charging("moe_grouped_ffn", lambda: cost.grouped_ffn(
+                x, w_gate, w_up, w_down)[0]):
+            if x.device.type == "meta":
+                return torch.empty_like(x)
+            fwd = (ref.moe_grouped_ffn_reference if x.device.type == "cpu"
+                   else moe_grouped_ffn_cuda)
+            return fwd(x, w_gate, w_up, w_down, group_sizes, group_experts)
 
     @staticmethod
     def backward(ctx, dy):
         x, w_gate, w_up, w_down, group_sizes, group_experts = \
             ctx.saved_tensors
-        bwd = (ref.moe_grouped_ffn_bwd_reference if x.device.type == "cpu"
-               else moe_grouped_ffn_bwd_cuda)
-        grads = bwd(x, w_gate, w_up, w_down, group_sizes, group_experts,
-                    dy.contiguous())
+        weights = (x, w_gate, w_up, w_down)
+        with cost.charging("moe_grouped_ffn_bwd",
+                           lambda: cost.grouped_ffn(*weights)[1]):
+            if x.device.type == "meta":
+                grads = [torch.empty_like(t) for t in weights]
+            else:
+                bwd = (ref.moe_grouped_ffn_bwd_reference
+                       if x.device.type == "cpu"
+                       else moe_grouped_ffn_bwd_cuda)
+                grads = bwd(x, w_gate, w_up, w_down, group_sizes,
+                            group_experts, dy.contiguous())
         return (*grads, None, None)

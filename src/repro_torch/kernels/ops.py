@@ -3,7 +3,10 @@
 A tensor on the CPU takes the plain PyTorch version (``kernels/ref.py``,
 ``kernels/sampling.py``); a CUDA tensor launches the hand-written kernel or
 raises.  There is no global mode and no switch that sends CUDA tensors to
-the plain version.
+the plain version.  A ``meta`` tensor (a dry run names that device) gets
+an empty result of the output's shape.  While a cost walk is open
+(``launch.analysis.cost_of``) each kernel charges its own cost from its
+shapes and hides its body's ops (``kernels.cost.charging``).
 """
 
 from __future__ import annotations
@@ -12,7 +15,8 @@ from typing import Optional
 
 import torch
 
-from . import ref
+from . import cost, ref
+from .cost import nbytes
 from .sampling import sample_tokens as _sample_tokens
 
 
@@ -20,27 +24,41 @@ def flash_attention(q, k, v, causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """Differentiable attention for training.  q: (B,Sq,H,dh); k/v:
     (B,Sk,K,dh) with GQA; causal rows at positions ``i + Sk - Sq``; a
-    window applies only under causal.  A CPU tensor takes
-    ``ref.mha_reference`` (its gradient by autograd); a CUDA tensor the
+    window applies only under causal.  Goes through
+    ``flash_attention.FlashAttention`` on every device: a CPU tensor takes
+    ``ref.mha_reference`` (its gradient by autograd), a CUDA tensor the
     hand-written forward and backward kernels."""
-    if q.device.type == "cpu":
-        return ref.mha_reference(q, k, v, causal=causal, window=window)
-    from .flash_attention import flash_attention_cuda
+    from .flash_attention import FlashAttention
 
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return FlashAttention.apply(q, k, v, causal, window)
+
+
+def _paged_cost(q, k_pool, B, rows, slots) -> cost.Cost:
+    """Attention of ``B`` sequences of ``rows`` query rows each over
+    ``slots`` cached positions a sequence."""
+    H, dh = q.shape[-2:]
+    kv = 2.0 * B * slots * k_pool.shape[2] * dh * k_pool.element_size()
+    return cost.attention(B, rows, slots, H, dh, nbytes(q) + kv,
+                          nbytes(q))[0]
 
 
 def paged_attention(q, k_pool, v_pool, page_table, lengths,
                     window: Optional[int] = None) -> torch.Tensor:
     """Decode attention over paged KV.  q: (B,H,dh); k_pool/v_pool:
     (N,P,K,dh); page_table: (B,MP) int32 (-1 = unused); lengths: (B,)."""
-    if q.device.type == "cpu":
-        return ref.paged_attention_reference(q, k_pool, v_pool, page_table,
-                                             lengths, window=window)
-    from .paged_attention import paged_attention_cuda
+    slots = page_table.shape[-1] * k_pool.shape[1]
+    with cost.charging("paged_attention",
+                       lambda: _paged_cost(q, k_pool, q.shape[0], 1,
+                                           slots)):
+        if q.device.type == "meta":
+            return torch.empty_like(q)
+        if q.device.type == "cpu":
+            return ref.paged_attention_reference(
+                q, k_pool, v_pool, page_table, lengths, window=window)
+        from .paged_attention import paged_attention_cuda
 
-    return paged_attention_cuda(q, k_pool, v_pool, page_table, lengths,
-                                window=window)
+        return paged_attention_cuda(q, k_pool, v_pool, page_table, lengths,
+                                    window=window)
 
 
 def paged_prefill(q, k_pool, v_pool, page_table, lengths,
@@ -53,13 +71,19 @@ def paged_prefill(q, k_pool, v_pool, page_table, lengths,
 
     q: (S,H,dh); k_pool/v_pool: (N,P,K,dh); page_table: (MP,) int32;
     lengths: (S,) int32.  Returns (S,H,dh)."""
-    if q.device.type == "cpu":
-        return ref.paged_prefill_reference(q, k_pool, v_pool, page_table,
-                                           lengths, window=window)
-    from .paged_attention import paged_prefill_cuda
+    slots = page_table.shape[-1] * k_pool.shape[1]
+    with cost.charging("paged_prefill",
+                       lambda: _paged_cost(q, k_pool, 1, q.shape[0],
+                                          slots)):
+        if q.device.type == "meta":
+            return torch.empty_like(q)
+        if q.device.type == "cpu":
+            return ref.paged_prefill_reference(
+                q, k_pool, v_pool, page_table, lengths, window=window)
+        from .paged_attention import paged_prefill_cuda
 
-    return paged_prefill_cuda(q, k_pool, v_pool, page_table, lengths,
-                              window=window)
+        return paged_prefill_cuda(q, k_pool, v_pool, page_table, lengths,
+                                  window=window)
 
 
 def moe_grouped_ffn(x, w_gate, w_up, w_down, group_sizes,

@@ -42,7 +42,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from . import _build, ref
+from . import _build, cost, ref
 
 # Launches per entry point: a run reads these to show that its path went
 # through the kernel.
@@ -463,18 +463,29 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy):
 class SSDScan(torch.autograd.Function):
     """The SSD intra-chunk block with its gradient: on CUDA tensors
     ``ssd_scan_cuda`` and ``ssd_scan_bwd_cuda``, on CPU tensors
-    ``ref.ssd_reference`` and ``ref.ssd_bwd_reference``.  The forward saves
-    its inputs only; the backward recomputes the cumsum and the decays."""
+    ``ref.ssd_reference`` and ``ref.ssd_bwd_reference``, on ``meta`` empty
+    outputs.  The forward saves its inputs only; the backward recomputes
+    the cumsum and the decays.  Each charges its cost to an open cost walk
+    (``cost.charging``)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm):
         ctx.save_for_backward(x, dt, A, Bm, Cm)
-        fwd = ref.ssd_reference if x.device.type == "cpu" else ssd_scan_cuda
-        return fwd(x, dt, A, Bm, Cm)
+        with cost.charging("ssd_scan",
+                           lambda: cost.ssd(x, dt, A, Bm, Cm)[0]):
+            if x.device.type == "meta":
+                return torch.empty(x.shape, dtype=torch.float32,
+                                   device="meta")
+            fwd = (ref.ssd_reference if x.device.type == "cpu"
+                   else ssd_scan_cuda)
+            return fwd(x, dt, A, Bm, Cm)
 
     @staticmethod
     def backward(ctx, dy):
         saved = ctx.saved_tensors
-        bwd = (ref.ssd_bwd_reference if saved[0].device.type == "cpu"
-               else ssd_scan_bwd_cuda)
-        return bwd(*saved, dy.contiguous())
+        with cost.charging("ssd_scan_bwd", lambda: cost.ssd(*saved)[1]):
+            if saved[0].device.type == "meta":
+                return tuple(torch.empty_like(t) for t in saved)
+            bwd = (ref.ssd_bwd_reference if saved[0].device.type == "cpu"
+                   else ssd_scan_bwd_cuda)
+            return bwd(*saved, dy.contiguous())

@@ -1,18 +1,44 @@
-"""Serving and guidance telemetry of the port — ``guidance_summary`` and
-``serving_summary``, copied from ``repro/launch/analysis.py`` (both are
-framework-free).
+"""Cost accounting and telemetry of the port (``repro/launch/analysis.py``).
 
-``guidance_summary`` consumes the ``GuidanceRuntime``'s structured event
-stream (interval decisions + rental payments); ``serving_summary`` is one
-view over an ``Engine``'s or a ``Router``'s counters plus each controller's
-events.  The reference module's jaxpr and HLO cost walk is not here: it
-belongs with distribution (ROADMAP.md queue A item 11).
+``cost_of(fn, *args)`` is the counterpart of the reference's ``jaxpr_cost``:
+it runs ``fn`` under a ``TorchDispatchMode`` and counts every aten op that
+reaches it, so loops count once a trip and a backward (``loss.backward()``
+inside ``fn``) and remat's recomputation count by running.
+
+* ``flops``: the matmul family exactly, 2 * batch * m * n * k; each op that
+  is the counterpart of the reference's ``_ELEMENTWISE_FLOPS`` at its
+  output's numel.  aten's fused ops (``_softmax``, ``silu``, their
+  backwards, ``nll_loss``) are not in that set, as JAX's reductions are
+  not: where the reference spells softmax out in primitives, it counts the
+  sub, exp and div that aten fuses.
+* ``bytes_naive``: every op's tensor operands and outputs.
+* ``bytes_dot``: the reference's post-fusion estimate: matmul, cat,
+  cumsum, sort and topk operands and outputs; a gather (``index_select``,
+  ``embedding``, advanced indexing, ``gather``) twice its output plus its
+  indices, never the pool; a scatter (``index_put``, ``scatter_add``,
+  ``index_add``, the embedding's backward) three times its update plus
+  its indices; a slice update three times the slice.
+
+The kernels are ``ctypes`` launches and invisible to the mode: each
+kernel's autograd Function, and each inference entry point of
+``kernels.ops``, charges its own cost from its shapes
+(``kernels.cost``), so one step counts the same on the CPU, on ``meta``
+and on the card.
+
+``guidance_summary`` and ``serving_summary`` are framework-free copies:
+the ``GuidanceRuntime``'s event stream and an ``Engine``'s or a
+``Router``'s counters as report scalars.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterable
+from typing import Any, Callable, Dict, Iterable
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..kernels import cost as kcost
 
 
 # ===================================================== guidance telemetry
@@ -107,3 +133,121 @@ def serving_summary(engine) -> Dict[str, Any]:
         out.update({f"expert_{k}": v for k, v in
                     guidance_summary(engine.expert_runtime.events).items()})
     return out
+
+
+# ================================================================ costs
+_aten = torch.ops.aten
+
+
+_MATMUL = {_aten.mm.default, _aten.addmm.default, _aten.bmm.default,
+           _aten.baddbmm.default, _aten.mv.default, _aten.dot.default}
+# The counterparts of the reference's _ELEMENTWISE_FLOPS (add, sub, mul,
+# div, max, min, neg, exp, log, tanh, logistic, rsqrt, sqrt, pow,
+# integer_pow, erf, abs, floor, ceil, round, sign, cos, sin).
+_ELEMENTWISE = {"add", "add_", "sub", "sub_", "rsub", "mul", "mul_", "div",
+                "div_", "maximum", "minimum", "neg", "exp", "log", "tanh",
+                "sigmoid", "rsqrt", "sqrt", "pow", "erf", "abs", "floor",
+                "ceil", "round", "sign", "cos", "sin", "reciprocal"}
+_GATHER = {"index_select", "embedding", "index", "gather"}
+_SCATTER = {"index_put", "index_put_", "_index_put_impl_", "scatter_add",
+            "scatter_add_", "index_add", "index_add_",
+            "embedding_dense_backward", "scatter", "scatter_"}
+_DOT_LIKE = {"cat", "cumsum", "sort", "topk", "convolution"}
+
+
+def _tensors(tree) -> list:
+    out = []
+    stack = [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+    return out
+
+
+def _bytes(ts) -> float:
+    return float(sum(t.numel() * t.element_size() for t in ts))
+
+
+def _matmul_flops(op, args) -> float:
+    if op in (_aten.mm.default, _aten.addmm.default):
+        a, b = (args[0], args[1]) if op is _aten.mm.default else args[1:3]
+        return 2.0 * a.shape[0] * a.shape[1] * b.shape[1]
+    if op in (_aten.bmm.default, _aten.baddbmm.default):
+        a, b = (args[0], args[1]) if op is _aten.bmm.default else args[1:3]
+        return 2.0 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+    if op is _aten.mv.default:
+        return 2.0 * args[0].shape[0] * args[0].shape[1]
+    return 2.0 * args[0].numel()                   # dot
+
+
+class CostWalk(TorchDispatchMode):
+    """The counting mode of ``cost_of``: ``totals`` holds ``flops``,
+    ``bytes_naive`` and ``bytes_dot``; ``matmul_flops`` the matrix
+    products' share (aten's and the kernels'); ``kernels`` the flops
+    charged by each kernel (``kernels.cost``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.totals = {"flops": 0.0, "bytes_naive": 0.0, "bytes_dot": 0.0}
+        self.kernels: Dict[str, float] = {}
+        self.matmul_flops = 0.0
+
+    def charge(self, name: str, c: "kcost.Cost") -> None:
+        self.totals["flops"] += c.flops
+        self.totals["bytes_naive"] += c.bytes
+        self.totals["bytes_dot"] += c.bytes
+        self.matmul_flops += c.products
+        self.kernels[name] = self.kernels.get(name, 0.0) + c.flops
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if kcost.SUSPENDED[0]:
+            return out
+        ins = _tensors((args, kwargs))
+        outs = _tensors(out)
+        in_b, out_b = _bytes(ins), _bytes(outs)
+        t = self.totals
+        t["bytes_naive"] += in_b + out_b
+        name = func.overloadpacket.__name__
+        if func in _MATMUL:
+            flops = _matmul_flops(func, args)
+            t["flops"] += flops
+            self.matmul_flops += flops
+            t["bytes_dot"] += in_b + out_b
+        elif name in _GATHER:
+            idx = [x for x in ins if not x.is_floating_point()]
+            t["bytes_dot"] += 2 * out_b + _bytes(idx)
+        elif name in _SCATTER:
+            idx = [x for x in ins if not x.is_floating_point()]
+            upd = [x for x in ins if x.is_floating_point()][-1:]
+            t["bytes_dot"] += 3 * _bytes(upd) + _bytes(idx)
+        elif name == "slice_scatter":
+            t["bytes_dot"] += 3 * _bytes(ins[1:2])
+        elif name in _DOT_LIKE:
+            t["bytes_dot"] += in_b + out_b
+        elif name in _ELEMENTWISE and outs:
+            t["flops"] += float(outs[0].numel())
+        return out
+
+
+def cost_of(fn: Callable, *args, **kwargs) -> Dict[str, Any]:
+    """Run ``fn(*args, **kwargs)`` and count what it does: ``flops``,
+    ``bytes_naive``, ``bytes_dot`` (module docstring), ``matmul_flops``
+    (the matrix products, aten's and the kernels') and ``kernels`` (the
+    flops each kernel charged).  Put ``loss.backward()`` inside ``fn`` to
+    count a training step."""
+    walk = CostWalk()
+    kcost.WALKS.append(walk)
+    try:
+        with walk:
+            fn(*args, **kwargs)
+    finally:
+        kcost.WALKS.remove(walk)
+    return {**walk.totals, "matmul_flops": walk.matmul_flops,
+            "kernels": dict(walk.kernels)}

@@ -69,3 +69,28 @@ class ModelConfig:
             raise ValueError(f"an encdec config needs enc_layers > 0, got "
                              f"{self.enc_layers}")
         return self
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # "train" | "prefill" | "decode"
+
+
+# The input-shape set of every LM arch (``repro/models/config.py``).
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# Smoke-scale shapes for CPU tests.
+SMOKE_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 128, 4, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 128, 2, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 128, 4, "decode"),
+    "long_500k": ShapeConfig("long_500k", 256, 1, "decode"),
+}

@@ -14,16 +14,18 @@ combine in ascending-expert order under all three):
   version on the CPU) over them, the k results combined gate-weighted.
 * **per-row** (``_moe_dropless(per_row=True)``): each batch row sorts its
   own S*k picks, so the grouped FFN runs over B*E segments with
-  ``group_experts`` = ``arange(E)`` tiled B times.  The JAX package picks
-  it under a data-sharded mesh (``_data_sharded``), where it keeps every
-  dispatch structure shard-local; the port has no such mesh yet (ROADMAP.md
-  queue A item 11), so ``per_row`` defaults to False.
-* **ep over a process group** (``_moe_dropless_ep``): with
-  ``parallelism="ep"`` and a default process group of more than one rank,
-  every rank holds the whole batch and owns ``padded_experts / world``
-  experts.  Each rank routes a static slice of the tokens, the rows travel
-  to their experts' ranks and back by ``dist.ragged_all_to_all`` (NCCL on
-  the card, gloo on the CPU), and the token slices are all-gathered.
+  ``group_experts`` = ``arange(E)`` tiled B times.  It is picked, as in
+  the JAX package, when the ambient mesh (``dist.sharding.use_mesh``)
+  splits the batch over a data axis (``_data_sharded``), where it keeps
+  every dispatch structure row-local.
+* **ep over the mesh's model axis** (``_moe_dropless_ep``): with
+  ``parallelism="ep"`` under a mesh whose ``model`` axis has more than one
+  rank (``_ep_mesh``), each rank holds its data block of the batch and
+  owns ``padded_experts / model`` experts.  Each rank routes a static
+  slice of its block's tokens, the rows travel to their experts' ranks of
+  the model group and back by ``dist.ragged_all_to_all`` (NCCL on the
+  card, gloo on the CPU), and the token slices are all-gathered over the
+  model group.
 
 The combines are fixed-order reductions, not scatter-adds: ``index_add_``
 and scatter-adds are not deterministic on CUDA, and the serving invariants
@@ -49,9 +51,10 @@ softmax, the experts through the grouped FFN's backward kernel (or the
 batched products' own gradients).  The dispatch gathers and the combines
 are ``autograd.Function``s whose backwards are each other's forwards, so
 no backward accumulates by index either, and two backward passes give the
-same bits.  Under ep, x's and the router's gradients are whole on every
-rank.  A 2-D layout (ep over a group smaller than the world, the other
-ranks splitting the batch) is not ported yet (item 11).
+same bits.  Under ep, x's and the router's gradients are those of the
+rank's data block, whole on every rank of its model group; the data ranks'
+gradients differ, and summing them is the trainer's data-parallel
+reduction (ROADMAP.md A20).
 """
 
 from __future__ import annotations
@@ -64,7 +67,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..dist import collectives as coll
 from ..dist.collectives import ragged_all_to_all
+from ..dist.sharding import active_mesh, batch_data_axes, mesh_sizes
 from ..kernels import ops
 from ..tiles import linear
 
@@ -269,78 +274,102 @@ def _apply_dropless_per_row(gates, experts, x, w_gate, w_up, w_down,
     return y.to(x.dtype).reshape(B, S, d)
 
 
-def _moe_dropless(p, x, cfg: MoEConfig, per_row: bool = False
+def _data_sharded() -> bool:
+    """True when the ambient mesh splits the batch over a data axis: the
+    regime where the per-row layout keeps every dispatch structure
+    row-local."""
+    mesh = active_mesh()
+    if mesh is None:
+        return False
+    sizes = mesh_sizes(mesh)
+    return any(sizes[a] > 1 for a in batch_data_axes(mesh))
+
+
+def _moe_dropless(p, x, cfg: MoEConfig, per_row: Optional[bool] = None
                   ) -> torch.Tensor:
     """Route, then the flat dropless dispatch, or the per-row layout with
-    ``per_row``.  ``p`` holds ``router`` (d, E) f32 and ``w_gate``/``w_up``
-    (E, d, f), ``w_down`` (E, f, d).  The JAX package defaults ``per_row``
-    to whether a data-sharded mesh is active; the port has no such mesh
-    (ROADMAP.md queue A item 11), so it defaults to the flat layout."""
+    ``per_row`` (None: ``_data_sharded()``, as in the JAX package).  ``p``
+    holds ``router`` (d, E) f32 and ``w_gate``/``w_up`` (E, d, f),
+    ``w_down`` (E, f, d)."""
     B, S, d = x.shape
     gates, experts = route_tokens(p.router, x.reshape(B * S, d), cfg)
+    if per_row is None:
+        per_row = _data_sharded()
     apply = _apply_dropless_per_row if per_row else apply_dropless_flat
     return apply(gates, experts, x, p.w_gate, p.w_up, p.w_down, cfg)
 
 
 # ======================================================== ep dropless
 class _TakeSlice(torch.autograd.Function):
-    """This rank's Tm rows of the (m*Tm, d) tokens that every rank holds
-    whole.  Its gradient is the ranks' slice gradients all-gathered in
-    rank order, so x's gradient is whole on every rank (JAX's shard_map
-    transpose sums a replicated input's cotangent over the model axis)."""
+    """This rank's Tm rows of the (m*Tm, d) tokens that every rank of the
+    model group holds whole.  Its gradient is the group's slice gradients
+    all-gathered in rank order, so x's gradient is whole on every rank of
+    the group (JAX's shard_map transpose sums a replicated input's
+    cotangent over the model axis)."""
 
     @staticmethod
-    def forward(ctx, xt, rank, rows):
+    def forward(ctx, xt, rank, rows, group):
+        ctx.group = group
         return xt[rank * rows:(rank + 1) * rows].clone()
 
     @staticmethod
     def backward(ctx, dmy):
-        parts = [torch.empty_like(dmy) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, dmy.contiguous())
-        return torch.cat(parts), None, None
+        return coll.all_gather_cat(dmy, ctx.group), None, None, None
 
 
 class _SumGradOverRanks(torch.autograd.Function):
-    """Identity whose gradient is summed over the ranks: the router each
-    rank holds whole routes only that rank's token slice."""
+    """Identity whose gradient is summed over the model group: the router
+    each rank holds whole routes only that rank's token slice."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, dt):
-        dt = dt.clone()
-        dist.all_reduce(dt)
-        return dt
+        return coll.all_reduce(dt.clone(), ctx.group), None
 
 
 class _GatherSlices(torch.autograd.Function):
-    """The ranks' (Tm, d) slices all-gathered in rank order, (m*Tm, d).
-    Every rank holds the whole output and computes the same loss from it,
-    so a rank's slice takes its own rows of the output's gradient."""
+    """The model group's (Tm, d) slices all-gathered in rank order,
+    (m*Tm, d).  Every rank of the group holds the whole output and
+    computes the same loss from it, so a rank's slice takes its own rows
+    of the output's gradient."""
 
     @staticmethod
-    def forward(ctx, y_my):
-        m = dist.get_world_size()
-        ctx.rank, ctx.rows = dist.get_rank(), y_my.shape[0]
-        parts = [torch.empty_like(y_my) for _ in range(m)]
-        dist.all_gather(parts, y_my.contiguous())
-        return torch.cat(parts)
+    def forward(ctx, y_my, group):
+        ctx.rank, ctx.rows = dist.get_rank(group), y_my.shape[0]
+        return coll.all_gather_cat(y_my, group)
 
     @staticmethod
     def backward(ctx, dy):
         lo = ctx.rank * ctx.rows
-        return dy[lo:lo + ctx.rows]
+        return dy[lo:lo + ctx.rows], None
 
 
-def _moe_dropless_ep(p, x, cfg: MoEConfig) -> torch.Tensor:
-    """Ragged (dropless) expert-parallel dispatch over the default process
-    group (the JAX package's ``_moe_dropless_ep`` on
-    ``make_test_mesh(data=1, model=n)``): every rank holds the whole batch
-    and owns experts [r*E_loc, (r+1)*E_loc).  Each rank
+def _ep_mesh(cfg: MoEConfig):
+    """The ambient mesh when the ep path applies (ep parallelism on a
+    mesh whose ``model`` axis has more than one rank), else None."""
+    if cfg.parallelism != "ep":
+        return None
+    mesh = active_mesh()
+    if mesh_sizes(mesh).get("model", 1) <= 1:
+        return None
+    return mesh
 
-      1. routes its static slice of Tm = ceil(B*S/m) tokens through
+
+def _moe_dropless_ep(p, x, cfg: MoEConfig, mesh) -> torch.Tensor:
+    """Ragged (dropless) expert-parallel dispatch over the mesh's ``model``
+    group (the JAX package's ``_moe_dropless_ep``).  Under a mesh the port's
+    model sees local tensors: x (B_loc, S, d) is this rank's data block of
+    the batch (``data.ShardedLoader`` places batches by
+    ``batch_pspec(mesh)``; on a mesh without a data axis larger than one
+    every rank holds the whole batch), and every rank of a model group
+    holds the same block.  Model rank r owns experts [r*E_loc,
+    (r+1)*E_loc).  Each rank
+
+      1. routes its static slice of Tm = ceil(B_loc*S/m) tokens through
          ``route_tokens`` (slice-padding rows get gate 0),
       2. sorts its picks by expert (contiguous per destination rank, since
          each rank owns a contiguous expert range) and counts them,
@@ -354,33 +383,38 @@ def _moe_dropless_ep(p, x, cfg: MoEConfig) -> torch.Tensor:
       5. combines gate-weighted in ascending-expert order, as every other
          layout does, and all-gathers the token slices.
 
-    Per-token math is that of ``_moe_dropless``.  Gradients, on every rank
-    that computes the same loss from the whole output: x's and the
-    router's are whole (the slice's backward all-gathers, the router's
-    all-reduces), as they are for the layers around it; a rank's own
-    experts' weights get their whole gradient and the other experts' rows,
+    Every collective runs on the model group.  The output is this rank's
+    (B_loc, S, d) block.  Per-token math is that of ``_moe_dropless``.
+    Gradients, on every rank of a model group that computes the same loss
+    from the whole block: x's and the router's are whole for the block
+    (the slice's backward all-gathers, the router's all-reduces over the
+    model group), as they are for the layers around it; a rank's own
+    experts' weights get the block's gradient and the other experts' rows,
     which the rank never reads, get zeros."""
     B, S, d = x.shape
     E, k = cfg.padded_experts, cfg.top_k
-    m, r = dist.get_world_size(), dist.get_rank()
-    cfg.validate_ep_axis(m)
+    cfg.validate_ep_axis(mesh_sizes(mesh)["model"])
+    if not hasattr(mesh, "get_group"):
+        raise ValueError("the ep dispatch needs a DeviceMesh of live ranks; "
+                         "an AbstractMesh has no process groups")
+    group = mesh.get_group("model")
+    m, r = dist.get_world_size(group), dist.get_rank(group)
     E_loc = E // m
     T = B * S
     Tm = -(-T // m)
     xt = x.reshape(T, d)
     if m * Tm > T:
         xt = torch.cat([xt, xt.new_zeros((m * Tm - T, d))])
-    my = _TakeSlice.apply(xt, r, Tm)
+    my = _TakeSlice.apply(xt, r, Tm, group)
     live = (r * Tm + torch.arange(Tm, device=x.device)) < T
-    gates, experts = route_tokens(_SumGradOverRanks.apply(p.router), my, cfg)
+    gates, experts = route_tokens(_SumGradOverRanks.apply(p.router, group),
+                                  my, cfg)
     gates = gates * live[:, None].to(gates.dtype)
 
     flat_e = experts.reshape(Tm * k).to(torch.int64)
     order, _ = _sort_picks_by_expert(flat_e, k)
     counts = _segment_sizes(flat_e[order], E)
-    parts = [torch.empty_like(counts) for _ in range(m)]
-    dist.all_gather(parts, counts)
-    all_counts = torch.stack(parts)                             # (m, E)
+    all_counts = coll.all_gather_cat(counts[None], group)       # (m, E)
     mine = all_counts[:, r * E_loc:(r + 1) * E_loc]             # (m, E_loc)
     host = all_counts.tolist()
     send = [sum(host[r][j * E_loc:(j + 1) * E_loc]) for j in range(m)]
@@ -392,12 +426,12 @@ def _moe_dropless_ep(p, x, cfg: MoEConfig) -> torch.Tensor:
     w = [t[r * E_loc:(r + 1) * E_loc] for t in (p.w_gate, p.w_up, p.w_down)]
 
     def ffn(xs):
-        rows = ragged_all_to_all(xs, send, recv)
+        rows = ragged_all_to_all(xs, send, recv, group)
         ys = ops.moe_grouped_ffn(rows, *w, sizes, group_experts)
-        return ragged_all_to_all(ys, recv, send)
+        return ragged_all_to_all(ys, recv, send, group)
 
     y_my = _sorted_ffn(my, gates.reshape(Tm * k), order, k, ffn)
-    y = _GatherSlices.apply(y_my)
+    y = _GatherSlices.apply(y_my, group)
     return y[:T].to(x.dtype).reshape(B, S, d)
 
 
@@ -564,28 +598,22 @@ def dropped_picks(x: torch.Tensor, router: torch.Tensor,
 
 
 # ============================================================== facade
-def _multi_device() -> bool:
-    return (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1)
-
-
 def moe(p, x: torch.Tensor, cfg: MoEConfig,
         dispatch: Optional[str] = None) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  ``dispatch`` overrides ``cfg.dispatch``.
-    Dropless with ``parallelism="ep"`` under a default process group of
-    more than one rank takes ``_moe_dropless_ep`` over the whole world;
-    otherwise one device computes the flat padded-expert function (dead
-    experts get no rows), as the JAX package does without a mesh.  A data
-    x model layout (an ep axis smaller than the world, the other ranks
-    splitting the batch) comes with the sharding rules (ROADMAP.md queue
-    A item 11)."""
+    Dropless with ``parallelism="ep"`` under a mesh whose ``model`` axis
+    has more than one rank (``_ep_mesh``) takes ``_moe_dropless_ep`` over
+    the model group; otherwise this rank computes the padded-expert
+    function of its tensors (dead experts get no rows) in the flat layout,
+    or per row under a data-sharded mesh, as the JAX package does."""
     mode = dispatch if dispatch is not None else cfg.dispatch
     if mode == "capacity":
         return _moe_capacity(p, x, cfg)
     if mode != "dropless":
         raise ValueError(f"unknown MoE dispatch {mode!r}")
-    if cfg.parallelism == "ep" and _multi_device():
-        return _moe_dropless_ep(p, x, cfg)
+    mesh = _ep_mesh(cfg)
+    if mesh is not None:
+        return _moe_dropless_ep(p, x, cfg, mesh)
     return _moe_dropless(p, x, cfg)
 
 

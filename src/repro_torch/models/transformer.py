@@ -75,7 +75,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..kernels import ops
-from .config import ModelConfig
+from .common import ArrayDef, module_defs, tree_map
+from .config import ModelConfig, ShapeConfig
 from .layers import (attention, attention_decode, chunked_lm_loss,
                      cross_attention_decode, norm, param, project, rope,
                      rope_freqs, swiglu)
@@ -582,12 +583,21 @@ class Model(nn.Module):
         return chunked_lm_loss(P["head.w"], x, labels)
 
     # ============================================================= serving
-    def init_cache(self, batch: int, seq: int) -> Dict:
-        """The contiguous cache of ``batch`` rows and ``seq`` positions
-        (``cache_defs``), zeros on the model's device.  ``kv`` {``k``,
-        ``v``} (n, B, S, K, dh) in ``cfg.dtype``, where S is ``seq``, or
-        ``min(seq, window)`` for a windowed arch (a ring: decode at
-        position p writes slot p % window); n is ``n_layers``, or
+    def param_defs(self) -> Dict:
+        """The ``ArrayDef`` tree of the parameters, keyed as the JAX
+        package's tree is (``models.common.module_defs``): the shapes,
+        logical axes and dtypes of ``repro/models/transformer.py``
+        ``param_defs``, a layer stack's leaves with their leading
+        ``layers`` axis."""
+        return module_defs(dict(self.named_parameters()),
+                           self.cfg.moe_parallelism)
+
+    def cache_defs(self, batch: int, seq: int) -> Dict:
+        """The contiguous cache's ``ArrayDef`` tree for ``batch`` rows and
+        ``seq`` positions (``repro/models/transformer.py`` ``cache_defs``).
+        ``kv`` {``k``, ``v``} (n, B, S, K, dh) in ``cfg.dtype``, where S is
+        ``seq``, or ``min(seq, window)`` for a windowed arch (a ring: decode
+        at position p writes slot p % window); n is ``n_layers``, or
         ``n_layers // attn_every`` for the hybrid family, whose cache also
         holds ``conv`` (L, B, W-1, d_inner) in ``cfg.dtype`` and ``ssm``
         (L, B, H, N, P) in f32.  The encoder-decoder's also holds the
@@ -597,36 +607,76 @@ class Model(nn.Module):
         mLSTM layer and ``sc``/``sn``/``sh``/``sm`` (n_s, B, H, d/H) per
         sLSTM layer, all f32."""
         cfg = self.cfg
+        f32 = torch.float32
         if cfg.window is not None:
             seq = min(seq, cfg.window)
-
-        def zeros(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
-
         if cfg.family == "xlstm":
             n_m, n_s = self._xlstm_counts()
             H, dh = self.xl_cfg.n_heads, self.xl_cfg.head_dim
-            cache = {"C": zeros((n_m, batch, H, dh, dh), torch.float32),
-                     "n": zeros((n_m, batch, H, dh), torch.float32)}
+            out = {"C": ArrayDef((n_m, batch, H, dh, dh),
+                                 ("layers", "batch", None, "d_inner", None),
+                                 f32),
+                   "n": ArrayDef((n_m, batch, H, dh),
+                                 ("layers", "batch", None, "d_inner"), f32)}
             for name in SLSTM_STATE if n_s else ():
-                cache[name] = zeros((n_s, batch, H, cfg.d_model // H),
-                                    torch.float32)
-            return cache
+                out[name] = ArrayDef((n_s, batch, H, cfg.d_model // H),
+                                     ("layers", "batch", None, None), f32)
+            return out
         n_kv = (cfg.n_layers if self.ssm_cfg is None
                 else cfg.n_layers // cfg.attn_every)
-        kv_shape = (n_kv, batch, seq, cfg.kv_heads, self.head_dim)
-        cache = {"kv": {"k": zeros(kv_shape, cfg.dtype),
-                        "v": zeros(kv_shape, cfg.dtype)}}
+        kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        kv = ArrayDef((n_kv, batch, seq, cfg.kv_heads, self.head_dim),
+                      kv_axes, cfg.dtype)
+        out = {"kv": {"k": kv, "v": kv}}
         if cfg.family == "encdec":
-            cache["xk"] = zeros(kv_shape, cfg.dtype)
-            cache["xv"] = zeros(kv_shape, cfg.dtype)
+            out["xk"] = out["xv"] = kv
         sc = self.ssm_cfg
         if sc is not None:
-            cache["conv"] = zeros((cfg.n_layers, batch, sc.conv_width - 1,
-                                   cfg.d_inner), cfg.dtype)
-            cache["ssm"] = zeros((cfg.n_layers, batch, sc.n_heads,
-                                  sc.state_dim, sc.head_dim), torch.float32)
-        return cache
+            out["conv"] = ArrayDef(
+                (cfg.n_layers, batch, sc.conv_width - 1, cfg.d_inner),
+                ("layers", "batch", None, "d_inner"), cfg.dtype)
+            out["ssm"] = ArrayDef(
+                (cfg.n_layers, batch, sc.n_heads, sc.state_dim,
+                 sc.head_dim), ("layers", "batch", "ssm_heads", None, None),
+                f32)
+        return out
+
+    def init_cache(self, batch: int, seq: int) -> Dict:
+        """The contiguous cache of ``cache_defs``: zeros on the model's
+        device."""
+        return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                              device=self.device),
+                        self.cache_defs(batch, seq))
+
+    def input_specs(self, shape: ShapeConfig) -> Dict:
+        """Stand-ins on the ``meta`` device for every input of the step the
+        shape exercises (``repro/models/transformer.py`` ``input_specs``):
+        train/prefill a batch dict (the encoder-decoder's ``frames`` (B, S,
+        d), the VLM's ``patches`` (B, P, d) before S - P tokens, and
+        ``labels`` for training); decode ``tokens`` (B, 1), ``pos`` () and
+        the ``cache``."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def meta(shp, dtype=torch.int32):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            batch: Dict = {}
+            n_tok = S
+            if cfg.family == "encdec":
+                batch["frames"] = meta((B, S, cfg.d_model), cfg.dtype)
+            elif cfg.family == "vlm":
+                n_tok = S - cfg.frontend_tokens
+                batch["patches"] = meta((B, cfg.frontend_tokens,
+                                         cfg.d_model), cfg.dtype)
+            batch["tokens"] = meta((B, n_tok))
+            if shape.kind == "train":
+                batch["labels"] = meta((B, n_tok))
+            return batch
+        return {"tokens": meta((B, 1)), "pos": meta(()),
+                "cache": tree_map(lambda d: meta(d.shape, d.dtype),
+                                  self.cache_defs(B, S))}
 
     def _segments(self):
         """(layer range, shared-block index or None) in order: each full

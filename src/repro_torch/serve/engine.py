@@ -80,6 +80,7 @@ from ..core import h100
 from ..core.fragmentation import ChunkStats
 from ..core.profiler import ArenaProfile, IntervalProfile
 from ..core.runtime import MigrationPlan
+from ..dist.sharding import active_mesh, mesh_sizes
 from ..kernels.ops import paged_attention, paged_prefill, sample_tokens
 from ..models.layers import (embed, linear, lm_head, mlp, rmsnorm, rope,
                              rope_freqs)
@@ -290,6 +291,13 @@ class Engine:
                 f"families), not {model.cfg.family!r}: the hybrid, xlstm, "
                 f"encdec and vlm families serve through "
                 f"Model.init_cache/prefill/decode, as in the JAX package")
+        if model.cfg.family == "moe" and model.cfg.moe_parallelism == "ep":
+            # Fail at construction, not mid-decode: an ep pad target that
+            # does not divide over the live mesh's model axis would
+            # otherwise surface deep inside the all-to-all.
+            sizes = mesh_sizes(active_mesh())
+            if "model" in sizes:
+                model.moe_cfg.validate_ep_axis(int(sizes["model"]))
         if cfg.prefill not in ("one_shot", "chunked"):
             raise ValueError(
                 f"ServeConfig.prefill must be 'one_shot' or 'chunked', "

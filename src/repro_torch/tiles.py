@@ -37,6 +37,10 @@ def row_tiles(x: torch.Tensor):
 
 def _tiled(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     xp, R = row_tiles(x)
+    if xp.device.type == "meta":
+        # Shapes only (a dry run): one product of the padded rows does the
+        # tiles' flops without a Python trip per tile.
+        return torch.matmul(xp, w)[:R]
     out = xp.new_empty((xp.shape[0], w.shape[1]))
     for s in range(0, xp.shape[0], ROW_TILE):
         torch.matmul(xp[s:s + ROW_TILE], w, out=out[s:s + ROW_TILE])

@@ -1,6 +1,8 @@
 """One rank of the ep tests (``test_torch_moe_ep.py``): joins a gloo group
-through a ``FileStore``, runs every case on the CPU and saves what it got
-to ``<out>/rank<r>.pt``.  The parent builds the same inputs from the same
+through a ``FileStore``, runs every case on the CPU (the MoE layer and the
+model under ``use_mesh(make_test_mesh(data=1, model=world))``, the model
+again under ``(world, 1)``: the per-row layout) and saves what it got to
+``<out>/rank<r>.pt``.  The parent builds the same inputs from the same
 seeds (``case_inputs``, ``a2a_plan``) and holds the ranks' results against
 its own single-process ones.
 
@@ -9,6 +11,7 @@ its own single-process ones.
 
 import os
 import sys
+import threading
 import types
 
 import numpy as np
@@ -80,9 +83,33 @@ def model_gradients(model, batch):
     return dict(zip(params, grads))
 
 
+def thread_gradients(model, batch):
+    """``model_gradients`` with the backward run on another thread, as
+    autograd runs a CUDA backward, and remat's recomputation in it, on its
+    device thread: {"grads": ...} or {"error": what the thread raised}."""
+    params = {n: t.requires_grad_(True)
+              for n, t in model.named_parameters()}
+    loss = model.loss(batch)
+    got = {}
+
+    def work():
+        try:
+            grads = torch.autograd.grad(loss, list(params.values()))
+            got["grads"] = dict(zip(params, grads))
+        # check: disable=EXC01 -- recorded for the test, which shows it
+        except Exception as e:
+            got["error"] = repr(e)
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    return got
+
+
 def run(world, rank):
-    from repro_torch.dist import ragged_all_to_all, ragged_all_to_all_reference
-    from repro_torch.models.moe import moe
+    from repro_torch.dist import (ragged_all_to_all,
+                                  ragged_all_to_all_reference, use_mesh)
+    from repro_torch.launch.mesh import make_test_mesh
 
     out = {}
     send, rows = a2a_plan(world)
@@ -94,6 +121,21 @@ def run(world, rank):
     dout = got.detach() * 10 + 1
     (out["a2a_grad"],) = torch.autograd.grad(got, mine, dout)
 
+    with use_mesh(make_test_mesh(data=1, model=world, device="cpu")):
+        out.update(run_mesh())
+    # No model axis: the data-sharded mesh takes the per-row layout.
+    with use_mesh(make_test_mesh(data=world, model=1, device="cpu")):
+        model, _, batch = ep_model()
+        out["per_row_grads"] = model_gradients(model, batch)
+        out["per_row_thread"] = thread_gradients(model, batch)
+    return out
+
+
+def run_mesh():
+    """The layer's and the model's cases under the ambient mesh."""
+    from repro_torch.models.moe import moe
+
+    out = {}
     cfg = ep_cfg()
     p, x = case_inputs(1, (2, 9, D), cfg)
     out["ep"] = moe(p, x, cfg)
@@ -122,18 +164,18 @@ def run(world, rank):
     with torch.no_grad():
         out["model"] = model(tokens)
     out["model_grads"] = model_gradients(model, batch)
+    out["model_thread"] = thread_gradients(model, batch)
     return out
 
 
 def main():
+    from _torch_gloo import join_group
+
     store_file, world, rank, out_dir = sys.argv[1:]
     world, rank = int(world), int(rank)
-    torch.set_num_threads(1)
     import torch.distributed as dist
 
-    store = dist.FileStore(store_file, world)
-    dist.init_process_group("gloo", store=store, rank=rank,
-                            world_size=world)
+    join_group(store_file, world, rank)
     try:
         out = run(world, rank)
         dist.barrier()

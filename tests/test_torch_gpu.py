@@ -1343,3 +1343,83 @@ def test_new_family_on_the_card_matches_the_cpu_plain_path(cuda, arch,
         on_cpu = float((want_grads[name].double() - w).abs().max())
         assert on_card <= (2 * on_cpu + 1e-4 * scale), (
             name, on_card / scale, on_cpu / scale)
+
+
+# ------------------------------------------- the cost walk, loader, bytes
+def small_llama(device, seed=0):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_smoke("llama3_2_1b"), n_layers=2)
+    model = Model(cfg, device=device)
+    if device != "meta":
+        model.init(torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+def step_parts(model):
+    from repro_torch.convert import jax_order
+    from repro_torch.optim import AdamW
+    from repro_torch.train.step import make_train_step
+
+    named = dict(model.named_parameters())
+    params = {n: named[n] for n in jax_order(named)}
+    opt = AdamW(lr=1e-3)
+    return params, opt.init(params), make_train_step(model, opt)
+
+
+def test_step_cost_on_the_card_equals_meta(cuda):
+    """The walk of one training step on the card (flash launches inside
+    it still counted) counts the flops the walk on ``meta`` counts."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.analysis import cost_of
+
+    counts = {}
+    for dev in ("cuda", "meta"):
+        model = small_llama(dev)
+        params, state, step = step_parts(model)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+            model.cfg.vocab, 256, 2, seed=0).batch_np(0).items()}
+        fa.reset_launches()
+        counts[dev] = cost_of(step, params, state, batch)
+        if dev == "cuda":
+            assert fa.LAUNCHES["flash_attention_fwd"] == 2 * 2
+            assert fa.LAUNCHES["flash_attention_bwd"] == 2
+    assert counts["cuda"]["flops"] == counts["meta"]["flops"]
+    assert counts["cuda"]["matmul_flops"] == counts["meta"]["matmul_flops"]
+
+
+def test_sharded_loader_on_the_card_feeds_the_same_bits(cuda):
+    from repro_torch.data import ShardedLoader, SyntheticLM
+
+    src = SyntheticLM(512, 64, 4, seed=3)
+    loader = ShardedLoader(src, prefetch=2, device="cuda")
+    it = iter(loader)
+    got = [next(it) for _ in range(3)]
+    loader.close()
+    for step, b in enumerate(got):
+        for k, v in src.batch_np(step).items():
+            assert b[k].is_cuda
+            assert torch.equal(b[k].cpu(), torch.from_numpy(v))
+
+
+def test_dry_run_bytes_equal_the_trainers_state_on_the_card(cuda):
+    """Parameters and AdamW moments on a 1 x 1 mesh: the dry run's
+    per-device bytes are the bytes the tensors hold on the card."""
+    from repro_torch.dist import DEFAULT_RULES, abstract_mesh
+    from repro_torch.models.common import sharded_bytes
+
+    model = small_llama("cuda")
+    params, state, _ = step_parts(model)
+    defs = model.param_defs()
+    mesh = abstract_mesh((1, 1), ("data", "model"))
+    held = sum(p.numel() * p.element_size() for p in params.values())
+    moments = sum(t.numel() * t.element_size()
+                  for t in (*state.m.values(), *state.v.values()))
+    assert all(t.is_cuda for t in state.m.values())
+    assert sharded_bytes(defs, mesh) == held
+    assert 2 * sharded_bytes(defs, mesh, dict(DEFAULT_RULES, layers="data"),
+                             dtype=torch.float32) == moments

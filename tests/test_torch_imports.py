@@ -73,6 +73,38 @@ def test_front_door_imports_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+NEW_MODULES = ("repro_torch.dist.sharding", "repro_torch.dist.collectives",
+               "repro_torch.launch.mesh", "repro_torch.models.common",
+               "repro_torch.data.pipeline", "repro_torch.ft.elastic",
+               "repro_torch.ckpt.checkpoint", "repro_torch.launch.analysis",
+               "repro_torch.launch.dryrun", "repro_torch.kernels.cost")
+
+
+@pytest.fixture(scope="module")
+def blocked_imports():
+    """Each of ``NEW_MODULES`` imported in one interpreter with ``jax`` and
+    ``repro`` blocked: module -> "ok" or the error."""
+    code = ("import importlib, sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None\n"
+            f"for m in {NEW_MODULES!r}:\n"
+            "    try:\n"
+            "        importlib.import_module(m); print(m, 'ok')\n"
+            "    except Exception as e:\n"
+            "        print(m, repr(e))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return dict(line.split(" ", 1) for line in out.stdout.splitlines())
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_distribution_modules_import_without_jax(module, blocked_imports):
+    """The distribution layer's modules import with ``jax`` and ``repro``
+    blocked."""
+    assert blocked_imports[module] == "ok"
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import paged_attention as pa

@@ -1,13 +1,14 @@
-"""Expert parallelism over a process group, on the CPU: gloo groups of 2
-and 4 ranks, each rank a subprocess (``_torch_ep_worker.py``) joined
-through a ``FileStore`` under the test's temporary directory, each with
-its own time limit, so a stuck rendezvous fails its test and nothing
-else.  One run per world size computes every case; the tests read it.
+"""Expert parallelism over a mesh's model axis, on the CPU: gloo groups of
+2 and 4 ranks (``_torch_gloo.run_ranks``), each rank a subprocess
+(``_torch_ep_worker.py``) running the layer under
+``use_mesh(make_test_mesh(data=1, model=n, device="cpu"))``, so every rank
+holds the whole batch.  One run per world size computes every case; the
+tests read it.
 
 - ``ragged_all_to_all`` == its all-gather oracle == a ground truth built
   with numpy, with a rank that sends nothing and one that receives
   nothing; its gradient is the exchange back.
-- The ep layer (``moe`` with ``parallelism="ep"`` under the group) ==
+- The ep layer (``moe`` with ``parallelism="ep"`` under the mesh) ==
   the flat dropless layer of one process, bit for bit on every rank: a
   token's rows and their combine order are the same in both.
 - Within ep, batched == chunked == per-token, bit for bit.
@@ -19,12 +20,13 @@ else.  One run per world size computes every case; the tests read it.
   and on every rank the gradients of its loss: each attention, norm,
   embedding, head and router leaf whole, each expert stack on the rank's
   own experts.
+- The model's backward run on another thread (as autograd runs a CUDA
+  backward) with remat on: the recomputed MoE layers see the mesh and
+  take the forward's layout, ep under (1, n) and per-row under (n, 1);
+  the gradients equal the calling thread's, bit for bit.
 """
 
 import functools
-import os
-import subprocess
-import sys
 import types
 
 import numpy as np
@@ -33,41 +35,16 @@ import torch
 
 from _torch_ep_worker import (D, a2a_plan, case_inputs, ep_cfg, ep_model,
                               model_gradients)
+from _torch_gloo import run_ranks as run_worker
 from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.models.moe import _moe_dropless
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-ROOT = os.path.dirname(HERE)
 WORLDS = (2, 4)
-RANK_TIMEOUT = 240          # seconds for one rank's whole run
 
 
 def run_ranks(world, tmp):
-    """Run ``world`` ranks to the end in ``tmp``; each rank's saved
-    results.  A rank's output goes to a file (a full pipe could stall it
-    inside a collective)."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               OMP_NUM_THREADS="1")
-    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
-            for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "_torch_ep_worker.py"),
-         os.path.join(tmp, "store"), str(world), str(r), tmp], env=env,
-        stdout=log, stderr=subprocess.STDOUT) for r, log in enumerate(logs)]
-    try:
-        for p in procs:
-            p.wait(timeout=RANK_TIMEOUT)
-    finally:
-        for p, log in zip(procs, logs):
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
-    for r, p in enumerate(procs):
-        with open(os.path.join(tmp, f"rank{r}.log")) as f:
-            assert p.returncode == 0, f"rank {r} of {world}:\n{f.read()}"
-    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)]
+    """Every rank's saved results of ``_torch_ep_worker.py``."""
+    return run_worker("_torch_ep_worker.py", world, tmp)
 
 
 @pytest.fixture(scope="module")
@@ -199,3 +176,23 @@ def test_ep_model_gradients_equal_one_process(world, ranks):
                 assert close(got[name][mine], g[mine]), (r, name)
             else:
                 assert close(got[name], g), (r, name)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_remat_backward_on_another_thread_keeps_the_layout(world, ranks):
+    """The ambient mesh is process-wide: a backward on another thread
+    recomputes each checkpointed MoE layer in the forward's layout (ep,
+    then per-row), so its gradients are the calling thread's bitwise;
+    the per-row model's are one process's within 1e-5 of the leaf's
+    largest entry."""
+    _, _, want = one_process_model()
+    for r, res in enumerate(ranks(world)):
+        for key, base in (("model_thread", "model_grads"),
+                          ("per_row_thread", "per_row_grads")):
+            got = res[key]
+            assert "error" not in got, (r, key, got.get("error"))
+            assert got["grads"].keys() == res[base].keys()
+            for name, g in res[base].items():
+                assert torch.equal(got["grads"][name], g), (r, key, name)
+        for name, g in want.items():
+            assert close(res["per_row_grads"][name], g), (r, name)
