@@ -266,6 +266,28 @@ Phases, each of which raises on failure:
    moments hold on the card.  The 2-D ep layout, the rings and the
    overlapped MLP need more than one card (NCCL refuses two ranks on one
    GPU); they are tested on the CPU over gloo.
+17. The port's linter and its walkthroughs (last, after phase 16).  17a:
+   ``repro_torch.check`` over ``src/repro_torch`` (the four CUDA sources
+   included) and ``examples/*_torch.py``: 0 findings, or the phase fails.
+   17b: ``examples/quickstart_torch.py`` on the card (20 ``Trainer``
+   steps at the smoke ``llama3_2_1b``, then ``LLM.generate``); 17c:
+   ``examples/serve_guided_kv_torch.py`` (the session/scan workload under
+   gdt, lru and fifo, greedy); 17d:
+   ``examples/train_guided_offload_torch.py`` at its ~100M default widths
+   for 40 steps under the guidance runtime's HBM budget.  Each run's
+   launch counters are zeroed just before and read just after: the flash
+   forward and backward launch once a layer a step in both training runs
+   (remat off), paged decode and prefill launch in both serving runs; the
+   three policies' streams are equal and each moves pages; the training
+   losses are finite and the last is below the first.  17d then trains
+   the same widths, init and batches without tiering: its losses must be
+   the tiered run's bit for bit (tiering is lossless) and every weight
+   matrix must have moved from the init (the unmoved tensors, bf16 norm
+   scales whose updates round away, are logged).  Wall times and steps (or
+   tokens) a second are logged.  Only 17d's flash launches join the
+   kernel rows (head dim 64, as the rows are timed); 17b and 17c run the
+   smoke llama at head dim 16 and their launches are logged on their own
+   lines.
 
 Phase 3 also checks the flash kernels on the encoder-decoder's cross
 attention (B=2, 16/16 heads of 64, non-causal, bf16 and f32, forward and
@@ -362,7 +384,10 @@ REPLACES["moe_grouped_ffn_bwd_per_row"] = REPLACES["moe_grouped_ffn_bwd"]
 # pair's phi3_vision_4_2b's prefill and training (phase 14a).  The dh 64
 # pair counts dense training's (phase 6) and the encoder-decoder's (phase
 # 14b); the cross pair is the encoder-decoder's non-causal calls among
-# them (its cross attention, Sq != Sk).
+# them (its cross attention, Sq != Sk).  Phase 17's walkthroughs add to
+# the dh 64 pair (the ~100M training walkthrough's head dim; the
+# quickstart's smoke model, at dh 16, has no pair of its own) and to the
+# paged rows (the smoke model's dh 16).
 KERNELS = ("paged_attention", "paged_prefill", "moe_grouped_ffn",
            "moe_grouped_ffn_bwd", "flash_attention_fwd",
            "flash_attention_bwd", "ssd_scan", "flash_attention_fwd_dh112",
@@ -439,26 +464,76 @@ def dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+def profiled(run, what: str, tries: int = 3):
+    """``run()`` under ``torch.profiler``, recording the device's activity
+    only (recording every host operator too, the training profiles'
+    ``key_averages`` took about 150 s of a whole run by
+    ``scripts/stack_sample.py``):
+    ``(device events, wall seconds)`` of the first of ``tries`` profiles
+    that saw any device time, else ``(None, None)``.  CUPTI now and then hands a profile no device activity at all
+    in a long run; each empty profile is logged and taken again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        if sum(dev_us(e) for e in events) > 0:
+            return events, wall
+        log(f"profile of {what}: attempt {attempt + 1} of {tries} saw no "
+            f"device time")
+    return None, None
+
+
 def device_ms(fn, iters: int = 20) -> float:
     """Mean device milliseconds per call of what ``fn`` launches, by
     ``torch.profiler`` over ``iters`` calls after 3 warm-ups: the kernels'
     own time, without the host's time to launch them (which ``time_ms``
-    includes when the host is the slower of the two)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    includes when the host is the slower of the two).  Where three
+    profiles saw no device time, the time comes from ``queued_ms`` and the
+    log says so."""
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    total = sum(dev_us(e) for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA"))
-    if total <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return total / iters / 1e3
+
+    events, _ = profiled(run, "device_ms")
+    if events is not None:
+        return sum(dev_us(e) for e in events) / iters / 1e3
+    ms = queued_ms(fn, iters)
+    log(f"device_ms: {ms:.4f} ms by CUDA events behind a queued sleep, not "
+        f"by the profiler")
+    return ms
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call by CUDA events, with the calls
+    queued behind a sleeping kernel: the host enqueues all ``iters`` calls
+    while the card sleeps, so the events time the kernels back to back and
+    not the host's launches (unless ``fn`` synchronises)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # about 0.1 s at the H100's clocks
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    if ms <= 0:
+        raise AssertionError("CUDA events saw no device time")
+    return ms
 
 
 # ----------------------------------------------------------------- kernels
@@ -1200,18 +1275,20 @@ def log_ptxas(source: str, kernels) -> None:
 def log_launches(card, fn, names, title) -> None:
     """Each of ``fn``'s launches' device time by kernel name (each name a
     substring of one kernel's), from the profiler over 10 calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(10):
             fn()
-        torch.cuda.synchronize()
+
+    events, _ = profiled(run, title)
+    if events is None:
+        log(f"time {title} by launch: not measured (the profiler saw no "
+            f"device time) {card.tag()}")
+        return
     times = {}
-    for e in prof.key_averages():
+    for e in events:
         for name in names:
             if name in e.key:
                 times[name] = times.get(name, 0.0) + dev_us(e) / 10 / 1e3
@@ -3577,19 +3654,12 @@ def profile_training(card, trainer, batches,
     time by kernel, its idle share over the two steps' wall time (the
     profiler slows the host, not the kernels), and the share of each
     ``(label, kernel name part)`` of ``shares``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     trainer.cfg.steps = len(batches)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.run(iter(batches))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
+    events, wall = profiled(lambda: trainer.run(iter(batches)), "training")
+    if events is None:
+        log(f"device training: not measured (the profiler saw no device "
+            f"time) {card.tag()}")
+        return
     busy = sum(dev_us(e) for e in events) / 1e6
     log(f"device training: kernels and copies busy {busy:.3f} s of "
         f"{wall:.3f} s for {len(batches)} profiled steps: idle share "
@@ -3795,9 +3865,6 @@ def profile_contiguous(card, model, tokens, n_decode: int = 4,
     time (the profiler slows the host, not the kernels, so the idle share
     is an upper bound); the prefill's share of each ``(what, kernel name
     part)`` of ``shares``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     S = tokens.shape[1] + sum(t.shape[1] for k, t in frontend.items()
                               if k == "patches")
     cache = model.init_cache(tokens.shape[0], S + n_decode)
@@ -3813,14 +3880,11 @@ def profile_contiguous(card, model, tokens, n_decode: int = 4,
 
     for part_label, part, top in (("prefill", prefill, 12),
                                   (f"{n_decode} decode steps", decode, 6)):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            part()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = [e for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")]
+        events, wall = profiled(part, f"{label} {part_label}")
+        if events is None:
+            log(f"device {label} {part_label}: not measured (the profiler "
+                f"saw no device time) {card.tag()}")
+            continue
         busy = sum(dev_us(e) for e in events) / 1e6
         log(f"device {label} {part_label}: kernels and copies busy "
             f"{busy:.3f} s of {wall:.3f} s, {sum(e.count for e in events)} "
@@ -5362,6 +5426,177 @@ def distribution(card, kernel_rows) -> None:
     loader_and_bytes(card)
 
 
+# ------------------------------------------------- phase 17: walkthroughs
+EXAMPLES_DIR = os.path.join(HERE, "examples")
+WALKTHROUGHS = ("policy_playground_torch", "quickstart_torch",
+                "serve_guided_kv_torch", "train_guided_offload_torch")
+WALKTHROUGH_TRAIN_STEPS = 40
+
+
+def walkthrough(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_walkthrough(card, name: str, module, argv: list):
+    """A walkthrough's ``main(argv)`` on the card, the launch counters
+    zeroed just before and read just after: (its result, its launches,
+    wall seconds).  Its own lines are logged indented."""
+    import io
+
+    import torch
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        got = module.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    for line in out.getvalue().rstrip().splitlines():
+        log(f"    {name}: {line}")
+    return got, launches, wall
+
+
+def examples_and_contracts(card, kernel_rows) -> None:
+    """Phase 17: 17a the port's linter over ``src/repro_torch`` (its CUDA
+    sources included) and the walkthroughs, on the tree this run built:
+    0 findings; 17b-d the quickstart, the guided-KV serving walkthrough
+    and the guided-offload training walkthrough (its ~100M default widths,
+    WALKTHROUGH_TRAIN_STEPS steps) on the card.  The serving runs must
+    launch the paged kernels, the training runs the flash kernels; the
+    serving walkthrough's three policies must give equal greedy streams
+    and each move pages; the training losses must be finite and fall, and
+    equal bit for bit those of the same run without tiering."""
+    from repro_torch.check import iter_source_files, run_check
+
+    paths = [os.path.join(SRC, "repro_torch")] + [
+        os.path.join(EXAMPLES_DIR, f"{n}.py") for n in WALKTHROUGHS]
+    t0 = time.perf_counter()
+    files = iter_source_files(paths)
+    findings = run_check(paths)
+    lint_s = time.perf_counter() - t0
+    if findings:
+        raise AssertionError("linter 17a: " + "; ".join(
+            f"{f.location()}: {f.rule} {f.message}" for f in findings))
+    cu = [f for f in files if f.endswith(".cu")]
+    if len(cu) != 4:
+        raise AssertionError(f"linter 17a: read {len(cu)} CUDA sources, "
+                             f"expected 4: {cu}")
+    log(f"linter 17a: repro_torch.check over {len(files)} files "
+        f"({len(cu)} .cu): 0 findings in {lint_s:.2f} s")
+
+    name = "quickstart_torch"
+    quickstart = walkthrough(name)
+    got, launches, wall = run_walkthrough(card, name, quickstart,
+                                          ["--device", "cuda"])
+    want = quickstart.config().n_layers * got["steps"]
+    if launches["flash_attention_fwd"] != want or \
+            launches["flash_attention_bwd"] != want or \
+            not launches["paged_attention"] or \
+            not launches["paged_prefill"]:
+        raise AssertionError(f"quickstart 17b: launches {launches}; "
+                             f"expected {want} flash forward and backward "
+                             f"(remat off) and paged decode and prefill")
+    if not all(map(math.isfinite, got["losses"])) or \
+            len(got["token_ids"]) != 8:
+        raise AssertionError(f"quickstart 17b: losses {got['losses']}, "
+                             f"tokens {got['token_ids']}")
+    log(f"quickstart 17b: {wall:.2f} s wall; {got['steps']} steps in "
+        f"{got['wall_seconds']:.2f} s, "
+        f"{got['steps'] / got['wall_seconds']:.2f} steps/s; losses "
+        f"{', '.join(f'{x:.4f}' for x in got['losses'])}; launches "
+        f"{ {k: v for k, v in launches.items() if v} } {card.tag()}")
+
+    name = "serve_guided_kv_torch"
+    runs, launches, wall = run_walkthrough(card, name, walkthrough(name),
+                                           ["--device", "cuda"])
+    streams = runs["gdt"]["streams"]
+    for policy, run in runs.items():
+        s = run["stats"]
+        if run["streams"] != streams:
+            raise AssertionError(f"serving 17c: {policy}'s streams "
+                                 f"{run['streams']} != gdt's {streams}")
+        if not (s["swap_ins"] > 0 and s["swap_outs"] > 0):
+            raise AssertionError(f"serving 17c: {policy} moved no pages: "
+                                 f"{s}")
+    if not launches["paged_attention"] or not launches["paged_prefill"]:
+        raise AssertionError(f"serving 17c: launches {launches}")
+    n_tokens = sum(len(t) for t in streams.values()) * len(runs)
+    log(f"serving 17c: {wall:.2f} s wall for {len(runs)} policies; "
+        f"{n_tokens} generated tokens, {n_tokens / wall:.2f} tokens/s; "
+        f"streams equal; swap-ins "
+        f"{ {p: int(r['stats']['swap_ins']) for p, r in runs.items()} }; "
+        f"launches { {k: v for k, v in launches.items() if v} } "
+        f"{card.tag()}")
+
+    steps = WALKTHROUGH_TRAIN_STEPS
+    name = "train_guided_offload_torch"
+    training = walkthrough(name)
+    got, launches, wall = run_walkthrough(
+        card, name, training, ["--device", "cuda", "--steps", str(steps)])
+    losses = got["losses"]
+    want = training.make_config(False).n_layers * steps
+    if launches["flash_attention_fwd"] != want or \
+            launches["flash_attention_bwd"] != want:
+        raise AssertionError(f"training 17d: launches {launches}; "
+                             f"expected {want} flash forward and backward")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training 17d: losses {losses}")
+    # The same run without tiering, from the same seed-0 init: tiering is
+    # lossless, so its losses are the guided run's bit for bit, and every
+    # weight matrix has moved from the init.  (Norm scales are bf16 ones:
+    # an update below half a bf16 step there rounds away.)
+    import torch
+
+    from repro_torch.models import Model
+
+    cfg = training.make_config(False)
+    start = {k: v.detach().clone() for k, v in Model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0)).state_dict().items()}
+    t0 = time.perf_counter()
+    plain, _ = training.train(Model(cfg, device="cuda"), steps,
+                              training.seq_len(False), None, params=start)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    plain_losses = [m["loss"] for m in plain.metrics_log]
+    if plain_losses != losses:
+        raise AssertionError(f"training 17d: untiered losses {plain_losses} "
+                             f"!= tiered {losses}")
+    still = [k for k, p in plain.params.items() if torch.equal(p, start[k])]
+    if any(plain.params[k].dim() > 1 for k in still):
+        raise AssertionError(f"training 17d: no update moved {still}")
+    n_tensors = len(start)
+    del plain, start
+    result = got["result"]
+    log(f"training 17d: {wall:.2f} s wall; {steps} steps in "
+        f"{result['wall_seconds']:.2f} s, "
+        f"{steps / result['wall_seconds']:.2f} steps/s; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; migrations "
+        f"{result['migrations']}, rental {result['transfer_bytes']} B, "
+        f"{len(got['slow_groups'])} host-tier groups; launches "
+        f"{ {k: v for k, v in launches.items() if v} } {card.tag()}")
+    log(f"training 17d untiered: {plain_wall:.2f} s wall; losses "
+        f"{', '.join(f'{x:.4f}' for x in plain_losses)} (equal bit for "
+        f"bit); every matrix moved, {len(still)} of "
+        f"{n_tensors} tensors unmoved: "
+        f"{', '.join(still)} {card.tag()}")
+    # Only 17d's flash launches join the kernel rows: they run at the rows'
+    # head dim, 64.  17b and 17c run the smoke llama (head dim 16), whose
+    # launches stay on their own lines above.
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        kernel_rows[name]["launches"] += launches[name]
+    free_card()
+
+
 AB_ROUNDS = 5
 
 
@@ -5487,7 +5722,7 @@ def main() -> int:
                   train_dense, train_moe, serve_hybrid, train_hybrid,
                   serve_new_archs, train_and_serve_contiguous,
                   serve_and_train_families, dispatches_and_simulator,
-                  distribution):
+                  distribution, examples_and_contracts):
         t0 = time.perf_counter()
         phase(card, kernel_rows)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")

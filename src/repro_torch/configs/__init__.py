@@ -12,10 +12,11 @@ from typing import Dict, List
 
 from ..models.config import SHAPES, SMOKE_SHAPES, ModelConfig, ShapeConfig
 
-ARCHS: List[str] = ["llama3_2_1b", "granite_moe_3b_a800m", "zamba2_7b",
-                    "granite_8b", "minitron_4b", "stablelm_3b",
-                    "mixtral_8x7b", "xlstm_350m", "seamless_m4t_medium",
-                    "phi3_vision_4_2b"]
+# In the JAX registry's order (``repro/configs/base.py``).
+ARCHS: List[str] = ["seamless_m4t_medium", "zamba2_7b", "minitron_4b",
+                    "granite_8b", "stablelm_3b", "llama3_2_1b",
+                    "mixtral_8x7b", "granite_moe_3b_a800m",
+                    "phi3_vision_4_2b", "xlstm_350m"]
 
 # Archs whose long_500k cell runs (sub-quadratic decode state).
 LONG_CONTEXT_OK = {"zamba2_7b", "mixtral_8x7b", "xlstm_350m"}

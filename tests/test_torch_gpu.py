@@ -1423,3 +1423,62 @@ def test_dry_run_bytes_equal_the_trainers_state_on_the_card(cuda):
     assert sharded_bytes(defs, mesh) == held
     assert 2 * sharded_bytes(defs, mesh, dict(DEFAULT_RULES, layers="data"),
                              dtype=torch.float32) == moments
+
+
+def walkthrough(name):
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_walkthroughs_on_the_card(cuda):
+    """The quickstart, the guided-KV serving walkthrough and the
+    guided-offload training walkthrough (``--tiny --steps 10``) with
+    ``--device cuda``: training launches the flash kernels once a layer a
+    step (remat off), serving the paged kernels; the serving policies'
+    greedy streams are equal and each moves pages; the losses are
+    finite."""
+    import math
+
+    from repro_torch.kernels import flash_attention as fa
+
+    def launches():
+        return {**pa.LAUNCHES, **fa.LAUNCHES}
+
+    def reset():
+        pa.reset_launches()
+        fa.reset_launches()
+
+    qs = walkthrough("quickstart_torch")
+    reset()
+    got = qs.main(["--device", "cuda"])
+    n = qs.config().n_layers * got["steps"]
+    counts = launches()
+    assert counts["flash_attention_fwd"] == n
+    assert counts["flash_attention_bwd"] == n
+    assert counts["paged_attention"] and counts["paged_prefill"]
+    assert all(map(math.isfinite, got["losses"]))
+    assert len(got["token_ids"]) == 8
+
+    reset()
+    runs = walkthrough("serve_guided_kv_torch").main(["--device", "cuda"])
+    assert launches()["paged_attention"] and launches()["paged_prefill"]
+    for policy, run in runs.items():
+        assert run["streams"] == runs["gdt"]["streams"], policy
+        assert run["stats"]["swap_ins"] > 0, policy
+        assert run["stats"]["swap_outs"] > 0, policy
+
+    tr = walkthrough("train_guided_offload_torch")
+    reset()
+    got = tr.main(["--device", "cuda", "--tiny", "--steps", "10"])
+    n = tr.make_config(True).n_layers * 10
+    assert launches()["flash_attention_fwd"] == n
+    assert launches()["flash_attention_bwd"] == n
+    assert len(got["losses"]) == 10
+    assert all(map(math.isfinite, got["losses"]))

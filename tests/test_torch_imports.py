@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package ``repro``, and the front
-door imports with JAX made unimportable.  Also: a CUDA entry point handed
+door imports with JAX made unimportable; so do the port's linter and its
+four walkthroughs under ``examples/``.  Also: a CUDA entry point handed
 CPU tensors raises instead of falling back, the MoE combine uses no
 scatter-add, and the kernels layer imports nothing of the models above it."""
 
@@ -16,8 +17,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
 
 
+EXAMPLES = [os.path.join(ROOT, "examples", f"{name}_torch.py")
+            for name in ("policy_playground", "quickstart",
+                         "serve_guided_kv", "train_guided_offload")]
+
+
 def port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")] + EXAMPLES
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -270,3 +276,21 @@ def test_training_launcher_needs_the_card_or_an_explicit_cpu():
         capture_output=True, text=True, env=env, timeout=300)
     assert out.returncode != 0
     assert "device='cpu'" in out.stderr
+
+
+def test_linter_and_walkthroughs_import_without_jax():
+    """``repro_torch.check`` (every rule) and the four walkthroughs import
+    with ``jax`` and ``repro`` blocked."""
+    code = ("import importlib.util, sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None\n"
+            "import repro_torch.check as c; assert len(c.all_rules()) == 9\n"
+            f"for path in {EXAMPLES!r}:\n"
+            "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
