@@ -263,9 +263,23 @@ Phases, each of which raises on failure:
    directly: the losses bitwise equal; both step times.  16c: the dry
    run's ``build_cell`` on a 1 x 1 abstract mesh: its per-device parameter
    and moment bytes equal the bytes the ``Trainer``'s parameters and AdamW
-   moments hold on the card.  The 2-D ep layout, the rings and the
-   overlapped MLP need more than one card (NCCL refuses two ranks on one
-   GPU); they are tested on the CPU over gloo.
+   moments hold on the card.  16d: the mesh path on one card: NCCL
+   started with world size 1 and a 1 x 1 CUDA ``DeviceMesh``; phase 6's
+   step (``llama3_2_1b`` whole, 2 x 2048, bf16, remat, AdamW) for 2 steps
+   without a mesh and 2 steps of a fresh model of the same seed under
+   ``use_mesh`` (``Model.shard_``, the step's data reduction and
+   tensor-parallel layers): losses, grad norms and every parameter
+   bitwise equal; the flash forward and backward launched by the mesh
+   steps as ``per_step_launches`` says; one all-reduce through
+   ``dist.collectives`` on the NCCL group, counted.  Then the dry run's
+   ``walk_device`` of that step on a 1 x 1 ``AbstractMesh`` on ``meta``:
+   its ``temp_bytes`` against the card's ``max_memory_allocated()`` over a
+   third mesh step minus what was allocated before it (the arguments:
+   parameters, moments, batch), the ratio printed and held to 0.75-1.33.
+   The 2-D ep layout, the rings and the overlapped MLP and the
+   tensor-parallel layers on more than one rank need more than one card
+   (NCCL refuses two ranks on one GPU); they are tested on the CPU over
+   gloo (``tests/test_torch_tp.py``).
 17. The port's linter and its walkthroughs (last, after phase 16).  17a:
    ``repro_torch.check`` over ``src/repro_torch`` (the four CUDA sources
    included) and ``examples/*_torch.py``: 0 findings, or the phase fails.
@@ -5399,8 +5413,8 @@ def loader_and_bytes(card) -> None:
         f"{', '.join(f'{t:.1f}' for t in loader_ms)}, batch_np "
         f"{', '.join(f'{t:.1f}' for t in direct_ms)} {card.tag()}")
 
-    _, memory, _ = build_cell(DENSE, "train_4k",
-                              abstract_mesh((1, 1), ("data", "model")))
+    _, memory, _, _ = build_cell(DENSE, "train_4k",
+                                 abstract_mesh((1, 1), ("data", "model")))
     params = sum(p.numel() * p.element_size()
                  for p in trainer.params.values())
     held = (*trainer.opt_state.m.values(), *trainer.opt_state.v.values())
@@ -5420,10 +5434,135 @@ def loader_and_bytes(card) -> None:
     free_card()
 
 
+MESH_STEPS = 2
+TEMP_RATIO = (0.75, 1.33)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_train(cfg, batches, mesh):
+    """Phase 6's step on a fresh seeded ``cfg`` model for each batch,
+    under ``mesh`` (None: no mesh): (losses, grad norms, params, model,
+    state, step)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.optim import AdamW
+
+    model, params, state, step = dense_step_parts(cfg, "cuda")
+    losses, norms = [], []
+    with contextlib.nullcontext() if mesh is None else use_mesh(mesh):
+        if mesh is not None:
+            model.shard_()
+            state = AdamW(lr=3e-4).init(params)
+        for b in batches:
+            _, state, metrics = step(params, state, b)
+            losses.append(metrics["loss"])
+            norms.append(metrics["grad_norm"])
+    torch.cuda.synchronize()
+    return losses, norms, params, model, state, step
+
+
+def mesh_step(card, kernel_rows) -> None:
+    """16d: the 1 x 1 NCCL mesh step == the meshless step, bitwise; flash
+    launched on the mesh path; the dry run's temp_bytes against the
+    card's peak."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import abstract_mesh, count_collectives
+    from repro_torch.dist.collectives import all_reduce
+    from repro_torch.dist.sharding import DEFAULT_RULES, use_mesh
+    from repro_torch.launch.dryrun import walk_device
+    from repro_torch.models import ShapeConfig
+
+    cfg = get(DENSE)
+    src = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda")
+                for k, v in src.batch_np(i).items()}
+               for i in range(MESH_STEPS + 1)]
+    want_loss, want_norm, want, *_ = mesh_train(cfg, batches[:MESH_STEPS],
+                                                None)
+    want = {n: p.detach().clone() for n, p in want.items()}
+    free_card()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        reset_launches()
+        losses, norms, params, model, state, step = mesh_train(
+            cfg, batches[:MESH_STEPS], mesh)
+        launches = read_launches()
+        expect = per_step_launches(cfg, MESH_STEPS)
+        if {k: v for k, v in launches.items() if v} != expect:
+            raise AssertionError(f"mesh 16d: launches {launches}, "
+                                 f"expected {expect}")
+        for name in expect:
+            kernel_rows[name]["launches"] += launches[name]
+        same = [n for n in want if not torch.equal(params[n], want[n])]
+        if [float(x) for x in losses + norms] != [
+                float(x) for x in want_loss + want_norm] or same:
+            raise AssertionError(
+                f"mesh 16d: the 1 x 1 mesh steps differ from the meshless "
+                f"ones: losses {[float(x) for x in losses]} vs "
+                f"{[float(x) for x in want_loss]}, norms "
+                f"{[float(x) for x in norms]} vs "
+                f"{[float(x) for x in want_norm]}, params {same[:4]}")
+        t = torch.arange(4, dtype=torch.float32, device="cuda")
+        with count_collectives() as rec:
+            got = all_reduce(t.clone(), mesh.get_group("model"))
+        if not torch.equal(got, t) or rec["all_reduce"]["count"] != 1:
+            raise AssertionError(f"mesh 16d: NCCL all-reduce {got}, {rec}")
+        del want
+        # The third step: the card's peak beyond what is allocated before.
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with use_mesh(mesh):
+            step(params, state, batches[MESH_STEPS])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+    finally:
+        dist.destroy_process_group()
+    _, temp = walk_device(cfg, ShapeConfig("mesh_step", TRAIN_SEQ,
+                                           TRAIN_BATCH, "train"),
+                          abstract_mesh((1, 1), ("data", "model")),
+                          DEFAULT_RULES)
+    ratio = peak / temp
+    log(f"mesh 16d: {DENSE} {MESH_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} on a 1 x 1 NCCL mesh == meshless, bitwise: losses "
+        f"{', '.join(f'{float(x):.6f}' for x in losses)}, grad norms "
+        f"{', '.join(f'{float(x):.6f}' for x in norms)}; launches "
+        f"{expect}; temp bytes: card peak {peak} B beyond the {before} B "
+        f"allocated before the step, dry run (meta, 1 x 1) {temp} B, "
+        f"ratio {ratio:.4f} {card.tag()}")
+    if not TEMP_RATIO[0] <= ratio <= TEMP_RATIO[1]:
+        raise AssertionError(f"mesh 16d: temp bytes ratio {ratio:.4f} "
+                             f"outside {TEMP_RATIO}")
+    del model, params, state, step, batches
+    free_card()
+
+
 def distribution(card, kernel_rows) -> None:
     """Phase 16."""
     step_flops(card, kernel_rows)
     loader_and_bytes(card)
+    t0 = time.perf_counter()
+    mesh_step(card, kernel_rows)
+    log(f"mesh 16d: {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------- phase 17: walkthroughs

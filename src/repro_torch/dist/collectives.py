@@ -26,6 +26,21 @@ a mesh's ``model`` group, on the rings or on the fused references.  The
 products are ``torch.matmul``: the reference computes them outside any
 Pallas kernel.
 
+The tensor-parallel regions of the model (``repro/models/layers.py``'s
+``constrain`` annotations, which GSPMD turns into collectives) are two
+autograd functions here, as in Megatron-LM: ``copy_to_group`` (identity
+forward, all-reduce of the gradient backward) where a region starts, so
+x's gradient sums the group's partial gradients, and
+``reduce_from_group`` (all-reduce forward, identity backward) where it
+ends, summing the group's partial outputs.  ``all_reduce_max`` is the
+vocab-parallel loss's maximum (no gradient), ``gather_from_group`` the
+prefill's whole logits from the vocab blocks, and ``sum_over_data``
+the trainer's data-parallel reduction: one all-reduce a data axis, in mesh
+order.  On a group of one rank each is the identity and issues nothing.
+On an ``AbstractGroup`` (an ``AbstractMesh``'s, ``dist.sharding``) each
+records its kind, bytes and group size and moves no data: the dry run's
+per-device walk needs no process group of 256 ranks.
+
 Every collective the port issues goes through one helper here that adds
 its kind, bytes and group size to every record that ``count_collectives``
 has open: the port's counterpart of the reference's HLO
@@ -42,6 +57,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from .sharding import AbstractGroup
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
          "send_recv")
@@ -64,8 +81,14 @@ def count_collectives() -> Iterator[Dict[str, Dict[str, float]]]:
         _RECORDS.remove(rec)
 
 
+def group_size(group) -> int:
+    if isinstance(group, AbstractGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
 def _issued(kind: str, nbytes: int, group) -> None:
-    size = dist.get_world_size(group)
+    size = group_size(group)
     for rec in _RECORDS:
         r = rec[kind]
         r["bytes"] += float(nbytes)
@@ -94,10 +117,100 @@ def all_gather_into(out: torch.Tensor, t: torch.Tensor, group=None
     return out
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``t`` over the group, in place."""
-    dist.all_reduce(t, group=group)
+def all_reduce(t: torch.Tensor, group=None, op=None) -> torch.Tensor:
+    """Sum ``t`` over the group (or reduce it by ``op``), in place; on an
+    ``AbstractGroup`` only recorded."""
+    if isinstance(group, AbstractGroup):
+        pass
+    elif op is None:
+        dist.all_reduce(t, group=group)
+    else:
+        dist.all_reduce(t, op=op, group=group)
     _issued("all_reduce", _nbytes(t), group)
+    return t
+
+
+def _single(group) -> bool:
+    return group is None or group_size(group) == 1
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity; the gradient is summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dx):
+        return all_reduce(dx.clone(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """The sum over the group; the gradient passes unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Where a tensor-parallel region starts: x (whole on every rank of
+    ``group``) unchanged; its gradient, partial on each rank inside the
+    region, summed over the group.  A replicated parameter read inside a
+    region goes through it too.  The identity for ``group`` None or of
+    one rank."""
+    if _single(group):
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Where a tensor-parallel region ends: the sum of the group's partial
+    ``x``, whole on every rank; the gradient passes unchanged.  The
+    identity for ``group`` None or of one rank."""
+    if _single(group):
+        return x
+    return _ReduceFromGroup.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over the group, detached (the
+    vocab-parallel loss's shift, whose gradient is zero)."""
+    x = x.detach().clone()
+    if _single(group):
+        return x
+    return all_reduce(x, group, op=dist.ReduceOp.MAX)
+
+
+def gather_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's blocks of ``x`` concatenated along the last dim in rank
+    order (no gradient: the prefill's whole logits from the vocab
+    blocks)."""
+    if _single(group):
+        return x
+    front = x.detach().movedim(-1, 0).contiguous()
+    if isinstance(group, AbstractGroup):
+        out = front.new_empty((group.size * front.shape[0],)
+                              + tuple(front.shape[1:]))
+        _issued("all_gather", _nbytes(out), group)
+    else:
+        out = all_gather_cat(front, group)
+    return out.movedim(0, -1)
+
+
+def sum_over_data(t: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """``t`` summed over every data rank in place: one all-reduce a data
+    group, in the order given (``dist.sharding.data_groups``: mesh
+    order), so every run sums in the same order."""
+    for g in groups:
+        if not _single(g):
+            all_reduce(t, g)
     return t
 
 

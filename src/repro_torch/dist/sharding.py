@@ -27,16 +27,29 @@ in mesh-dim order, so the two agree when the mesh lists ``pod`` before
 cuts a rank's block of a full tensor in DTensor's order and raises on a
 joint entry whose order is not the mesh's.
 
-The reference's ``constrain`` (a sharding annotation that GSPMD turns into
-tensor-parallel collectives) has no counterpart here: the port has no
-compiler to partition its dense layers (ROADMAP.md A20).
+``constrain`` is the port's counterpart of the reference's annotation.
+The reference's GSPMD partitions whole tensors by it; the port's model
+computes on each rank's local blocks, with its tensor-parallel collectives
+issued explicitly through ``dist.collectives`` (``copy_to_group``,
+``reduce_from_group``).  So ``constrain`` moves nothing: outside a mesh it
+is the identity, and under one it checks that the local tensor has the
+block shape its logical names resolve to against the whole sizes it is
+given, and raises on any other layout.  ``TPLayout`` is what a model
+records when its parameters become a rank's blocks and hands its layers:
+the model group, the rank and the whole sizes.  ``model_group`` and
+``data_groups`` are the process groups a spec's axes name: the
+tensor-parallel group and the data-parallel groups of ``batch_data_axes``.
+On an ``AbstractMesh`` they are ``AbstractGroup``s, a size and no
+processes, on which the collectives only record what they would move (the
+dry run's per-device walk).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Dict, Iterator, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -221,6 +234,139 @@ def batch_data_axes(mesh, size: Optional[int] = None) -> Tuple[str, ...]:
     if size is not None:
         axes = _shed_until_divisible(axes, sizes, size)
     return tuple(axes)
+
+
+class NotPorted(ValueError):
+    """A path that the port does not run under a mesh of more than one
+    rank yet (ROADMAP.md A21).  Any other ``ValueError`` on a meshed path
+    is a fault."""
+
+
+def constrain(x: torch.Tensor, names: Sequence[Optional[str]],
+              whole: Optional[Mapping[str, int]] = None) -> torch.Tensor:
+    """The port's sharding annotation: the identity outside a mesh; under
+    one, ``x`` must be the local block that ``names`` resolve to on the
+    ambient mesh and rules, each named dim's whole size read from
+    ``whole`` (a dim without a name, or whose name has no size there, is
+    not checked).  A wrong layout raises; nothing is moved."""
+    mesh = active_mesh()
+    if mesh is None:
+        return x
+    if len(names) != x.dim():
+        raise ValueError(f"constrain: {len(names)} names for a "
+                         f"{x.dim()}-dim tensor")
+    known = whole or {}
+    sizes = [known.get(n, x.shape[i]) if n is not None else x.shape[i]
+             for i, n in enumerate(names)]
+    spec = logical_to_pspec(names, sizes, mesh)
+    ways = _axis_sizes(mesh)
+    for i, (name, n) in enumerate(zip(names, sizes)):
+        if name not in known:
+            continue
+        shards = 1
+        for a in entry_axes(spec[i]):
+            shards *= ways[a]
+        if x.shape[i] != n // shards:
+            raise ValueError(
+                f"constrain: a local tensor of shape {tuple(x.shape)} where "
+                f"{tuple(names)} of whole sizes {tuple(sizes)} resolve to "
+                f"{spec}: dim {i} ({name}) should hold {n // shards}")
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractGroup:
+    """The ranks along ``axes`` of an ``AbstractMesh``: a size and no
+    processes.  A collective on it records itself and moves no data."""
+
+    axes: Tuple[str, ...]
+    size: int
+
+
+def _group(mesh, axis: str):
+    if isinstance(mesh, AbstractMesh):
+        return AbstractGroup((axis,), mesh.shape[axis])
+    return mesh.get_group(axis)
+
+
+def model_group(mesh=None):
+    """The tensor-parallel group (the ``model`` axis) of ``mesh`` (default:
+    the ambient one), or None when it has no ``model`` axis of more than
+    one rank: then the layers run their meshless code."""
+    mesh = active_mesh() if mesh is None else mesh
+    if mesh_sizes(mesh).get("model", 1) <= 1:
+        return None
+    return _group(mesh, "model")
+
+
+def model_rank(mesh=None) -> int:
+    """This rank's index along ``model`` (0 on an ``AbstractMesh``, whose
+    walk reads shapes only)."""
+    mesh = active_mesh() if mesh is None else mesh
+    if mesh is None or isinstance(mesh, AbstractMesh):
+        return 0
+    return mesh_coordinate(mesh).get("model", 0)
+
+
+def data_groups(mesh=None) -> List:
+    """The data-parallel groups of ``mesh`` (default: the ambient one):
+    one a data axis of ``batch_data_axes`` with more than one rank, in
+    mesh order (``pod`` before ``data``).  Summing over each in turn sums
+    over every data rank, in a fixed order."""
+    mesh = active_mesh() if mesh is None else mesh
+    if mesh is None:
+        return []
+    sizes = mesh_sizes(mesh)
+    return [_group(mesh, a) for a in batch_data_axes(mesh) if sizes[a] > 1]
+
+
+def data_ways(mesh) -> int:
+    """How many ranks the data axes of ``mesh`` hold (1 without a
+    mesh): the global batch over a rank's block of it."""
+    sizes = mesh_sizes(mesh)
+    ways = 1
+    for a in batch_data_axes(mesh) if mesh is not None else ():
+        ways *= sizes[a]
+    return ways
+
+
+@dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """A model's tensor-parallel layout, recorded once when its parameters
+    are cut into a rank's blocks (``Model.shard_``) and handed to the
+    layers: the model group (None: no ``model`` axis of more than one
+    rank), this rank's index on it, and each logical axis's whole size
+    (``heads`` -> H) with the mesh and rules that split it.  ``NO_TP`` is
+    the meshless layout, under which every layer runs its meshless code."""
+
+    group: Any = None
+    rank: int = 0
+    sizes: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    mesh: Any = None
+    rules: Optional[Rules] = None
+
+    def over(self, name: str, size: Optional[int] = None):
+        """The model group when the rules split logical axis ``name`` (of
+        ``size``, default its whole size) over it, else None."""
+        if self.group is None:
+            return None
+        spec = logical_to_pspec((name,), (self.sizes[name] if size is None
+                                          else size,), self.mesh, self.rules)
+        return self.group if "model" in entry_axes(spec[0]) else None
+
+
+NO_TP = TPLayout()
+
+
+def tp_layout(sizes: Mapping[str, int], mesh,
+              rules: Optional[Rules] = None) -> TPLayout:
+    """The layout of a model whose logical axes have the whole ``sizes``
+    on ``mesh`` under ``rules`` (default: the ambient ones)."""
+    group = model_group(mesh)
+    if group is None:
+        return TPLayout(sizes=dict(sizes))
+    return TPLayout(group, model_rank(mesh), dict(sizes), mesh,
+                    active_rules() if rules is None else rules)
 
 
 def batch_pspec(mesh) -> PartitionSpec:

@@ -12,15 +12,25 @@ For each cell it records
   arguments (parameters, AdamW moments, cache and inputs) under the specs
   the cell's rules resolve on the abstract production mesh, and each
   part's bytes beside it;
-* ``collectives``: what ``dist.collectives.count_collectives`` saw while
-  the step ran.  It is empty on the dense paths: the JAX package's
-  tensor-parallel collectives come from GSPMD, which the port does not
-  have yet (ROADMAP.md A20);
-* ``memory.temp_bytes``: null, with the reason.  The reference reads it
-  from XLA's compiled memory analysis; the port has no compiled program
-  for a mesh until A20.
+* ``collectives`` and ``memory.temp_bytes``: a second walk, per device,
+  on ``meta`` under the cell's ``AbstractMesh`` and rules.  The model
+  holds rank 0's blocks (``Model.shard_``), the inputs and the cache are
+  its blocks, and the step runs tensor- and data-parallel as it runs on a
+  mesh of live ranks, but every collective on the abstract mesh's groups
+  only records its kind, bytes and group size
+  (``dist.collectives.count_collectives``).  ``temp_bytes`` is the peak
+  of the bytes that the step's ops allocate and hold at once beyond its
+  arguments, counted by ``TempBytes`` (a dispatch mode over the storages
+  the ops make and free), the port's counterpart of XLA's compiled
+  ``temp_size_in_bytes``.  Train and prefill cells get both; decode cells,
+  and cells whose step under a mesh is not ported yet (the xLSTM, the
+  encoder-decoder and the VLM under tensor parallelism, the fsdp profile),
+  keep empty ``collectives`` and a null ``temp_bytes`` with the reason
+  (ROADMAP.md A21; the model raises ``dist.sharding.NotPorted`` for
+  them).
 
-One cell that fails is recorded with its traceback and the sweep goes on.
+One cell that fails, the per-device walk included, is recorded with its
+traceback and the sweep goes on.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single
@@ -37,16 +47,19 @@ import json
 import os
 import time
 import traceback
+import weakref
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from ..configs import ARCHS, get as get_config, shapes_for
 from ..convert import jax_order
 from ..dist.collectives import count_collectives
-from ..dist.sharding import (DEFAULT_RULES, FSDP_RULES, Rules,
-                             logical_to_pspec, mesh_sizes, spec_shards,
-                             use_mesh, use_rules)
+from ..dist.sharding import (DEFAULT_RULES, FSDP_RULES, NotPorted, Rules,
+                             logical_to_pspec, mesh_sizes, spec_block,
+                             spec_shards, use_mesh, use_rules)
 from ..models import SHAPES, Model
 from ..models.common import sharded_bytes
 from ..optim.adamw import AdamW
@@ -54,9 +67,44 @@ from ..train.step import StepConfig, make_train_step
 from .analysis import cost_of
 from .mesh import make_production_mesh
 
-TEMP_BYTES_REASON = ("the port has no compiled program for a mesh to read "
-                     "temporaries from; it comes with DTensor tensor "
-                     "parallelism (ROADMAP.md A20)")
+DECODE_REASON = ("decode under a mesh (DECODE_RULES / SP_DECODE_RULES, "
+                 "kv_seq over model) is not ported yet (ROADMAP.md A21)")
+
+
+class TempBytes(TorchDispatchMode):
+    """The peak bytes of the storages that the ops inside the block
+    allocate and that are alive at once: an op's output whose storage is
+    neither one of its inputs' (views, in-place ops) nor already counted
+    adds its bytes, and they leave the count when the storage is freed.
+    What existed before the block (the step's arguments) never counts.
+    Works on ``meta`` tensors, whose storages have sizes and no data."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._held: Dict[int, int] = {}
+
+    def _freed(self, key: int) -> None:
+        self.live -= self._held.pop(key, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ins = {t.untyped_storage()._cdata
+               for t in tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor)}
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in ins or key in self._held:
+                continue
+            self._held[key] = st.nbytes()
+            self.live += st.nbytes()
+            weakref.finalize(st, self._freed, key)
+            self.peak = max(self.peak, self.live)
+        return out
 
 _INPUT_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
                "frames": ("batch", "seq", None),
@@ -89,9 +137,10 @@ def cell_rules(shape_name: str, profile: str = "tp") -> Rules:
 
 def build_cell(arch: str, shape_name: str, mesh, quick_layers: int = 0,
                profile: str = "tp", moments: str = "zero1",
-               remat: bool = True) -> Tuple[Callable, Dict, Rules]:
-    """(step, memory, rules): the cell's step on ``meta`` tensors at the
-    published widths, and the per-device bytes of its arguments."""
+               remat: bool = True) -> Tuple[Callable, Dict, Rules, Any]:
+    """(step, memory, rules, cfg): the cell's step on ``meta`` tensors at
+    the published widths, the per-device bytes of its arguments, and the
+    model config it built."""
     cfg = get_config(arch)
     if quick_layers:
         cfg = dataclasses.replace(cfg,
@@ -142,9 +191,52 @@ def build_cell(arch: str, shape_name: str, mesh, quick_layers: int = 0,
             model.decode(inputs["tokens"], cache, shape.seq_len - 1)
     memory["argument_bytes"] = sum(v for k, v in memory.items()
                                    if k.endswith("_bytes"))
-    memory["temp_bytes"] = None
-    memory["temp_bytes_reason"] = TEMP_BYTES_REASON
-    return fn, memory, rules
+    return fn, memory, rules, cfg
+
+
+def _local(shape, axes, mesh, rules) -> Tuple[int, ...]:
+    """Rank 0's block shape of a tensor of ``shape`` under its logical
+    ``axes``."""
+    spec = logical_to_pspec(axes, shape, mesh, rules)
+    coord = {a: 0 for a in mesh_sizes(mesh)}
+    return tuple(sl.stop - sl.start for sl in spec_block(
+        spec, shape, mesh_sizes(mesh), coord))
+
+
+def walk_device(cfg, shape, mesh, rules: Rules) -> Tuple[Dict, int]:
+    """(collectives, temp_bytes) of rank 0's train or prefill step of a
+    ``cfg`` model at ``shape`` (a ``ShapeConfig``) on ``meta`` under
+    ``mesh`` and ``rules``: its parameter, moment, input and cache blocks
+    made first, then the step run once under ``count_collectives`` and
+    ``TempBytes``."""
+    model = Model(cfg, device="meta")
+    inputs = {}
+    for name, t in model.input_specs(shape).items():
+        axes = _INPUT_AXES.get(name, (None,) * t.dim())[:t.dim()]
+        inputs[name] = torch.empty(_local(tuple(t.shape), axes, mesh, rules),
+                                   dtype=t.dtype, device="meta")
+    with use_rules(rules), use_mesh(mesh):
+        model.shard_(mesh)
+        if shape.kind == "train":
+            named = dict(model.named_parameters())
+            params = {n: named[n] for n in jax_order(named)}
+            opt = AdamW(lr=1e-4)
+            opt_state = opt.init(params)
+            step = make_train_step(model, opt, StepConfig())
+
+            def fn():
+                step(params, opt_state, inputs)
+        else:
+            cache = model.init_cache(inputs["tokens"].shape[0],
+                                     shape.seq_len)
+
+            def fn():
+                model.prefill(inputs["tokens"], cache,
+                              patches=inputs.get("patches"),
+                              frames=inputs.get("frames"))
+        with count_collectives() as coll, TempBytes() as temp:
+            fn()
+    return coll, temp.peak
 
 
 def run_cell(arch: str, shape_name: str, mesh, mesh_name: str, outdir: str,
@@ -165,15 +257,24 @@ def run_cell(arch: str, shape_name: str, mesh, mesh_name: str, outdir: str,
                            "status": "running"}
     t0 = time.time()
     try:
-        fn, memory, rules = build_cell(arch, shape_name, mesh, quick_layers,
-                                       profile=profile, moments=moments,
-                                       remat=remat)
-        with use_rules(rules), use_mesh(mesh), count_collectives() as coll:
-            global_cost = cost_of(fn)
+        fn, memory, rules, cfg = build_cell(arch, shape_name, mesh,
+                                            quick_layers, profile=profile,
+                                            moments=moments, remat=remat)
+        global_cost = cost_of(fn)            # the whole program, no mesh
         rec.update({"status": "ok", "global_cost": global_cost})
         if trace_only:
             rec["trace_only"] = True
         else:
+            shape = SHAPES[shape_name]
+            coll, memory["temp_bytes"] = {}, None
+            if shape.kind == "decode":
+                memory["temp_bytes_reason"] = DECODE_REASON
+            else:
+                try:
+                    coll, memory["temp_bytes"] = walk_device(cfg, shape,
+                                                             mesh, rules)
+                except NotPorted as e:      # ROADMAP.md A21
+                    memory["temp_bytes_reason"] = str(e)
             rec.update({"memory": memory, "collectives": coll})
     # check: disable=EXC01 -- the sweep: one cell failing to trace must
     # not stop the others; the failure is recorded (type, message,

@@ -14,9 +14,27 @@ in training as in serving.
 Training forms.  ``norm``, ``project``, ``attention``, ``swiglu``,
 ``cross_entropy`` and ``chunked_lm_loss`` (``repro/models/layers.py``
 ``rmsnorm``, the einsums, ``attention``, ``mlp``, ``cross_entropy``,
-``chunked_lm_loss``) run on whole tensors and are differentiable;
-attention goes through ``kernels.ops.flash_attention`` (the hand-written
-forward and backward kernels on the card).  Contiguous-cache serving
+``chunked_lm_loss``) are differentiable; attention goes through
+``kernels.ops.flash_attention`` (the hand-written forward and backward
+kernels on the card).
+
+Tensor parallelism.  Given a model's ``TPLayout`` (``tp``; a mesh whose
+``model`` axis has more than one rank, ``dist.sharding.tp_layout``) these
+forms take each rank's local parameter blocks, as ``DEFAULT_RULES``
+resolve them, and compute on local tensors (Megatron-LM's layout, which is where GSPMD puts the reference's
+``constrain`` annotations): ``attention`` enters x into the group
+(``copy_to_group``), projects QKV on the rank's heads, runs the flash
+kernels on them and reduces ``wo``'s row-parallel product
+(``reduce_from_group``); ``swiglu`` does the same over ``mlp``;
+``embed_tokens`` looks up the rank's vocab rows and reduces;
+``chunked_lm_loss`` takes a vocab-parallel cross-entropy, its maximum and
+sum of exponentials reduced over the group and the gold logit from the rank
+that holds it.  When ``kv_heads`` does not split (the GQA fallback) ``wk``
+and ``wv`` are whole on every rank: each rank projects all K heads, its q
+heads read the one their group maps to, and the two weights enter the
+group so their gradient sums over it.  A dim the rules leave whole (a
+count that does not divide) runs the meshless code; so does everything on
+a model axis of one rank.  Contiguous-cache serving
 uses them too, with ``attention_decode`` for one token against a
 contiguous KV cache, ``attention_decode_ring`` against a sliding-window
 arch's ring of ``window`` slots and ``cross_attention_decode`` against an
@@ -33,6 +51,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.collectives import (all_reduce_max, copy_to_group,
+                                reduce_from_group)
+from ..dist.sharding import NO_TP, TPLayout, constrain
 from ..kernels import ops
 from ..tiles import ROW_TILE, linear, row_tiles
 
@@ -121,30 +142,75 @@ def project(x: torch.Tensor, w: torch.Tensor, k: int = 1) -> torch.Tensor:
     return y.reshape(*x.shape[:x.dim() - k], *w.shape[k:])
 
 
+def _kv_heads_read(Hl: int, tp: TPLayout):
+    """The slice of kv heads that this rank's ``Hl`` q heads read when
+    ``kv_heads`` stays whole (the GQA fallback): all of them fall in one
+    group of H / K q heads."""
+    G = tp.sizes["heads"] // tp.sizes["kv_heads"]
+    if G % Hl:
+        raise ValueError(f"{Hl} q heads a rank straddle the groups of {G} "
+                         f"that share a kv head: no layout for kv_heads="
+                         f"{tp.sizes['kv_heads']} on this model axis")
+    lo = tp.rank * Hl // G
+    return slice(lo, lo + 1)
+
+
+def self_attention_qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                       positions: torch.Tensor, freqs: torch.Tensor,
+                       tp: TPLayout = NO_TP):
+    """(group, q, k, v, read) of causal self-attention over x (B, S, d):
+    q (B, S, H, dh) roped, k roped and v (B, S, K, dh) on the kv heads
+    this rank holds, and ``read`` the slice of them its q heads attend to
+    (None: all).  Under tensor parallelism (``group`` not None) x enters
+    the group, q is on the rank's heads and k, v on its kv heads, or, in
+    the GQA fallback, on all K from the whole ``wk``/``wv``."""
+    group = tp.over("heads")
+    wk, wv, read = p["wk"], p["wv"], None
+    if group is not None:
+        x = copy_to_group(x, group)
+        if tp.over("kv_heads") is None:
+            wk, wv = copy_to_group(wk, group), copy_to_group(wv, group)
+            read = _kv_heads_read(p["wq"].shape[1], tp)
+    q = rope(project(x, p["wq"]), positions, freqs)
+    k = rope(project(x, wk), positions, freqs)
+    v = project(x, wv)
+    constrain(q, ("batch", "seq", "heads", None), tp.sizes)
+    return group, q, k, v, read
+
+
+def attention_out(p: Mapping[str, torch.Tensor], out: torch.Tensor,
+                  group) -> torch.Tensor:
+    """``wo`` over attention's output (B, S, H, dh): row-parallel under
+    tensor parallelism, the group's partial products summed."""
+    return reduce_from_group(project(out, p["wo"], k=2), group)
+
+
 def attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
               positions: torch.Tensor, freqs: torch.Tensor,
               window: Optional[int] = None,
-              kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+              kv_x: Optional[torch.Tensor] = None,
+              tp: TPLayout = NO_TP) -> torch.Tensor:
     """Attention for training and prefill (``repro/models/layers.py``
     ``attention``): x (B, S, d); p holds ``wq`` (d,H,dh), ``wk``/``wv``
     (d,K,dh) and ``wo`` (H,dh,d); positions (S,).  Self-attention (no
     ``kv_x``): QKV, rope, ``ops.flash_attention`` causal with the window,
-    then ``wo``.  It is causal whatever the caller's config says, as the
-    reference's ``_mask`` is, the encoder's included.  Cross attention
-    (``kv_x`` (B, Sk, d), the encoder's output): q from x and k, v from
-    ``kv_x``, no rope, ``ops.flash_attention`` unmasked over all Sk keys
-    (Sk need not be S)."""
+    then ``wo`` (under tensor parallelism on the rank's heads,
+    ``self_attention_qkv``).  It is causal whatever the caller's config
+    says, as the reference's ``_mask`` is, the encoder's included.  Cross
+    attention (``kv_x`` (B, Sk, d), the encoder's output): q from x and k,
+    v from ``kv_x``, no rope, ``ops.flash_attention`` unmasked over all Sk
+    keys (Sk need not be S)."""
     if kv_x is not None:
         q = project(x, p["wq"])
         k = project(kv_x, p["wk"])
         v = project(kv_x, p["wv"])
         out = ops.flash_attention(q, k, v, causal=False)
         return project(out, p["wo"], k=2)
-    q = rope(project(x, p["wq"]), positions, freqs)
-    k = rope(project(x, p["wk"]), positions, freqs)
-    v = project(x, p["wv"])
+    group, q, k, v, read = self_attention_qkv(p, x, positions, freqs, tp)
+    if read is not None:
+        k, v = k[:, :, read], v[:, :, read]
     out = ops.flash_attention(q, k, v, causal=True, window=window)
-    return project(out, p["wo"], k=2)
+    return attention_out(p, out, group)
 
 
 def attention_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
@@ -214,12 +280,34 @@ def cross_attention_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     return project(o.reshape(B, 1, H, dh), p["wo"], k=2)
 
 
-def swiglu(p: Mapping[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU for training, silu in f32: x (B, S, d)."""
+def swiglu(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+           tp: TPLayout = NO_TP) -> torch.Tensor:
+    """SwiGLU for training, silu in f32: x (B, S, d).  Under tensor
+    parallelism ``w_gate``/``w_up`` are the rank's columns of ``mlp`` and
+    ``w_down`` its rows: x enters the group, the row-parallel product is
+    reduced over it."""
+    group = tp.over("mlp")
+    x = copy_to_group(x, group)
     g = project(x, p["w_gate"])
     u = project(x, p["w_up"])
     h = F.silu(g.to(F32)).to(x.dtype) * u
-    return project(h, p["w_down"])
+    constrain(h, ("batch", "seq", "mlp"), tp.sizes)
+    return reduce_from_group(project(h, p["w_down"]), group)
+
+
+def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor,
+                 tp: TPLayout = NO_TP) -> torch.Tensor:
+    """The embeddings (..., d) of ``tokens`` from ``tok`` (vocab, d),
+    differentiable.  Vocab-parallel under tensor parallelism: ``tok`` is
+    the rank's block of rows, tokens outside it look up zeros, and the
+    group's lookups are summed."""
+    group = tp.over("vocab")
+    if group is None:
+        return F.embedding(tokens.long(), tok)
+    ids = tokens.long() - tp.rank * tok.shape[0]
+    inside = (ids >= 0) & (ids < tok.shape[0])
+    e = F.embedding(torch.where(inside, ids, 0), tok)
+    return reduce_from_group(torch.where(inside[..., None], e, 0), group)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -237,27 +325,52 @@ def _nll_sum(logits, labels, ignore: int):
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
+def _nll_sum_vocab_parallel(logits, labels, ignore: int, group, rank: int):
+    """``_nll_sum`` of the rank's vocab block (..., V/m) of the f32
+    logits: the maximum and the sum of exponentials reduced over the
+    group, the gold logit from the rank whose block holds the label."""
+    mask = labels != ignore
+    vl = logits.shape[-1]
+    m = all_reduce_max(logits.amax(-1), group)
+    s = reduce_from_group(torch.exp(logits - m[..., None]).sum(-1), group)
+    logz = torch.log(s) + m
+    ids = labels.long() - rank * vl
+    inside = mask & (ids >= 0) & (ids < vl)
+    gold = torch.gather(logits, -1, torch.where(inside, ids, 0)[..., None])
+    gold = reduce_from_group(torch.where(inside, gold[..., 0], 0.0), group)
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
 def chunked_lm_loss(head_w: torch.Tensor, x: torch.Tensor,
                     labels: torch.Tensor, ignore: int = -1,
-                    chunk: int = 512) -> torch.Tensor:
+                    chunk: int = 512,
+                    count: Optional[torch.Tensor] = None,
+                    tp: TPLayout = NO_TP) -> torch.Tensor:
     """LM head + CE without materialising (B, S, V) f32 logits: the
     sequence runs in chunks of ``chunk`` positions (one chunk when S is
     not a multiple), each under ``torch.utils.checkpoint``, so a chunk's
     logits are recomputed in the backward instead of stored.  Returns the
-    mean NLL over non-ignored positions."""
+    NLL sum over non-ignored positions over their count, or over
+    ``count`` when given (the data ranks' global count: the trainer's
+    data-parallel loss).  Vocab-parallel under tensor parallelism: x
+    enters the group, each rank's logits are its vocab block's."""
     B, S, _ = x.shape
     n = max(1, S // chunk) if S % chunk == 0 else 1
     c = S // n
+    group = tp.over("vocab")
 
     def one(xc, lc):
         # The head product in x's dtype, then f32, as the JAX head does.
-        return _nll_sum(project(xc, head_w).to(F32), lc, ignore)
+        if group is None:
+            return _nll_sum(project(xc, head_w).to(F32), lc, ignore)
+        logits = project(copy_to_group(xc, group), head_w).to(F32)
+        return _nll_sum_vocab_parallel(logits, lc, ignore, group, tp.rank)
 
-    nll, count = 0.0, 0
+    nll, total = 0.0, 0
     for i in range(n):
         part, cnt = checkpoint(one, x[:, i * c:(i + 1) * c],
                                labels[:, i * c:(i + 1) * c],
                                use_reentrant=False)
-        nll, count = nll + part, count + cnt
-    return nll / torch.clamp(count, min=1)
+        nll, total = nll + part, total + cnt
+    return nll / torch.clamp(total if count is None else count, min=1)
 

@@ -18,6 +18,16 @@ combine in ascending-expert order under all three):
   the JAX package, when the ambient mesh (``dist.sharding.use_mesh``)
   splits the batch over a data axis (``_data_sharded``), where it keeps
   every dispatch structure row-local.
+* **tp over the mesh's model axis**: with ``parallelism="tp"`` under a
+  model layout (``dist.sharding.TPLayout``, the model's after
+  ``Model.shard_``) whose ``model`` axis splits ``mlp``, each rank holds the columns
+  of ``w_gate``/``w_up`` and the rows of ``w_down`` of its block of the
+  FFN width (``models.common.moe_axes("tp")``).  x enters the group
+  (``copy_to_group``), every rank routes every token with the whole router
+  (which enters the group too, so its gradient sums the ranks' partial
+  ones), the grouped FFN runs on the local width in either layout above,
+  the fixed-order combine gives the rank's partial sum in f32, and one
+  ``reduce_from_group`` sums the group's.
 * **ep over the mesh's model axis** (``_moe_dropless_ep``): with
   ``parallelism="ep"`` under a mesh whose ``model`` axis has more than one
   rank (``_ep_mesh``), each rank holds its data block of the batch and
@@ -53,8 +63,9 @@ are ``autograd.Function``s whose backwards are each other's forwards, so
 no backward accumulates by index either, and two backward passes give the
 same bits.  Under ep, x's and the router's gradients are those of the
 rank's data block, whole on every rank of its model group; the data ranks'
-gradients differ, and summing them is the trainer's data-parallel
-reduction (ROADMAP.md A20).
+gradients differ, and the trainer's data-parallel reduction
+(``train.step``) sums them into the batch's.  Capacity dispatch under a
+mesh of more than one rank is refused (ROADMAP.md A21).
 """
 
 from __future__ import annotations
@@ -68,8 +79,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..dist import collectives as coll
-from ..dist.collectives import ragged_all_to_all
-from ..dist.sharding import active_mesh, batch_data_axes, mesh_sizes
+from ..dist.collectives import (copy_to_group, ragged_all_to_all,
+                                reduce_from_group)
+from ..dist.sharding import (NO_TP, NotPorted, TPLayout, active_mesh,
+                             batch_data_axes, mesh_sizes)
 from ..kernels import ops
 from ..tiles import linear
 
@@ -225,8 +238,8 @@ def _segment_sizes(sorted_e: torch.Tensor, E: int) -> torch.Tensor:
 
 def apply_dropless_flat(gates, experts, x, w_gate, w_up, w_down,
                         cfg: MoEConfig,
-                        expert_slots: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        expert_slots: Optional[torch.Tensor] = None,
+                        group=None) -> torch.Tensor:
     """Flat dropless dispatch after routing.  gates/experts: (B, S, k) or
     (B*S, k); x: (B, S, d).  Sort the picks into per-expert segments, run
     the grouped SwiGLU, combine gate-weighted in ascending-expert order.
@@ -235,7 +248,9 @@ def apply_dropless_flat(gates, experts, x, w_gate, w_up, w_down,
     holding its block; it rides the grouped FFN's ``group_experts``, so the
     weight arrays may hold more (or differently ordered) rows than ``cfg``
     has experts (the expert cache of the tiering slice).  None keeps row i
-    == expert i."""
+    == expert i.  ``group``: the tensor-parallel group whose partial sums
+    (weights on the rank's block of the FFN width) the f32 combine is
+    reduced over."""
     B, S, d = x.shape
     E, k = cfg.padded_experts, cfg.top_k
     T = B * S
@@ -246,11 +261,11 @@ def apply_dropless_flat(gates, experts, x, w_gate, w_up, w_down,
     y = _sorted_ffn(x.reshape(T, d), gates.reshape(T * k), order, k,
                     lambda xs: ops.moe_grouped_ffn(
                         xs, w_gate, w_up, w_down, group_sizes, slots))
-    return y.to(x.dtype).reshape(B, S, d)
+    return reduce_from_group(y, group).to(x.dtype).reshape(B, S, d)
 
 
 def _apply_dropless_per_row(gates, experts, x, w_gate, w_up, w_down,
-                            cfg: MoEConfig) -> torch.Tensor:
+                            cfg: MoEConfig, group=None) -> torch.Tensor:
     """The per-row layout after routing: each row's S*k picks sorted
     stably by expert on their own, one ragged segment per (row, expert),
     the grouped FFN over the B*E segments with ``group_experts`` mapping
@@ -271,7 +286,7 @@ def _apply_dropless_per_row(gates, experts, x, w_gate, w_up, w_down,
                     order.reshape(B * Sk), k,
                     lambda xs: ops.moe_grouped_ffn(
                         xs, w_gate, w_up, w_down, sizes, group_experts))
-    return y.to(x.dtype).reshape(B, S, d)
+    return reduce_from_group(y, group).to(x.dtype).reshape(B, S, d)
 
 
 def _data_sharded() -> bool:
@@ -285,18 +300,23 @@ def _data_sharded() -> bool:
     return any(sizes[a] > 1 for a in batch_data_axes(mesh))
 
 
-def _moe_dropless(p, x, cfg: MoEConfig, per_row: Optional[bool] = None
-                  ) -> torch.Tensor:
+def _moe_dropless(p, x, cfg: MoEConfig, per_row: Optional[bool] = None,
+                  tp: TPLayout = NO_TP) -> torch.Tensor:
     """Route, then the flat dropless dispatch, or the per-row layout with
     ``per_row`` (None: ``_data_sharded()``, as in the JAX package).  ``p``
     holds ``router`` (d, E) f32 and ``w_gate``/``w_up`` (E, d, f),
-    ``w_down`` (E, f, d)."""
+    ``w_down`` (E, f, d); with ``parallelism="tp"`` on a layout ``tp`` that
+    splits ``mlp`` f is the rank's block of the width."""
     B, S, d = x.shape
-    gates, experts = route_tokens(p.router, x.reshape(B * S, d), cfg)
+    group = tp.over("mlp", cfg.d_ff) if cfg.parallelism == "tp" else None
+    x = copy_to_group(x, group)
+    router = copy_to_group(p.router, group)
+    gates, experts = route_tokens(router, x.reshape(B * S, d), cfg)
     if per_row is None:
         per_row = _data_sharded()
     apply = _apply_dropless_per_row if per_row else apply_dropless_flat
-    return apply(gates, experts, x, p.w_gate, p.w_up, p.w_down, cfg)
+    return apply(gates, experts, x, p.w_gate, p.w_up, p.w_down, cfg,
+                 group=group)
 
 
 # ======================================================== ep dropless
@@ -383,8 +403,10 @@ def _moe_dropless_ep(p, x, cfg: MoEConfig, mesh) -> torch.Tensor:
       5. combines gate-weighted in ascending-expert order, as every other
          layout does, and all-gathers the token slices.
 
-    Every collective runs on the model group.  The output is this rank's
-    (B_loc, S, d) block.  Per-token math is that of ``_moe_dropless``.
+    Every collective runs on the model group.  The expert stacks are the
+    rank's ``E_loc`` experts (its local blocks) or whole (then sliced
+    here).  The output is this rank's (B_loc, S, d) block.  Per-token
+    math is that of ``_moe_dropless``.
     Gradients, on every rank of a model group that computes the same loss
     from the whole block: x's and the router's are whole for the block
     (the slice's backward all-gathers, the router's all-reduces over the
@@ -422,8 +444,9 @@ def _moe_dropless_ep(p, x, cfg: MoEConfig, mesh) -> torch.Tensor:
     sizes = mine.reshape(m * E_loc).to(torch.int32)
     group_experts = torch.arange(E_loc, dtype=torch.int32,
                                  device=x.device).repeat(m)
-    # This rank's experts: a view of each whole (E, ...) stack.
-    w = [t[r * E_loc:(r + 1) * E_loc] for t in (p.w_gate, p.w_up, p.w_down)]
+    # This rank's experts: its local block, or a view of a whole stack.
+    w = [t if t.shape[0] == E_loc else t[r * E_loc:(r + 1) * E_loc]
+         for t in (p.w_gate, p.w_up, p.w_down)]
 
     def ffn(xs):
         rows = ragged_all_to_all(xs, send, recv, group)
@@ -599,22 +622,27 @@ def dropped_picks(x: torch.Tensor, router: torch.Tensor,
 
 # ============================================================== facade
 def moe(p, x: torch.Tensor, cfg: MoEConfig,
-        dispatch: Optional[str] = None) -> torch.Tensor:
+        dispatch: Optional[str] = None,
+        tp: TPLayout = NO_TP) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d).  ``dispatch`` overrides ``cfg.dispatch``.
     Dropless with ``parallelism="ep"`` under a mesh whose ``model`` axis
     has more than one rank (``_ep_mesh``) takes ``_moe_dropless_ep`` over
     the model group; otherwise this rank computes the padded-expert
     function of its tensors (dead experts get no rows) in the flat layout,
-    or per row under a data-sharded mesh, as the JAX package does."""
+    or per row under a data-sharded mesh, as the JAX package does;
+    ``tp``: the model's layout (tp over the FFN width)."""
     mode = dispatch if dispatch is not None else cfg.dispatch
     if mode == "capacity":
+        if any(s > 1 for s in mesh_sizes(active_mesh()).values()):
+            raise NotPorted("capacity dispatch under a mesh of more than "
+                            "one rank is not ported yet (ROADMAP.md A21)")
         return _moe_capacity(p, x, cfg)
     if mode != "dropless":
         raise ValueError(f"unknown MoE dispatch {mode!r}")
     mesh = _ep_mesh(cfg)
     if mesh is not None:
         return _moe_dropless_ep(p, x, cfg, mesh)
-    return _moe_dropless(p, x, cfg)
+    return _moe_dropless(p, x, cfg, tp=tp)
 
 
 def moe_decode(p, x: torch.Tensor, cfg: MoEConfig,

@@ -13,6 +13,17 @@ group shared by all heads.  The f32 islands are the JAX package's:
 ``dt_bias``, ``a_log`` and ``D`` are f32 whatever the model's dtype is; dt
 is a softplus clipped to ``[dt_min, dt_max * 100]``; silu runs in f32; the
 grouped RMSNorm over d_inner uses eps 1e-6; the SSM state is f32.
+
+Tensor parallelism (prefill and training, under a mesh whose ``model``
+axis splits ``ssm_heads``): ``w_z``, ``w_x``, ``w_dt``, ``dt_bias``,
+``a_log``, ``D``, ``conv_x`` and ``norm`` are the rank's block over
+``d_inner`` / ``ssm_heads``, both cut at head boundaries, so a rank's
+channels are exactly its heads' P channels (``Model.shardings`` leaves
+``d_inner`` whole wherever ``ssm_heads`` does not split); ``w_B`` and
+``w_C`` stay whole and enter the group, so their gradient sums the
+ranks'.  The SSD kernel runs on the local heads, the gated norm's sum of
+squares over the whole ``d_inner`` is reduced over the group (its gradient
+too), and ``w_out`` is row-parallel, its partial products reduced.
 """
 
 from __future__ import annotations
@@ -24,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.collectives import copy_to_group, reduce_from_group
+from ..dist.sharding import NO_TP, TPLayout, constrain
 from ..kernels import ops
 from .layers import param, project
 
@@ -77,13 +90,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _inputs(p: SSM, u: torch.Tensor, cfg: SSMConfig):
+def _inputs(p: SSM, u: torch.Tensor, cfg: SSMConfig, group=None):
     """The common projections of u (B,S,d): z, x, B, C in u's dtype and dt
-    (B,S,H) in f32."""
+    (B,S,H) in f32 (on the rank's channels and heads under tensor
+    parallelism, u and the whole ``w_B``/``w_C`` entered into ``group``)."""
+    u = copy_to_group(u, group)
     z = project(u, p.w_z)
     x = project(u, p.w_x)
-    Bm = project(u, p.w_B)
-    Cm = project(u, p.w_C)
+    Bm = project(u, copy_to_group(p.w_B, group))
+    Cm = project(u, copy_to_group(p.w_C, group))
     dt = project(u, p.w_dt).to(F32)
     dt = F.softplus(dt + p.dt_bias)
     dt = torch.clamp(dt, cfg.dt_min, cfg.dt_max * 100)
@@ -140,35 +155,42 @@ def ssd_chunked(x, dt, A, Bm, Cm, cfg: SSMConfig,
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, p: SSM,
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, cfg: SSMConfig,
+                group=None) -> torch.Tensor:
     """y * silu(z), then the grouped RMSNorm over d_inner (eps 1e-6), then
-    the output projection."""
+    the output projection.  Under tensor parallelism y holds the rank's
+    channels: the sum of squares is reduced over ``group`` (and its
+    gradient with it), and ``w_out``'s partial products are summed."""
     y = y * F.silu(z.to(F32)).to(dtype)
-    var = torch.mean(torch.square(y.to(F32)), dim=-1, keepdim=True)
+    ss = torch.sum(torch.square(y.to(F32)), dim=-1, keepdim=True)
+    var = copy_to_group(reduce_from_group(ss, group), group) / cfg.d_inner
     y = (y.to(F32) * torch.rsqrt(var + 1e-6) * p.norm).to(dtype)
-    return project(y, p.w_out)
+    return reduce_from_group(project(y, p.w_out), group)
 
 
 def ssm_forward(p: SSM, u: torch.Tensor, cfg: SSMConfig,
-                return_state: bool = False):
+                return_state: bool = False, tp: TPLayout = NO_TP):
     """The whole Mamba2 block for prefill.  u: (B,S,d).
 
     With ``return_state`` also returns (conv_state (B, W-1, d_inner) in u's
     dtype, ssm_state (B,H,N,P) f32), so a decode loop continues exactly
     where the prefill left off.  The conv state holds the last W-1
-    pre-conv inputs, zero rows in front when S < W-1."""
+    pre-conv inputs, zero rows in front when S < W-1.  ``tp``: the
+    model's layout, under which the block runs on the rank's heads."""
     B, S, _ = u.shape
-    H, P = cfg.n_heads, cfg.head_dim
-    z, x, Bm, Cm, dt = _inputs(p, u, cfg)
+    group = tp.over("ssm_heads")
+    H, P = p.a_log.shape[0], cfg.head_dim      # the rank's heads
+    z, x, Bm, Cm, dt = _inputs(p, u, cfg, group)
     x_pre = x                                   # pre-conv projections
     x = _causal_conv(x, p.conv_x)
     x = F.silu(x.to(F32)).to(u.dtype)
-    xh = x.reshape(B, S, H, P)
+    xh = constrain(x.reshape(B, S, H, P),
+                   ("batch", "seq", "ssm_heads", None), tp.sizes)
     A = -torch.exp(p.a_log)
     y, final_state = ssd_chunked(xh, dt, A, Bm, Cm, cfg)
     y = y + xh.to(F32) * p.D[None, None, :, None]
-    y = y.reshape(B, S, cfg.d_inner).to(u.dtype)
-    out = _gated_norm(y, z, p, u.dtype)
+    y = y.reshape(B, S, H * P).to(u.dtype)
+    out = _gated_norm(y, z, p, u.dtype, cfg, group)
     if return_state:
         W = cfg.conv_width
         conv_state = F.pad(x_pre, (0, 0, W - 1, 0))[:, S:]
@@ -200,4 +222,4 @@ def ssm_decode(p: SSM, u: torch.Tensor, conv_state: torch.Tensor,
     y = torch.einsum("bn,bhnp->bhp", Cn, new_state)  # (B,H,P)
     y = y + xh * p.D[None, :, None]
     y = y.reshape(B, 1, cfg.d_inner).to(u.dtype)
-    return _gated_norm(y, z, p, u.dtype), new_conv, new_state
+    return _gated_norm(y, z, p, u.dtype, cfg), new_conv, new_state

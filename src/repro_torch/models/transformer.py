@@ -55,6 +55,20 @@ decode is plain torch (``attention_decode``, ``cross_attention_decode``).
 The xLSTM family is plain torch throughout.  The paged ``Engine`` serves
 the dense and MoE families, as the JAX engine does.
 
+Under a mesh (``dist.sharding.use_mesh``) ``forward``, ``loss`` and
+``prefill`` compute on each rank's local blocks: ``shard_`` (or
+``local_params``) cuts them by ``shardings``, which are the JAX package's
+``param_pspecs`` under the ambient rules, with ``d_inner`` following
+``ssm_heads``, and records the layout (``tp``, a ``TPLayout``) that the
+model hands its layers.  The dense, MoE (``parallelism="tp"`` or ``"ep"``)
+and hybrid families run tensor-parallel over the ``model`` axis
+(``models.layers``, ``models.moe``, ``models.ssm``); a rank's batch is its
+data block, and ``loss`` is its NLL over the token count it is given
+(``train.step`` passes the data ranks' global count).  Decode and the
+xLSTM, encoder-decoder and VLM families under a model axis of more than
+one rank, and parameter layouts that split ``embed`` or ``layers`` (the
+``fsdp`` profile, zero1), raise (ROADMAP.md A21).
+
 Parameters are made with ``requires_grad=False``, so serving builds no
 autograd graph.  Training hands ``loss`` its own leaves (``params``: the
 state-dict names mapped to tensors that require grad, as
@@ -64,22 +78,29 @@ never need to be trainable.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from types import SimpleNamespace
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
+from ..dist.collectives import gather_from_group
+from ..dist.sharding import (NO_TP, AbstractMesh, NotPorted, PartitionSpec,
+                             Rules, TPLayout, active_mesh, active_rules,
+                             data_ways, local_block, logical_to_pspec,
+                             mesh_sizes, model_group, spec_shards, tp_layout)
 from ..kernels import ops
-from .common import ArrayDef, module_defs, tree_map
+from .common import (ArrayDef, LeafSharding, leaf_axes, module_defs,
+                     param_shardings, tree_map)
 from .config import ModelConfig, ShapeConfig
-from .layers import (attention, attention_decode, chunked_lm_loss,
-                     cross_attention_decode, norm, param, project, rope,
-                     rope_freqs, swiglu)
+from .layers import (attention, attention_decode, attention_out,
+                     chunked_lm_loss, cross_attention_decode, embed_tokens,
+                     norm, param, project, rope_freqs,
+                     self_attention_qkv, swiglu)
 from .moe import MoEConfig, moe, moe_decode
 from .ssm import SSM, SSMConfig, ssm_decode, ssm_forward
 from .xlstm import (MLSTM, SLSTM, XLSTMConfig, mlstm_decode, mlstm_parallel,
@@ -224,6 +245,16 @@ class SLSTMLayer(nn.Module):
         self.slstm = SLSTM(xl_cfg, device, dtype)
 
 
+def _refuse_layout(mesh, rules: Rules) -> None:
+    """Parameter layouts that split ``embed`` or the layer stack (the
+    ``fsdp`` profile, zero1) on a mesh of more than one rank raise."""
+    if any(s > 1 for s in mesh_sizes(mesh).values()) and (
+            rules.get("embed") or rules.get("layers")):
+        raise NotPorted("a parameter layout that splits embed or the layer "
+                        "stack (the fsdp profile, zero1) is not ported yet "
+                        "(ROADMAP.md A21)")
+
+
 def _layer_tree(params: Mapping[str, torch.Tensor], prefix: str,
                 layer: nn.Module) -> Dict:
     """``layer``'s tensors of a state-dict-named mapping (names under
@@ -258,6 +289,11 @@ class Model(nn.Module):
     ``cfg.dtype`` (the MoE router, the SSM's ``dt_bias``, ``a_log`` and
     ``D`` and the xLSTM gates in f32), uninitialised until ``init`` or
     ``load_state_dict``."""
+
+    # The layout the layers compute on, and the whole parameter defs:
+    # set by ``shard_``.
+    tp: TPLayout = NO_TP
+    _whole_defs: Optional[Dict] = None
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
@@ -324,6 +360,94 @@ class Model(nn.Module):
         return frozenset(f"slstm_layers.{j}.slstm.norm"
                          for j in range(self._xlstm_counts()[1]))
 
+    # ================================================================ mesh
+    def logical_sizes(self) -> Dict[str, int]:
+        """The whole size of every logical axis of the parameters that the
+        layers name, for their layout (``dist.sharding.TPLayout``)."""
+        cfg = self.cfg
+        out = {"embed": cfg.d_model, "heads": cfg.n_heads,
+               "kv_heads": cfg.kv_heads, "head_dim": self.head_dim,
+               "mlp": cfg.d_ff, "vocab": cfg.vocab}
+        if self.moe_cfg is not None:
+            out["experts"] = self.moe_cfg.padded_experts
+        if self.ssm_cfg is not None:
+            out["d_inner"] = self.ssm_cfg.d_inner
+            out["ssm_heads"] = self.ssm_cfg.n_heads
+        return out
+
+    def shardings(self, mesh, rules: Optional[Rules] = None
+                  ) -> Dict[str, LeafSharding]:
+        """Per parameter name, how it lies on ``mesh``: the JAX package's
+        specs (``models.common.param_shardings``) under ``rules`` (default:
+        the ambient ones), except that a Mamba2 block's ``d_inner`` dims
+        split only where its ``ssm_heads`` do, so that a rank's channels
+        are its heads' (``models.ssm``)."""
+        out = param_shardings(self.param_defs(), mesh, rules)
+        sc = self.ssm_cfg
+        if sc is None or spec_shards(logical_to_pspec(
+                ("ssm_heads",), (sc.n_heads,), mesh, rules), mesh) > 1:
+            return out
+        for name, sh in out.items():
+            if ".ssm." not in name:
+                continue
+            axes = leaf_axes("ssm/" + name.rsplit(".", 1)[-1])
+            out[name] = dataclasses.replace(sh, spec=PartitionSpec(*(
+                None if a == "d_inner" else e
+                for a, e in zip(axes, sh.spec))))
+        return out
+
+    def local_params(self, mesh, tensors: Mapping[str, torch.Tensor],
+                     rules: Optional[Rules] = None,
+                     rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """This rank's block of each whole tensor of ``tensors`` (named as
+        the parameters are) on ``mesh`` (on an ``AbstractMesh``, rank
+        ``rank``'s, default 0)."""
+        _refuse_layout(mesh, active_rules() if rules is None else rules)
+        sh = self.shardings(mesh, rules)
+        out = {}
+        for name, t in tensors.items():
+            s = sh[name]
+            out[name] = (local_block(t, s.spec, mesh, rank=rank or 0)
+                         if isinstance(mesh, AbstractMesh) else s.local(t))
+        return out
+
+    @torch.no_grad()
+    def shard_(self, mesh=None, rules: Optional[Rules] = None) -> "Model":
+        """Replace every parameter by this rank's block on ``mesh``
+        (default: the ambient one), in place: what ``prefill`` and a
+        ``Trainer`` under the mesh read), and record the layout the layers
+        compute on (``tp``)."""
+        mesh = active_mesh() if mesh is None else mesh
+        defs = self.param_defs()
+        named = dict(self.named_parameters())
+        local = self.local_params(mesh, {n: p.data for n, p in named.items()},
+                                  rules)
+        for name, p in named.items():
+            p.data = local[name]
+        self._whole_defs = defs
+        self.tp = tp_layout(self.logical_sizes(), mesh, rules)
+        return self
+
+    def _refuse_on_mesh(self, decode: bool = False) -> None:
+        """Refuse what is not ported yet (ROADMAP.md A21): decode and the
+        xLSTM, encoder-decoder and VLM families under a model axis of more
+        than one rank (the ambient mesh's or the layout ``shard_``
+        recorded), and parameter layouts that split ``embed`` or the layer
+        stack."""
+        mesh = active_mesh()
+        if model_group(mesh) is not None or self.tp.group is not None:
+            what = None
+            if decode:
+                what = "decode under a model axis (DECODE_RULES)"
+            elif self.cfg.family in ("xlstm", "encdec", "vlm"):
+                what = f"the {self.cfg.family} family under tensor parallelism"
+            if what is not None:
+                raise NotPorted(f"{what} is not ported yet (ROADMAP.md A21); "
+                                f"run it outside a mesh or on a model axis "
+                                f"of one rank")
+        if mesh is not None:
+            _refuse_layout(mesh, active_rules())
+
     @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None) -> "Model":
         """Random weights with the reference's statistics
@@ -384,10 +508,11 @@ class Model(nn.Module):
                     positions: torch.Tensor,
                     freqs: torch.Tensor) -> torch.Tensor:
         h = x + attention(lp["attn"], norm(lp["ln1"], x), positions, freqs,
-                          window=self.cfg.window)
+                          window=self.cfg.window, tp=self.tp)
         if self.moe_cfg is not None:
-            return h + moe(lp["moe"], norm(lp["ln2"], h), self.moe_cfg)
-        return h + swiglu(lp["mlp"], norm(lp["ln2"], h))
+            return h + moe(lp["moe"], norm(lp["ln2"], h), self.moe_cfg,
+                           tp=self.tp)
+        return h + swiglu(lp["mlp"], norm(lp["ln2"], h), self.tp)
 
     def _norm_block(self, params: Mapping[str, torch.Tensor], stack: str,
                     i: int):
@@ -402,7 +527,7 @@ class Model(nn.Module):
 
     def _ssm_body(self, ln: torch.Tensor, lp: SimpleNamespace,
                   x: torch.Tensor) -> torch.Tensor:
-        return x + ssm_forward(lp, norm(ln, x), self.ssm_cfg)
+        return x + ssm_forward(lp, norm(ln, x), self.ssm_cfg, tp=self.tp)
 
     def _attn_mlp_body(self, lp: Mapping, x: torch.Tensor,
                        positions: torch.Tensor,
@@ -410,8 +535,8 @@ class Model(nn.Module):
         """An attention+MLP block (the hybrid family's shared block, an
         encoder layer): rmsnorm, causal self-attention, rmsnorm, SwiGLU."""
         h = x + attention(lp["attn"], norm(lp["ln1"], x), positions, freqs,
-                          window=self.cfg.window)
-        return h + swiglu(lp["mlp"], norm(lp["ln2"], h))
+                          window=self.cfg.window, tp=self.tp)
+        return h + swiglu(lp["mlp"], norm(lp["ln2"], h), self.tp)
 
     def _run_hybrid_stack(self, P: Mapping[str, torch.Tensor],
                           x: torch.Tensor, positions: torch.Tensor,
@@ -526,7 +651,7 @@ class Model(nn.Module):
                       patches: Optional[torch.Tensor]) -> torch.Tensor:
         """The token embeddings, after the VLM's adapted patches when
         given."""
-        x = F.embedding(tokens.long(), P["embed.tok"])
+        x = embed_tokens(P["embed.tok"], tokens, self.tp)
         if patches is None:
             return x
         xp = self._adapt(patches, P["vision_adapter.w"]).to(x.dtype)
@@ -543,6 +668,7 @@ class Model(nn.Module):
         encoder-decoder ``frames`` (B, Se, d), S = T."""
         P = dict(self.named_parameters()) if params is None else params
         self._frontend(patches, frames, need=True)
+        self._refuse_on_mesh()
         x = self._embed_inputs(P, tokens, patches)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -565,22 +691,25 @@ class Model(nn.Module):
         return x
 
     def loss(self, batch: Mapping[str, torch.Tensor],
-             params: Optional[Mapping[str, torch.Tensor]] = None
-             ) -> torch.Tensor:
+             params: Optional[Mapping[str, torch.Tensor]] = None,
+             count: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Mean next-token CE of ``batch`` (``tokens``, ``labels`` (B, T),
         label -1 ignored; the VLM's ``patches``, the encoder-decoder's
-        ``frames``) as an f32 scalar.  The VLM's patch positions carry no
-        loss (their labels are -1)."""
+        ``frames``) as an f32 scalar: the NLL sum over the count of
+        non-ignored labels, or over ``count`` when given (the trainer's
+        data-parallel loss divides a rank's NLL by the global count).  The
+        VLM's patch positions carry no loss (their labels are -1)."""
         P = dict(self.named_parameters()) if params is None else params
         patches = batch.get("patches")
         x = self.forward(batch["tokens"], P, patches=patches,
                          frames=batch.get("frames"))
-        x = norm(P["final_ln.scale"], x)
         labels = batch["labels"]
         if patches is not None:
             pad = labels.new_full((labels.shape[0], patches.shape[1]), -1)
             labels = torch.cat([pad, labels], dim=1)
-        return chunked_lm_loss(P["head.w"], x, labels)
+        x = norm(P["final_ln.scale"], x)
+        return chunked_lm_loss(P["head.w"], x, labels, count=count,
+                               tp=self.tp)
 
     # ============================================================= serving
     def param_defs(self) -> Dict:
@@ -588,7 +717,9 @@ class Model(nn.Module):
         package's tree is (``models.common.module_defs``): the shapes,
         logical axes and dtypes of ``repro/models/transformer.py``
         ``param_defs``, a layer stack's leaves with their leading
-        ``layers`` axis."""
+        ``layers`` axis: the whole shapes, after ``shard_`` too."""
+        if self._whole_defs is not None:
+            return self._whole_defs
         return module_defs(dict(self.named_parameters()),
                            self.cfg.moe_parallelism)
 
@@ -641,12 +772,44 @@ class Model(nn.Module):
                 f32)
         return out
 
+    def cache_specs(self, batch: int, seq: int, mesh,
+                    rules: Optional[Rules] = None) -> Dict:
+        """Each leaf of ``cache_defs(batch, seq)`` (``batch`` the global
+        rows) with its ``PartitionSpec`` on ``mesh`` under ``rules``
+        (default: the ambient ones): (ArrayDef, spec) pairs, ``d_inner``
+        split only where ``ssm_heads`` is, as ``shardings`` splits the
+        parameters."""
+        sc = self.ssm_cfg
+        heads = sc is not None and spec_shards(logical_to_pspec(
+            ("ssm_heads",), (sc.n_heads,), mesh, rules), mesh) > 1
+
+        def one(d):
+            spec = logical_to_pspec(d.axes, d.shape, mesh, rules)
+            if sc is not None and not heads:
+                spec = PartitionSpec(*(None if a == "d_inner" else e
+                                       for a, e in zip(d.axes, spec)))
+            return d, spec
+
+        return tree_map(one, self.cache_defs(batch, seq))
+
     def init_cache(self, batch: int, seq: int) -> Dict:
         """The contiguous cache of ``cache_defs``: zeros on the model's
-        device."""
-        return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
-                                              device=self.device),
-                        self.cache_defs(batch, seq))
+        device.  Under a mesh ``batch`` is the rank's rows and the cache
+        its blocks (``cache_specs``), as ``prefill`` there fills them."""
+        mesh = active_mesh()
+        if mesh is None:
+            return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                                  device=self.device),
+                            self.cache_defs(batch, seq))
+        def block(pair):
+            d, spec = pair
+            shape = [n // spec_shards((e,), mesh) if e is not None else n
+                     for n, e in zip(d.shape, tuple(spec) + (None,) * (
+                         len(d.shape) - len(spec)))]
+            return torch.zeros(shape, dtype=d.dtype, device=self.device)
+
+        return tree_map(block, self.cache_specs(batch * data_ways(mesh), seq,
+                                                mesh))
 
     def input_specs(self, shape: ShapeConfig) -> Dict:
         """Stand-ins on the ``meta`` device for every input of the step the
@@ -700,9 +863,11 @@ class Model(nn.Module):
         return _layer_tree(params, "shared_attn.", self.shared_attn)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """f32 logits (B, vocab) of x (B, d) after the final norm."""
-        return project(norm(self.final_ln.scale, x), self.head.w).to(
+        """f32 logits (B, vocab) of x (B, d) after the final norm: whole on
+        every rank, the vocab blocks gathered under tensor parallelism."""
+        logits = project(norm(self.final_ln.scale, x), self.head.w).to(
             torch.float32)
+        return gather_from_group(logits, self.tp.over("vocab"))
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: Dict,
@@ -724,8 +889,12 @@ class Model(nn.Module):
         writes each Mamba2 layer's conv and SSM state and each shared
         application's K/V at the head of its slot; the xLSTM family each
         layer's final state.  Those two need S at most their chunk (128)
-        or a multiple of it."""
+        or a multiple of it.  Under a mesh ``tokens`` are the rank's data
+        block, the parameters and ``cache`` its blocks (``shard_``; the
+        cache's ``kv_heads`` and ``d_inner`` / ``ssm_heads`` split as the
+        parameters' do), and the logits are whole."""
         self._frontend(patches, frames, need=False)
+        self._refuse_on_mesh()
         fam = self.cfg.family
         if fam == "xlstm":
             return self._prefill_xlstm(tokens, cache)
@@ -738,28 +907,23 @@ class Model(nn.Module):
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         freqs = self._freqs(tokens.device)
-        x = self.embed.tok[tokens.long()]
+        x = embed_tokens(self.embed.tok, tokens, self.tp)
         sp = self._shared()
         for layers, j in self._segments():
             for i in layers:
                 lp = self.ssm_layers[i]
                 out, conv, ssm = ssm_forward(lp.ssm, norm(lp.ln.scale, x),
-                                             self.ssm_cfg, return_state=True)
+                                             self.ssm_cfg, return_state=True,
+                                             tp=self.tp)
                 x = x + out
                 cache["conv"][i] = conv.to(cache["conv"].dtype)
                 cache["ssm"][i] = ssm
             if j is None:
                 continue
-            h = norm(sp["ln1"], x)
-            q = rope(project(h, sp["attn"]["wq"]), positions, freqs)
-            k = rope(project(h, sp["attn"]["wk"]), positions, freqs)
-            v = project(h, sp["attn"]["wv"])
-            cache["kv"]["k"][j, :, :S] = k.to(cache["kv"]["k"].dtype)
-            cache["kv"]["v"][j, :, :S] = v.to(cache["kv"]["v"].dtype)
-            o = ops.flash_attention(q, k, v, causal=True,
-                                    window=self.cfg.window)
-            x = x + project(o, sp["attn"]["wo"], k=2)
-            x = x + swiglu(sp["mlp"], norm(sp["ln2"], x))
+            x = self._self_attn_prefill(sp, x, cache["kv"]["k"][j],
+                                        cache["kv"]["v"][j], positions,
+                                        freqs, None)
+            x = x + swiglu(sp["mlp"], norm(sp["ln2"], x), self.tp)
         return self._logits(x[:, -1]), cache
 
     @torch.no_grad()
@@ -771,7 +935,9 @@ class Model(nn.Module):
         as in the JAX package.  The encoder-decoder attends its encoder
         memory ``xk``/``xv`` after each self-attention
         (``cross_attention_decode``); the xLSTM family steps each layer's
-        state and ignores ``pos``."""
+        state and ignores ``pos``.  Under a mesh with a model axis of more
+        than one rank it raises (ROADMAP.md A21)."""
+        self._refuse_on_mesh(decode=True)
         fam = self.cfg.family
         if fam == "xlstm":
             return self._decode_xlstm(tokens, cache)
@@ -809,8 +975,10 @@ class Model(nn.Module):
     def _ffn(self, lp: Mapping, h: torch.Tensor, decode: bool = False
              ) -> torch.Tensor:
         if self.moe_cfg is None:
-            return swiglu(lp["mlp"], h)
-        return (moe_decode if decode else moe)(lp["moe"], h, self.moe_cfg)
+            return swiglu(lp["mlp"], h, self.tp)
+        if decode:
+            return moe_decode(lp["moe"], h, self.moe_cfg)
+        return moe(lp["moe"], h, self.moe_cfg, tp=self.tp)
 
     def _check_prompt(self, S: int, slots: int, ring: bool) -> None:
         want = self.cfg.window if ring else S
@@ -851,20 +1019,23 @@ class Model(nn.Module):
         (B, S, d) through the flash forward with the config's window, its
         roped K/V written into the layer's cache ``ck``/``cv`` (B, slots,
         K, dh): at the head, or, given the ring's ``slots`` (S > W), only
-        the last W positions, position p at slot p % W."""
+        the last W positions, position p at slot p % W.  Under tensor
+        parallelism on the rank's heads (``self_attention_qkv``): the
+        cache holds the kv heads the rank holds."""
         S, W = x.shape[1], self.cfg.window
         h = norm(lp["ln1"], x)
-        q = rope(project(h, lp["attn"]["wq"]), positions, freqs)
-        k = rope(project(h, lp["attn"]["wk"]), positions, freqs)
-        v = project(h, lp["attn"]["wv"])
+        group, q, k, v, read = self_attention_qkv(lp["attn"], h, positions,
+                                                  freqs, self.tp)
         if slots is not None:
             ck[:, slots] = k[:, S - W:].to(ck.dtype)
             cv[:, slots] = v[:, S - W:].to(cv.dtype)
         else:
             ck[:, :S] = k.to(ck.dtype)
             cv[:, :S] = v.to(cv.dtype)
+        if read is not None:
+            k, v = k[:, :, read], v[:, :, read]
         o = ops.flash_attention(q, k, v, causal=True, window=W)
-        return x + project(o, lp["attn"]["wo"], k=2)
+        return x + attention_out(lp["attn"], o, group)
 
     def _decode_attn(self, tokens: torch.Tensor, cache: Dict, pos: int):
         """The dense and MoE branch of ``decode``: a ring cache

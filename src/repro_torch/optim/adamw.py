@@ -18,6 +18,11 @@ parameter tensors it is given (one leaf's f32 temporaries at a time,
 instead of a second copy of the whole state) and returns them.  The step
 count and the learning rate live on the host, as f32 numpy scalars.
 
+Under tensor parallelism the leaves are a rank's blocks: ``update``'s
+``split`` names the tensor-parallel group and the leaves split over it,
+whose sums of squares are summed over the group; the leaves whole on
+every rank count once.
+
 Moments are first-class allocation sites for the tiering runtime: the
 trainer registers them in groups keyed like the parameters.
 """
@@ -26,10 +31,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Union
+from typing import (Any, Callable, Collection, Dict, Mapping, NamedTuple,
+                    Optional, Tuple, Union)
 
 import numpy as np
 import torch
+
+from ..dist.collectives import all_reduce
 
 F32 = torch.float32
 
@@ -63,15 +71,24 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: AdamWState,
                params: Mapping[str, torch.Tensor],
-               ndim: Optional[Mapping[str, int]] = None):
+               ndim: Optional[Mapping[str, int]] = None,
+               split: Optional[Tuple[Any, Collection[str]]] = None):
         """One step.  Returns (params, state, grad_norm); params and the
         state's moments are the tensors given, updated in place.
-        ``ndim``: each leaf's rank for the decay rule (default its own)."""
+        ``ndim``: each leaf's rank for the decay rule (default its own).
+        ``split``: (tensor-parallel group, the names of the leaves split
+        over it) when the leaves are a rank's blocks."""
         step = state.step + 1
         t = np.float32(int(step))
         if self.grad_clip is not None:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
-                                   for g in grads.values()))
+            group, names = split if split is not None else (None, ())
+            sq = {n: torch.sum(torch.square(g.to(F32)))
+                  for n, g in grads.items()}
+            total = sum(v for n, v in sq.items() if n not in names)
+            local = [v for n, v in sq.items() if n in names]
+            if local:
+                total = all_reduce(sum(local), group) + total
+            gnorm = torch.sqrt(total)
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         else:
             first = next(iter(grads.values()))

@@ -14,6 +14,18 @@
 taken against leaves made from them (``value_and_grad``), and ``opt``
 updates them in place, with each tensor's rank in the JAX tree for the
 weight-decay rule (``jax_ndim``).
+
+Under a mesh (``dist.sharding.use_mesh``) ``params`` are the rank's blocks
+(``Model.shard_``) and the batch its data block.  The data-parallel
+reduction: the count of the batch's non-ignored labels is summed over the
+data ranks first, each rank's loss is its NLL sum over that global count,
+and after the backward its loss and every gradient, in the parameters'
+order, are summed over the data ranks (``dist.collectives.sum_over_data``:
+one all-reduce a data axis, ``pod`` then ``data``).  So the loss is the
+global mean over the tokens, however unevenly the ignored labels fall, and
+every rank holds its blocks of that mean's gradient.  The clip's global
+norm sums the leaves split over the model axis over its group
+(``AdamW.update``'s ``split``).
 """
 
 from __future__ import annotations
@@ -24,7 +36,9 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from ..convert import jax_path
+from ..dist.collectives import sum_over_data
 from ..dist.compress import quantize_roundtrip
+from ..dist.sharding import active_mesh, data_groups, model_group
 from ..models.transformer import Model
 from ..optim.adamw import AdamW, AdamWState
 
@@ -36,15 +50,17 @@ class StepConfig:
 
 
 def value_and_grad(model: Model, params: Mapping[str, torch.Tensor],
-                   batch: Mapping[str, torch.Tensor]
+                   batch: Mapping[str, torch.Tensor],
+                   count: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, name -> gradient) of ``model.loss`` at ``params``: each
-    tensor becomes a leaf that requires grad (sharing its storage), so the
-    model's own parameters need not.  A tensor the model declares unread
+    """(loss, name -> gradient) of ``model.loss`` at ``params`` (its NLL
+    over ``count`` tokens when given): each tensor becomes a leaf that
+    requires grad (sharing its storage), so the model's own parameters
+    need not.  A tensor the model declares unread
     (``Model.unread_leaves``) gets a zero gradient, as ``jax.grad`` gives
     it; any other tensor the loss does not reach raises."""
     leaves = {n: p.detach().requires_grad_(True) for n, p in params.items()}
-    loss = model.loss(batch, leaves)
+    loss = model.loss(batch, leaves, count=count)
     unread = model.unread_leaves
     read = [n for n in leaves if n not in unread]
     grads = dict(zip(read, torch.autograd.grad(
@@ -68,29 +84,75 @@ def _split_batch(batch: Mapping[str, torch.Tensor], n: int):
             for i in range(n)]
 
 
+def _global_count(batch: Mapping[str, torch.Tensor], groups):
+    """The data ranks' count of non-ignored labels (None: no data
+    reduction)."""
+    if not groups:
+        return None
+    return sum_over_data((batch["labels"] != -1).sum(), groups)
+
+
+def _split_leaves(model: Model, mesh, seen: Dict) -> Optional[Tuple]:
+    """(model group, names of the parameters split over it) on ``mesh``,
+    or None without a model axis of more than one rank."""
+    group = model_group(mesh)
+    if group is None:
+        return None
+    if id(mesh) not in seen:
+        seen[id(mesh)] = frozenset(
+            n for n, s in model.shardings(mesh).items()
+            if any("model" in (e if isinstance(e, tuple) else (e,))
+                   for e in s.spec if e is not None))
+    return group, seen[id(mesh)]
+
+
+def reduced_value_and_grad(model: Model, params: Mapping[str, torch.Tensor],
+                           batch: Mapping[str, torch.Tensor],
+                           accum: int = 1
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``value_and_grad`` of a step, over ``accum`` microbatches (the loss
+    and the gradients averaged), then the data-parallel reduction under
+    the ambient mesh (module docstring): the global mean loss and the
+    rank's blocks of its gradient."""
+    groups = data_groups(active_mesh())
+    if accum == 1:
+        loss, grads = value_and_grad(model, params, batch,
+                                     _global_count(batch, groups))
+    else:
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=next(iter(params.values())).device)
+        grads = {n: torch.zeros_like(p) for n, p in params.items()}
+        for mb in _split_batch(batch, accum):
+            l, g = value_and_grad(model, params, mb,
+                                  _global_count(mb, groups))
+            loss = loss + l
+            grads = {n: grads[n] + g[n] for n in grads}
+        loss = loss / accum
+        grads = {n: g / accum for n, g in grads.items()}
+    if groups:
+        loss = sum_over_data(loss.clone(), groups)
+        grads = {n: sum_over_data(g.contiguous(), groups)
+                 for n, g in grads.items()}
+    return loss, grads
+
+
 def make_train_step(model: Model, opt: AdamW,
                     cfg: StepConfig = StepConfig()) -> Callable:
+    split_names: Dict = {}
+
     def step(params: Dict[str, torch.Tensor], opt_state: AdamWState,
              batch: Mapping[str, torch.Tensor]):
         ndim = {n: jax_ndim(n, p) for n, p in params.items()}
-        if cfg.accum == 1:
-            loss, grads = value_and_grad(model, params, batch)
-        else:
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=next(iter(params.values())).device)
-            grads = {n: torch.zeros_like(p) for n, p in params.items()}
-            for mb in _split_batch(batch, cfg.accum):
-                l, g = value_and_grad(model, params, mb)
-                loss = loss + l
-                grads = {n: grads[n] + g[n] for n in grads}
-            loss = loss / cfg.accum
-            grads = {n: g / cfg.accum for n, g in grads.items()}
+        loss, grads = reduced_value_and_grad(model, params, batch, cfg.accum)
 
         if cfg.compression == "int8":
             grads = {n: quantize_roundtrip(g) for n, g in grads.items()}
 
-        params, opt_state, gnorm = opt.update(grads, opt_state, params,
-                                              ndim)
+        mesh = active_mesh()
+        params, opt_state, gnorm = opt.update(
+            grads, opt_state, params, ndim,
+            split=None if mesh is None else _split_leaves(model, mesh,
+                                                          split_names))
         metrics = {"loss": loss, "grad_norm": gnorm, "step": opt_state.step}
         return params, opt_state, metrics
 

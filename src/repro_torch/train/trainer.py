@@ -26,11 +26,16 @@ their HBM is free.
 
 The parameters are the model's own (``model.named_parameters()`` in JAX's
 leaf order): the optimizer updates them in place, and placement swaps
-their ``.data``.
+their ``.data``.  A Trainer made under ``dist.sharding.use_mesh`` holds
+the rank's blocks (``Model.shard_``) and runs every step under that mesh,
+so the step's data-parallel reduction and tensor parallelism apply; its
+batches are the rank's data blocks (``data.ShardedLoader``).  Checkpoints
+of a mesh of more than one rank are not written from local blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
@@ -49,6 +54,7 @@ from ..core import (
     SiteRegistry,
 )
 from ..core.placement import TorchArenaPlacer
+from ..dist.sharding import active_mesh, mesh_sizes, use_mesh
 from ..models.transformer import Model
 from ..optim.adamw import AdamW, AdamWState
 from .step import StepConfig, make_train_step
@@ -94,6 +100,9 @@ class Trainer:
                 generator = torch.Generator(
                     device=self.device).manual_seed(cfg.seed)
             model.init(generator)
+        self.mesh = active_mesh()
+        if self.mesh is not None:
+            model.shard_(self.mesh)
         named = dict(model.named_parameters())
         self.params: Dict[str, torch.nn.Parameter] = {
             n: named[n] for n in jax_order(named)}
@@ -208,8 +217,10 @@ class Trainer:
             batch = next(it)
             if gdt_on:
                 self._sync_state_from_placer()
-            _, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch)
+            with (contextlib.nullcontext() if self.mesh is None
+                  else use_mesh(self.mesh)):
+                _, self.opt_state, metrics = self.step_fn(
+                    self.params, self.opt_state, batch)
             if gdt_on:
                 self._sync_state_to_placer()
                 self._charge_access_model()
@@ -231,11 +242,17 @@ class Trainer:
         return out
 
     # ------------------------------------------------------- checkpoints
+    def _whole_state(self, what: str) -> None:
+        if any(s > 1 for s in mesh_sizes(self.mesh).values()):
+            raise ValueError(f"{what} of a Trainer on a mesh of more than "
+                             f"one rank: its tensors are the rank's blocks")
+
     def save_checkpoint(self, step: int):
         """The JAX trainer's tree: ``params``, ``m``, ``v`` layer-stacked,
         ``opt_step``."""
         from ..ckpt.checkpoint import save
 
+        self._whole_state("a checkpoint")
         save(self.cfg.ckpt_dir, step,
              {"params": params_to_numpy(self.params),
               "m": params_to_numpy(self.opt_state.m),
@@ -248,6 +265,7 @@ class Trainer:
         next step's fetch does not bring back the values it held."""
         from ..ckpt.checkpoint import restore
 
+        self._whole_state("a restore")
         tree, meta = restore(self.cfg.ckpt_dir, step)
         params = params_from_numpy(tree["params"], self.device)
         with torch.no_grad():

@@ -56,18 +56,28 @@ def a2a_plan(world, seed=0):
     return send, rows
 
 
-def ep_model():
-    """The smoke granite MoE in f32 with ep over 4 padded experts a rank
-    group, and a loss batch from fixed seeds."""
+# The rules of the f32 model case: only the experts split over the model
+# axis; attention, the vocab and the FFN width stay whole on every rank.
+EP_ONLY = {"heads": None, "kv_heads": None, "vocab": None, "mlp": None}
+
+
+def ep_model(dtype=torch.float64):
+    """The smoke granite MoE with ep over 4 padded experts a rank group,
+    and a loss batch from fixed seeds.  Its weights are drawn in f32 and
+    held in ``dtype``.  The float64 cases run with the f32 islands widened
+    (``_torch_tp_worker.wide``), since under a model axis its attention is
+    tensor-parallel, whose f32 sums in another order would stand between
+    the ranks and one process; the f32 case runs on ``EP_ONLY``."""
     import dataclasses
 
     from repro_torch.configs import get_smoke
     from repro_torch.models import Model
 
     cfg = dataclasses.replace(get_smoke("granite_moe_3b_a800m"),
-                              dtype=torch.float32, moe_parallelism="ep",
+                              dtype=dtype, moe_parallelism="ep",
                               moe_ep_axis_size=4)
     model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+    model.to(dtype)
     tokens = torch.randint(1, cfg.vocab, (2, 12),
                            generator=torch.Generator().manual_seed(4))
     labels = torch.randint(0, cfg.vocab, (2, 12),
@@ -107,6 +117,7 @@ def thread_gradients(model, batch):
 
 
 def run(world, rank):
+    from _torch_tp_worker import wide
     from repro_torch.dist import (ragged_all_to_all,
                                   ragged_all_to_all_reference, use_mesh)
     from repro_torch.launch.mesh import make_test_mesh
@@ -124,7 +135,8 @@ def run(world, rank):
     with use_mesh(make_test_mesh(data=1, model=world, device="cpu")):
         out.update(run_mesh())
     # No model axis: the data-sharded mesh takes the per-row layout.
-    with use_mesh(make_test_mesh(data=world, model=1, device="cpu")):
+    with use_mesh(make_test_mesh(data=world, model=1, device="cpu")), \
+            wide():
         model, _, batch = ep_model()
         out["per_row_grads"] = model_gradients(model, batch)
         out["per_row_thread"] = thread_gradients(model, batch)
@@ -133,6 +145,8 @@ def run(world, rank):
 
 def run_mesh():
     """The layer's and the model's cases under the ambient mesh."""
+    from _torch_tp_worker import wide
+    from repro_torch.dist.sharding import DEFAULT_RULES, use_rules
     from repro_torch.models.moe import moe
 
     out = {}
@@ -160,11 +174,21 @@ def run_mesh():
     except ValueError as e:
         out["mismatch"] = str(e)
 
-    model, tokens, batch = ep_model()
-    with torch.no_grad():
-        out["model"] = model(tokens)
-    out["model_grads"] = model_gradients(model, batch)
-    out["model_thread"] = thread_gradients(model, batch)
+    with wide():
+        model, tokens, batch = ep_model()
+        model.shard_()                # the rank's blocks under the mesh
+        with torch.no_grad():
+            out["model"] = model(tokens)
+        out["model_grads"] = model_gradients(model, batch)
+        out["model_thread"] = thread_gradients(model, batch)
+
+    # f32, the card's dtype, with only the experts split.
+    with use_rules({**DEFAULT_RULES, **EP_ONLY}):
+        model, tokens, batch = ep_model(torch.float32)
+        model.shard_()
+        with torch.no_grad():
+            out["model_f32"] = model(tokens)
+        out["model_grads_f32"] = model_gradients(model, batch)
     return out
 
 

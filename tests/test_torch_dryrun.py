@@ -4,7 +4,15 @@ repro_torch.launch.dryrun``), as ``test_system.py``'s
 single-pod mesh writes a JSON record with ``status: ok``, the 256 devices,
 a ``global_cost``, and per-device ``argument_bytes`` equal to what the JAX
 package's specs give the same arguments on its abstract mesh (parameters,
-cache, tokens and position)."""
+cache, tokens and position).  A decode cell keeps a null ``temp_bytes``
+and empty ``collectives``, with a reason naming ROADMAP.md A21.  The
+per-device walk: ``llama3_2_1b`` at ``--quick-layers 2`` records the
+tensor-parallel and data-parallel all-reduces and a positive
+``temp_bytes`` at ``train_4k`` and ``prefill_32k``; the global walk's
+product flops at full depth are the reference's (866106998784 at
+``decode_32k``, 1.233652046364672e16 at ``train_4k``).  A cell whose
+step is not ported under a mesh keeps its A21 reason; a wrong layout in
+the per-device walk fails the cell."""
 
 import json
 import os
@@ -13,6 +21,7 @@ import sys
 
 import jax
 import numpy as np
+import pytest
 
 from repro import dist as rdist
 from repro.configs import get as ref_get
@@ -54,7 +63,8 @@ def test_dryrun_cell_via_cli(tmp_path):
     assert rec["devices"] == 256
     assert rec["global_cost"]["flops"] > 0
     assert rec["memory"]["temp_bytes"] is None
-    assert "A20" in rec["memory"]["temp_bytes_reason"]
+    assert "A21" in rec["memory"]["temp_bytes_reason"]
+    assert rec["collectives"] == {}
 
     mesh = rdist.abstract_mesh((16, 16), ("data", "model"))
     rules = ref_build_cell("llama3_2_1b", "decode_32k", mesh,
@@ -71,3 +81,77 @@ def test_dryrun_cell_via_cli(tmp_path):
     assert mem["cache_bytes"] == cache
     assert mem["input_bytes"] == tokens + 4      # and the int32 position
     assert mem["argument_bytes"] == params + cache + tokens + 4
+
+
+def test_dryrun_per_device_collectives_and_temp_bytes(tmp_path):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "llama3_2_1b", "--shape", "train_4k,prefill_32k", "--mesh",
+         "single", "--quick-layers", "2", "--outdir", str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    for shape in ("train_4k", "prefill_32k"):
+        rec = json.load(open(tmp_path / "pod256" /
+                             f"llama3_2_1b__{shape}.json"))
+        assert rec["status"] == "ok"
+        mem = rec["memory"]
+        assert mem["temp_bytes"] > 0 and "temp_bytes_reason" not in mem
+        ar = rec["collectives"]["all_reduce"]
+        assert ar["count"] > 0 and ar["bytes"] > 0
+        assert ar["max_group"] == 16
+    # Prefill: per layer one reduce of the rank's (B/16, S, d) bf16 rows
+    # for attention and one for the MLP, and the embedding's; the last
+    # position's logits gathered over the vocab blocks.
+    rec = json.load(open(tmp_path / "pod256" /
+                         "llama3_2_1b__prefill_32k.json"))
+    act = 32 // 16 * 32768 * 2048 * 2
+    assert rec["collectives"]["all_reduce"]["count"] == 1 + 2 * 2
+    assert rec["collectives"]["all_reduce"]["bytes"] == act * (1 + 2 * 2)
+    assert rec["collectives"]["all_gather"]["bytes"] == 2 * 128256 * 4
+
+
+def test_global_flops_are_the_references_at_full_depth(tmp_path):
+    from repro_torch.dist import abstract_mesh
+    from repro_torch.launch.dryrun import run_cell
+
+    mesh = abstract_mesh((16, 16), ("data", "model"))
+    want = {"decode_32k": 866106998784, "train_4k": 1.233652046364672e16}
+    for shape, flops in want.items():
+        rec = run_cell("llama3_2_1b", shape, mesh, "pod256", str(tmp_path),
+                       trace_only=True)
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["global_cost"]["matmul_flops"] == flops
+
+
+def _whole_blocks(self, mesh, tensors, rules=None, rank=None):
+    """A wrong ``Model.local_params``: every rank keeps the whole tensors
+    while the layout says they are split."""
+    return dict(tensors)
+
+
+@pytest.mark.parametrize("case", ["not_ported", "wrong_layout"])
+def test_per_device_walk_refusal_and_fault(tmp_path, monkeypatch, case):
+    """A step that is not ported under a mesh (the fsdp profile, A21)
+    keeps the cell ``ok`` with a null ``temp_bytes`` and its reason; a
+    wrong layout in the per-device walk is a fault: the cell fails with
+    the ``constrain`` error and its traceback."""
+    from repro_torch.dist import abstract_mesh
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models import Model
+
+    mesh = abstract_mesh((2, 8), ("data", "model"))     # kv_heads split
+    profile = "fsdp" if case == "not_ported" else "tp"
+    if case == "wrong_layout":
+        monkeypatch.setattr(Model, "local_params", _whole_blocks)
+    rec = run_cell("llama3_2_1b", "prefill_32k", mesh, "2x8",
+                   str(tmp_path), quick_layers=1, profile=profile)
+    if case == "not_ported":
+        assert rec["status"] == "ok", rec.get("error")
+        assert rec["memory"]["temp_bytes"] is None
+        assert "A21" in rec["memory"]["temp_bytes_reason"]
+        assert rec["collectives"] == {}
+    else:
+        assert rec["status"] == "fail"
+        assert rec["error"].startswith("ValueError: constrain"), rec["error"]
+        assert "Traceback" in rec["traceback"]

@@ -16,10 +16,18 @@ tests read it.
 - Gradients, as every rank computes them: x's and the router's equal
   the flat layer's, and so do a rank's own experts' weights.
 - An ep group that does not divide the padded experts raises.
-- A ``Model`` with ``moe_parallelism="ep"`` gives one process's logits,
-  and on every rank the gradients of its loss: each attention, norm,
-  embedding, head and router leaf whole, each expert stack on the rank's
-  own experts.
+- The model's cases run in float64 (weights drawn in f32) with the f32
+  islands widened (``_torch_tp_worker.wide``): under a model axis its
+  attention is tensor-parallel, and one process's f32 sums in another
+  order would stand between the two.
+- A ``Model`` with ``moe_parallelism="ep"``, on the rank's blocks
+  (``Model.shard_``), gives one process's logits, and on every rank its
+  blocks of one process's gradients: each norm and router leaf whole, the
+  attention and the vocab on the rank's heads and rows (tensor
+  parallelism), each expert stack on the rank's own experts.
+- The same model in f32, the card's dtype, on rules that split only the
+  experts (``EP_ONLY``): one process's f32 logits and gradients within
+  1e-5 on every rank.
 - The model's backward run on another thread (as autograd runs a CUDA
   backward) with remat on: the recomputed MoE layers see the mesh and
   take the forward's layout, ep under (1, n) and per-row under (n, 1);
@@ -37,6 +45,7 @@ from _torch_ep_worker import (D, a2a_plan, case_inputs, ep_cfg, ep_model,
                               model_gradients)
 from _torch_gloo import run_ranks as run_worker
 from _torch_threads import one_torch_thread  # noqa: F401
+from _torch_tp_worker import wide
 from repro_torch.models.moe import _moe_dropless
 
 WORLDS = (2, 4)
@@ -143,10 +152,11 @@ def test_ep_refusals(world, ranks):
 def one_process_model():
     """The workers' model, logits and loss gradients in one process (ep
     without a group is the flat dropless layer)."""
-    model, tokens, batch = ep_model()
-    with torch.no_grad():
-        logits = model(tokens)
-    return model.cfg, logits, model_gradients(model, batch)
+    with wide():
+        model, tokens, batch = ep_model()
+        with torch.no_grad():
+            logits = model(tokens)
+        return model.cfg, logits, model_gradients(model, batch)
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -157,12 +167,25 @@ def test_ep_model_equals_one_process(world, ranks):
     assert np.isfinite(want.numpy()).all()
 
 
+def rank_block(cfg, name, g, world, r):
+    """Rank r's block of one process's whole gradient ``g`` of ``name``
+    on the (1, world) mesh the workers shard the model on."""
+    from repro_torch.dist import abstract_mesh
+    from repro_torch.models import Model
+
+    mesh = abstract_mesh((1, world), ("data", "model"))
+    return Model(cfg, device="meta").local_params(mesh, {name: g},
+                                                  rank=r)[name]
+
+
 @pytest.mark.parametrize("world", WORLDS)
 def test_ep_model_gradients_equal_one_process(world, ranks):
     """Training under ep needs no sum over the ranks: the MoE layer's
     backward hands the layers around it x's whole gradient on every
-    rank, so every leaf outside the expert stacks gets the gradient of
-    one process, and the router its whole one."""
+    rank, so every leaf outside the expert stacks gets its block of one
+    process's gradient (whole where it is not split: the norms, the
+    router; the rank's heads and vocab rows under tensor parallelism),
+    and each expert stack its rank's experts'."""
     cfg, _, want = one_process_model()
     E_loc = cfg.moe_ep_axis_size * -(-cfg.n_experts // cfg.moe_ep_axis_size
                                      ) // world
@@ -173,9 +196,36 @@ def test_ep_model_gradients_equal_one_process(world, ranks):
         for name, g in want.items():
             if name.endswith(experts):
                 mine = slice(r * E_loc, (r + 1) * E_loc)
-                assert close(got[name][mine], g[mine]), (r, name)
+                assert close(got[name], g[mine]), (r, name)
             else:
-                assert close(got[name], g), (r, name)
+                assert close(got[name], rank_block(cfg, name, g, world, r)),\
+                    (r, name)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_ep_model_f32_equals_one_process(world, ranks):
+    """In f32, the card's dtype, on rules that split only the experts
+    (``EP_ONLY``: attention, the vocab and the FFN width whole on every
+    rank): the logits, and on every rank each leaf's gradient, within 1e-5
+    of one process's f32 model, each expert stack on the rank's own
+    experts."""
+    model, tokens, batch = ep_model(torch.float32)
+    with torch.no_grad():
+        logits = model(tokens)
+    want = model_gradients(model, batch)
+    cfg = model.cfg
+    E_loc = cfg.moe_ep_axis_size * -(-cfg.n_experts // cfg.moe_ep_axis_size
+                                     ) // world
+    experts = ("moe.w_gate", "moe.w_up", "moe.w_down")
+    for r, res in enumerate(ranks(world)):
+        assert close(res["model_f32"], logits), r
+        got = res["model_grads_f32"]
+        assert set(got) == set(want)
+        for name, g in want.items():
+            if name.endswith(experts):
+                g = g[r * E_loc:(r + 1) * E_loc]
+            assert close(got[name], g), (r, name)
+    assert np.isfinite(logits.numpy()).all()
 
 
 @pytest.mark.parametrize("world", WORLDS)
