@@ -276,10 +276,30 @@ Phases, each of which raises on failure:
    its ``temp_bytes`` against the card's ``max_memory_allocated()`` over a
    third mesh step minus what was allocated before it (the arguments:
    parameters, moments, batch), the ratio printed and held to 0.75-1.33.
-   The 2-D ep layout, the rings and the overlapped MLP and the
-   tensor-parallel layers on more than one rank need more than one card
-   (NCCL refuses two ranks on one GPU); they are tested on the CPU over
-   gloo (``tests/test_torch_tp.py``).
+   16e: the rest of the mesh port on one card.  Two steps of phase 6's
+   step under the ``fsdp`` profile (``FSDP_RULES``) with zero1 moments on
+   the 1 x 1 NCCL mesh of 16d: losses, grad norms and every parameter
+   bitwise the meshless steps', the flash launches as 16d's.  Then a new
+   NCCL group of one rank: ``llama3_2_1b`` whole in bf16, ``Model.prefill``
+   of 2 x 1024 tokens and 32 greedy ``Model.decode`` steps without a mesh,
+   under ``DECODE_RULES`` and under the dry run's decode rules (``kv_seq``
+   over ``model``) on the 1 x 1 mesh: logits and tokens bitwise equal, the
+   flash forward launched once a layer a prefill (counted).  Layer 0's
+   decode attention at the dry run's per-device decode shape (8 rows of a
+   32768-slot cache) computed as 4 and as 16 sequence parts, each part's
+   partial attention (``layers.partial_attention``) merged in part order
+   by ``merge_partials``: within ``TOL`` of the unsplit
+   ``attention_decode`` in bf16 and f32, two merges bitwise equal, both
+   times logged.  Then the dry run's ``walk_device`` of one decode step at
+   that shape on a 1 x 1 ``AbstractMesh`` under the dry run's decode rules:
+   its ``temp_bytes`` against the card's peak beyond what was allocated
+   before the same step, the ratio held to 0.75-1.33.  The 2-D ep layout,
+   the rings and the overlapped MLP, the tensor-parallel layers, decode
+   with a model axis, the fsdp profile and zero1 on more than one rank need
+   more than one card (NCCL refuses two ranks on one GPU); they are tested
+   on the CPU over gloo (``tests/test_torch_tp.py``,
+   ``tests/test_torch_mesh_decode.py``, ``tests/test_torch_fsdp.py``,
+   ``tests/test_torch_tp_families.py``).
 17. The port's linter and its walkthroughs (last, after phase 16).  17a:
    ``repro_torch.check`` over ``src/repro_torch`` (the four CUDA sources
    included) and ``examples/*_torch.py``: 0 findings, or the phase fails.
@@ -5446,23 +5466,28 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def mesh_train(cfg, batches, mesh):
+def mesh_train(cfg, batches, mesh, rules=None, zero1=False):
     """Phase 6's step on a fresh seeded ``cfg`` model for each batch,
-    under ``mesh`` (None: no mesh): (losses, grad norms, params, model,
-    state, step)."""
+    under ``mesh`` (None: no mesh) and ``rules`` (default
+    ``DEFAULT_RULES``), the moments zero1's with ``zero1``: (losses, grad
+    norms, params, model, state, step)."""
     import contextlib
 
     import torch
 
-    from repro_torch.dist.sharding import use_mesh
+    from repro_torch.dist.sharding import DEFAULT_RULES, use_mesh, use_rules
     from repro_torch.optim import AdamW
+    from repro_torch.train.step import zero1_layout
 
     model, params, state, step = dense_step_parts(cfg, "cuda")
     losses, norms = [], []
-    with contextlib.nullcontext() if mesh is None else use_mesh(mesh):
+    with contextlib.ExitStack() as ctx:
         if mesh is not None:
+            ctx.enter_context(use_rules(rules or DEFAULT_RULES))
+            ctx.enter_context(use_mesh(mesh))
             model.shard_()
-            state = AdamW(lr=3e-4).init(params)
+            state = AdamW(lr=3e-4).init(
+                params, zero1_layout(model, mesh) if zero1 else None)
         for b in batches:
             _, state, metrics = step(params, state, b)
             losses.append(metrics["loss"])
@@ -5526,6 +5551,8 @@ def mesh_step(card, kernel_rows) -> None:
             got = all_reduce(t.clone(), mesh.get_group("model"))
         if not torch.equal(got, t) or rec["all_reduce"]["count"] != 1:
             raise AssertionError(f"mesh 16d: NCCL all-reduce {got}, {rec}")
+        fsdp_zero1_steps(card, kernel_rows, cfg, batches[:MESH_STEPS], mesh,
+                         (want_loss, want_norm, want))
         del want
         # The third step: the card's peak beyond what is allocated before.
         torch.cuda.synchronize()
@@ -5556,6 +5583,228 @@ def mesh_step(card, kernel_rows) -> None:
     free_card()
 
 
+def fsdp_zero1_steps(card, kernel_rows, cfg, batches, mesh, want) -> None:
+    """16e: phase 6's step under the fsdp profile with zero1 moments on
+    the 1 x 1 mesh == the meshless steps (``want``: losses, grad norms,
+    parameters), bitwise; the flash launches as 16d's."""
+    import torch
+
+    from repro_torch.dist.sharding import FSDP_RULES
+
+    t0 = time.perf_counter()
+    want_loss, want_norm, want_params = want
+    reset_launches()
+    losses, norms, params, model, state, _ = mesh_train(
+        cfg, batches, mesh, FSDP_RULES, zero1=True)
+    launches = read_launches()
+    expect = per_step_launches(cfg, len(batches))
+    if {k: v for k, v in launches.items() if v} != expect:
+        raise AssertionError(f"mesh 16e: fsdp launches {launches}, "
+                             f"expected {expect}")
+    for name in expect:
+        kernel_rows[name]["launches"] += launches[name]
+    same = [n for n in want_params
+            if not torch.equal(params[n], want_params[n])]
+    if [float(x) for x in losses + norms] != [
+            float(x) for x in want_loss + want_norm] or same:
+        raise AssertionError(
+            f"mesh 16e: fsdp + zero1 steps differ from the meshless ones: "
+            f"losses {[float(x) for x in losses]}, norms "
+            f"{[float(x) for x in norms]}, params {same[:4]}")
+    log(f"mesh 16e: {DENSE} {len(batches)} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} under the fsdp profile with zero1 moments on the "
+        f"1 x 1 NCCL mesh == meshless, bitwise ({len(model.fsdp)} leaves "
+        f"through the gather; {len(state.m)} moment pairs); launches "
+        f"{expect}; {time.perf_counter() - t0:.1f} s {card.tag()}")
+    del model, params, state
+    free_card()
+
+
+# 16e's serving run: 2 prompts of 1024 tokens, 32 greedy steps; the decode
+# attention's cache at the dry run's per-device decode shape (decode_32k's
+# 128 rows over 16 data ranks); its sequence cut into 4 and 16 parts.
+MESH_PROMPT, MESH_DECODE = (2, 1024), 32
+DECODE_ROWS, DECODE_SLOTS = 8, 32768
+DECODE_PARTS = (4, 16)
+
+
+def greedy(model, prompts, n_new):
+    """(logits of the prefill and each step, the greedy tokens) of
+    ``Model.prefill`` then ``n_new`` ``Model.decode`` steps."""
+    import torch
+
+    B, S = prompts.shape
+    cache = model.init_cache(B, S + n_new)
+    lg, cache = model.prefill(prompts, cache)
+    logits, toks = [lg], []
+    for t in range(n_new):
+        toks.append(lg.argmax(-1))
+        lg, cache = model.decode(toks[-1], cache, S + t)
+        logits.append(lg)
+    return torch.stack(logits), torch.stack(toks)
+
+
+def merged_decode_attention(p, x, ck, cv, pos, freqs, parts):
+    """Layer ``p``'s decode attention of x over the cache ck/cv (B, S, K,
+    dh) (slot ``pos`` already written) as ``parts`` sequence blocks: each
+    block's partial attention, merged in block order, then ``wo``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.collectives import merge_partials
+    from repro_torch.models.layers import (F32, partial_attention, project,
+                                           rope)
+
+    B, S, K, dh = ck.shape
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = rope(project(x, p["wq"]), positions, freqs)
+    H = q.shape[2]
+    qg = q.reshape(B, K, H // K, dh).to(F32)
+    n = S // parts
+    outs = []
+    for r in range(parts):
+        kc, vc = ck[:, r * n:(r + 1) * n], cv[:, r * n:(r + 1) * n]
+        s = torch.einsum("bkgd,bskd->bkgs", qg, kc.to(F32))
+        s = s * (1.0 / np.sqrt(dh))
+        allowed = torch.arange(r * n, (r + 1) * n, device=x.device) <= pos
+        s = torch.where(allowed, s, torch.full_like(s, -1e30))
+        outs.append(partial_attention(s, vc))
+    o = merge_partials(*(torch.stack(t) for t in zip(*outs)))
+    o = o.to(x.dtype).reshape(B, 1, H, dh)
+    return project(o, p["wo"], k=2)
+
+
+def check_decode_parts(card, model) -> None:
+    """16e: layer 0's decode attention of ``model`` over a random
+    ``DECODE_SLOTS``-slot cache of ``DECODE_ROWS`` rows, unsplit
+    (``attention_decode``) and merged from ``DECODE_PARTS`` sequence
+    blocks, bf16 and f32; both times."""
+    import torch
+
+    from repro_torch.models.layers import attention_decode
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cfg = model.cfg
+    K, dh, d = cfg.kv_heads, model.head_dim, cfg.d_model
+    pos = DECODE_SLOTS - 1
+    freqs = model._freqs("cuda")
+    lp = model._layer_params(dict(model.named_parameters()), 0)["attn"]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        p = {k: w.to(dtype) for k, w in lp.items()}
+        x = torch.randn((DECODE_ROWS, 1, d), generator=gen, device="cuda",
+                        dtype=torch.float32).to(dtype)
+        ck, cv = (torch.randn((DECODE_ROWS, DECODE_SLOTS, K, dh),
+                              generator=gen, device="cuda",
+                              dtype=torch.float32).to(dtype)
+                  for _ in range(2))
+        want = attention_decode(p, x, ck, cv, pos, freqs)   # writes pos
+        scale = float(want.float().abs().max())
+        times = [time_ms(lambda: attention_decode(p, x, ck, cv, pos,
+                                                  freqs), iters=10)]
+        for parts in DECODE_PARTS:
+            got = merged_decode_attention(p, x, ck, cv, pos, freqs, parts)
+            again = merged_decode_attention(p, x, ck, cv, pos, freqs,
+                                            parts)
+            err = float((got.float() - want.float()).abs().max())
+            if err > TOL[name] * scale or not torch.equal(got, again):
+                raise AssertionError(
+                    f"mesh 16e: {name} decode attention merged from {parts} "
+                    f"parts: max error {err} (limit {TOL[name] * scale}), "
+                    f"bitwise repeat {torch.equal(got, again)}")
+            times.append(time_ms(lambda: merged_decode_attention(
+                p, x, ck, cv, pos, freqs, parts), iters=10))
+            log(f"mesh 16e: {name} layer-0 decode attention, {DECODE_ROWS} "
+                f"rows x {DECODE_SLOTS} slots, merged from {parts} parts: "
+                f"max error {err:.3e} of max|y| {scale:.3e}, two merges "
+                f"bitwise equal")
+        log(f"mesh 16e: {name} times: unsplit attention_decode "
+            f"{times[0]:.3f} ms, merged from {DECODE_PARTS[0]} parts "
+            f"{times[1]:.3f} ms, from {DECODE_PARTS[1]} parts "
+            f"{times[2]:.3f} ms (CUDA events) {card.tag()}")
+        del ck, cv
+
+
+def mesh_serve(card, kernel_rows) -> None:
+    """16e: decode on the 1 x 1 NCCL mesh under both cache layouts ==
+    meshless, bitwise; the merged decode attention; the dry run's decode
+    temp_bytes against the card's peak."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get
+    from repro_torch.dist import abstract_mesh
+    from repro_torch.dist.sharding import DECODE_RULES, use_mesh, use_rules
+    from repro_torch.launch.dryrun import cell_rules, walk_device
+    from repro_torch.models import Model, ShapeConfig
+
+    cfg = get(DENSE)
+    decode_rules = cell_rules("decode_32k")
+    model = Model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = torch.randint(1, cfg.vocab, MESH_PROMPT, device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(SEED))
+    want = greedy(model, prompts, MESH_DECODE)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        reset_launches()
+        for label, rules in (("DECODE_RULES", DECODE_RULES),
+                             ("the dry run's decode rules", decode_rules)):
+            with use_rules(rules), use_mesh(mesh):
+                model.shard_()
+                got = greedy(model, prompts, MESH_DECODE)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"mesh 16e: decode under {label} on "
+                                     f"the 1 x 1 mesh differs from meshless")
+            log(f"mesh 16e: {DENSE} prefill {MESH_PROMPT[0]} x "
+                f"{MESH_PROMPT[1]} + {MESH_DECODE} greedy steps under "
+                f"{label} on the 1 x 1 NCCL mesh == meshless, bitwise "
+                f"(tokens of row 0: {want[1][:8, 0].tolist()}...)")
+        launches = read_launches()
+        expect = {"flash_attention_fwd": 2 * cfg.n_layers}
+        if {k: v for k, v in launches.items() if v} != expect:
+            raise AssertionError(f"mesh 16e: launches {launches}, expected "
+                                 f"{expect}")
+        kernel_rows["flash_attention_fwd"]["launches"] += \
+            expect["flash_attention_fwd"]
+        check_decode_parts(card, model)
+        # One decode step at the dry run's per-device decode shape.
+        with use_rules(decode_rules), use_mesh(mesh):
+            cache = model.init_cache(DECODE_ROWS, DECODE_SLOTS)
+            tokens = torch.ones((DECODE_ROWS,), dtype=torch.int64,
+                                device="cuda")
+            model.decode(tokens, cache, DECODE_SLOTS - 1)     # warm-up
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            model.decode(tokens, cache, DECODE_SLOTS - 1)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+        del cache
+    finally:
+        dist.destroy_process_group()
+    _, temp = walk_device(cfg, ShapeConfig("mesh_decode", DECODE_SLOTS,
+                                           DECODE_ROWS, "decode"),
+                          abstract_mesh((1, 1), ("data", "model")),
+                          decode_rules)
+    ratio = peak / temp
+    log(f"mesh 16e: one decode step of {DECODE_ROWS} rows over "
+        f"{DECODE_SLOTS} slots under the dry run's decode rules: card peak "
+        f"{peak} B beyond the {before} B allocated before it, dry run (meta, "
+        f"1 x 1) temp_bytes {temp} B, ratio {ratio:.4f} {card.tag()}")
+    if not TEMP_RATIO[0] <= ratio <= TEMP_RATIO[1]:
+        raise AssertionError(f"mesh 16e: decode temp bytes ratio "
+                             f"{ratio:.4f} outside {TEMP_RATIO}")
+    del model
+    free_card()
+
+
 def distribution(card, kernel_rows) -> None:
     """Phase 16."""
     step_flops(card, kernel_rows)
@@ -5563,6 +5812,9 @@ def distribution(card, kernel_rows) -> None:
     t0 = time.perf_counter()
     mesh_step(card, kernel_rows)
     log(f"mesh 16d: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_serve(card, kernel_rows)
+    log(f"mesh 16e: {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------- phase 17: walkthroughs

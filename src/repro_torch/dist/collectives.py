@@ -36,7 +36,14 @@ ends, summing the group's partial outputs.  ``all_reduce_max`` is the
 vocab-parallel loss's maximum (no gradient), ``gather_from_group`` the
 prefill's whole logits from the vocab blocks, and ``sum_over_data``
 the trainer's data-parallel reduction: one all-reduce a data axis, in mesh
-order.  On a group of one rank each is the identity and issues nothing.
+order.  Decode under a split cache gathers heads (``all_gather_dim``)
+and the ranks' partial attentions (``gather_partials``), which
+``merge_partials`` merges in rank order on plain tensors.  Megatron's
+``split_to_group`` enters a whole tensor into a column-parallel stretch
+(its gradient gathered); the fsdp profile's ``gather_shards`` all-gathers
+a parameter's shards before use and reduce-scatters its gradient; zero1
+broadcasts a layer's new parameters from its owner (``broadcast``).  On a
+group of one rank each is the identity and issues nothing.
 On an ``AbstractGroup`` (an ``AbstractMesh``'s, ``dist.sharding``) each
 records its kind, bytes and group size and moves no data: the dry run's
 per-device walk needs no process group of 256 ranks.
@@ -53,7 +60,8 @@ hop (``send_recv``) counts the bytes it sends.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Iterator, List, Optional, Sequence
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
@@ -61,7 +69,7 @@ import torch.distributed as dist
 from .sharding import AbstractGroup
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
-         "send_recv")
+         "send_recv", "broadcast")
 # The open records of count_collectives, outermost first.  Not
 # thread-local: the card's autograd runs backward collectives on its own
 # thread.
@@ -202,6 +210,133 @@ def gather_from_group(x: torch.Tensor, group) -> torch.Tensor:
     else:
         out = all_gather_cat(front, group)
     return out.movedim(0, -1)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's blocks of ``x`` concatenated along ``dim`` in rank
+    order, no gradient (decode's q, k and v heads).  The identity for a
+    group of one rank; on an ``AbstractGroup`` only recorded."""
+    if _single(group):
+        return x
+    front = x.detach().movedim(dim, 0).contiguous()
+    if isinstance(group, AbstractGroup):
+        out = front.new_empty((group.size * front.shape[0],)
+                              + tuple(front.shape[1:]))
+        _issued("all_gather", _nbytes(out), group)
+    else:
+        out = all_gather_cat(front, group)
+    return out.movedim(0, dim)
+
+
+def gather_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                    group) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every rank's partial attention of one decode step, stacked in rank
+    order by one all-gather: o (..., dh), its row maxima m (...) and sums
+    of exponentials l (...) in, (n, ..., dh), (n, ...), (n, ...) out
+    (``merge_partials`` merges them)."""
+    packed = torch.cat([o, m[..., None], l[..., None]], dim=-1)
+    n = group_size(group)
+    if isinstance(group, AbstractGroup):
+        out = packed.new_empty((n,) + tuple(packed.shape))
+        _issued("all_gather", _nbytes(out), group)
+    else:
+        out = all_gather_cat(packed[None], group)
+    return out[..., :-2], out[..., -2], out[..., -1]
+
+
+def merge_partials(o: torch.Tensor, m: torch.Tensor,
+                   l: torch.Tensor) -> torch.Tensor:
+    """The softmax-weighted output over all of the parts' keys from each
+    part's own: o (n, ..., dh), each part's output normalised by its own
+    sum of exponentials l (n, ...) taken after its row maximum m (n, ...).
+    The parts are merged in order, one at a time, from zero (no atomics,
+    no all-reduce of floats), so a merge of the same parts gives the same
+    bits.  A part whose keys are all masked carries weight exp(m - max)
+    of 0."""
+    top = m[0]
+    for r in range(1, m.shape[0]):
+        top = torch.maximum(top, m[r])
+    num = torch.zeros_like(o[0])
+    den = torch.zeros_like(l[0])
+    for r in range(o.shape[0]):
+        w = l[r] * torch.exp(m[r] - top)
+        num = num + o[r] * w[..., None]
+        den = den + w
+    return num / den[..., None]
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` of group rank ``src`` on every rank of ``group``, in place;
+    on an ``AbstractGroup`` only recorded (zero1's new parameters from a
+    layer's owner)."""
+    if _single(group):
+        return t
+    if not isinstance(group, AbstractGroup):
+        dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
+    _issued("broadcast", _nbytes(t), group)
+    return t
+
+
+class _SplitToGroup(torch.autograd.Function):
+    """This rank's block of the last dim of a tensor whole on every rank;
+    the gradient is the group's block gradients gathered in rank order."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank):
+        ctx.group = group
+        n = x.shape[-1] // group_size(group)
+        return x[..., rank * n:(rank + 1) * n].contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        return all_gather_dim(dy.contiguous(), dy.dim() - 1, ctx.group), \
+            None, None
+
+
+def split_to_group(x: torch.Tensor, group, rank: int) -> torch.Tensor:
+    """Where a whole tensor enters a column-parallel stretch: this rank's
+    block of its last dim; its gradient, each rank's block, gathered whole
+    (Megatron-LM's scatter to the model-parallel region).  The identity
+    for ``group`` None or of one rank."""
+    if _single(group):
+        return x
+    return _SplitToGroup.apply(x, group, rank)
+
+
+def _reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((front.shape[0] // group_size(group),)
+                          + tuple(front.shape[1:]))
+    if isinstance(group, AbstractGroup):
+        _issued("reduce_scatter", _nbytes(out), group)
+    else:
+        reduce_scatter(out, front, group)
+    return out.movedim(0, dim)
+
+
+class _GatherShards(torch.autograd.Function):
+    """A parameter's shards gathered along ``dim``; the gradient summed
+    over the group and scattered back, each rank its shard's."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _reduce_scatter_dim(dy, ctx.dim, ctx.group), None, None
+
+
+def gather_shards(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The fsdp profile's parameter all-gather: the group's shards of a
+    leaf concatenated along ``dim`` in rank order, before use; in the
+    backward the gradient is reduce-scattered, so each rank's shard gets
+    the sum over the group of its rows.  The identity for ``group`` None
+    or of one rank."""
+    if _single(group):
+        return x
+    return _GatherShards.apply(x, dim, group)
 
 
 def sum_over_data(t: torch.Tensor, groups: Sequence) -> torch.Tensor:

@@ -36,9 +36,10 @@ is the identity, and under one it checks that the local tensor has the
 block shape its logical names resolve to against the whole sizes it is
 given, and raises on any other layout.  ``TPLayout`` is what a model
 records when its parameters become a rank's blocks and hands its layers:
-the model group, the rank and the whole sizes.  ``model_group`` and
-``data_groups`` are the process groups a spec's axes name: the
-tensor-parallel group and the data-parallel groups of ``batch_data_axes``.
+the model group, the rank and the whole sizes.  ``model_group``,
+``axis_group`` and ``data_groups`` are the process groups a spec's axes
+name: the tensor-parallel group, any one axis's, and the data-parallel
+groups of ``batch_data_axes``.
 On an ``AbstractMesh`` they are ``AbstractGroup``s, a size and no
 processes, on which the collectives only record what they would move (the
 dry run's per-device walk).
@@ -236,12 +237,6 @@ def batch_data_axes(mesh, size: Optional[int] = None) -> Tuple[str, ...]:
     return tuple(axes)
 
 
-class NotPorted(ValueError):
-    """A path that the port does not run under a mesh of more than one
-    rank yet (ROADMAP.md A21).  Any other ``ValueError`` on a meshed path
-    is a fault."""
-
-
 def constrain(x: torch.Tensor, names: Sequence[Optional[str]],
               whole: Optional[Mapping[str, int]] = None) -> torch.Tensor:
     """The port's sharding annotation: the identity outside a mesh; under
@@ -289,23 +284,32 @@ def _group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
+def axis_group(mesh, axis: str):
+    """The group of mesh axis ``axis``, or None when ``mesh`` has no such
+    axis of more than one rank."""
+    if mesh_sizes(mesh).get(axis, 1) <= 1:
+        return None
+    return _group(mesh, axis)
+
+
+def axis_rank(mesh, axis: str) -> int:
+    """This rank's index along ``axis`` (0 on an ``AbstractMesh``, whose
+    walk reads shapes only, and without the axis)."""
+    if mesh is None or isinstance(mesh, AbstractMesh):
+        return 0
+    return mesh_coordinate(mesh).get(axis, 0)
+
+
 def model_group(mesh=None):
     """The tensor-parallel group (the ``model`` axis) of ``mesh`` (default:
     the ambient one), or None when it has no ``model`` axis of more than
     one rank: then the layers run their meshless code."""
-    mesh = active_mesh() if mesh is None else mesh
-    if mesh_sizes(mesh).get("model", 1) <= 1:
-        return None
-    return _group(mesh, "model")
+    return axis_group(active_mesh() if mesh is None else mesh, "model")
 
 
 def model_rank(mesh=None) -> int:
-    """This rank's index along ``model`` (0 on an ``AbstractMesh``, whose
-    walk reads shapes only)."""
-    mesh = active_mesh() if mesh is None else mesh
-    if mesh is None or isinstance(mesh, AbstractMesh):
-        return 0
-    return mesh_coordinate(mesh).get("model", 0)
+    """This rank's index along ``model``."""
+    return axis_rank(active_mesh() if mesh is None else mesh, "model")
 
 
 def data_groups(mesh=None) -> List:

@@ -15,19 +15,18 @@ For each cell it records
 * ``collectives`` and ``memory.temp_bytes``: a second walk, per device,
   on ``meta`` under the cell's ``AbstractMesh`` and rules.  The model
   holds rank 0's blocks (``Model.shard_``), the inputs and the cache are
-  its blocks, and the step runs tensor- and data-parallel as it runs on a
-  mesh of live ranks, but every collective on the abstract mesh's groups
-  only records its kind, bytes and group size
+  its blocks (``Model.init_cache`` of the global batch), the moments
+  ``AdamW.init``'s (zero1's: the rank's layers only), and the step runs
+  tensor- and data-parallel as it runs on a mesh of live ranks (a decode
+  cell one ``Model.decode`` step on the rank's cache block, its positions
+  split over ``kv_seq``'s axis), but every collective on the abstract
+  mesh's groups only records its kind, bytes and group size
   (``dist.collectives.count_collectives``).  ``temp_bytes`` is the peak
   of the bytes that the step's ops allocate and hold at once beyond its
   arguments, counted by ``TempBytes`` (a dispatch mode over the storages
   the ops make and free), the port's counterpart of XLA's compiled
-  ``temp_size_in_bytes``.  Train and prefill cells get both; decode cells,
-  and cells whose step under a mesh is not ported yet (the xLSTM, the
-  encoder-decoder and the VLM under tensor parallelism, the fsdp profile),
-  keep empty ``collectives`` and a null ``temp_bytes`` with the reason
-  (ROADMAP.md A21; the model raises ``dist.sharding.NotPorted`` for
-  them).
+  ``temp_size_in_bytes``.  Every cell gets both, under either
+  ``--profile`` and ``--moments``.
 
 One cell that fails, the per-device walk included, is recorded with its
 traceback and the sweep goes on.
@@ -57,18 +56,15 @@ from torch.utils._pytree import tree_leaves
 from ..configs import ARCHS, get as get_config, shapes_for
 from ..convert import jax_order
 from ..dist.collectives import count_collectives
-from ..dist.sharding import (DEFAULT_RULES, FSDP_RULES, NotPorted, Rules,
+from ..dist.sharding import (DEFAULT_RULES, FSDP_RULES, Rules,
                              logical_to_pspec, mesh_sizes, spec_block,
                              spec_shards, use_mesh, use_rules)
 from ..models import SHAPES, Model
 from ..models.common import sharded_bytes
 from ..optim.adamw import AdamW
-from ..train.step import StepConfig, make_train_step
+from ..train.step import StepConfig, make_train_step, zero1_layout
 from .analysis import cost_of
 from .mesh import make_production_mesh
-
-DECODE_REASON = ("decode under a mesh (DECODE_RULES / SP_DECODE_RULES, "
-                 "kv_seq over model) is not ported yet (ROADMAP.md A21)")
 
 
 class TempBytes(TorchDispatchMode):
@@ -203,15 +199,18 @@ def _local(shape, axes, mesh, rules) -> Tuple[int, ...]:
         spec, shape, mesh_sizes(mesh), coord))
 
 
-def walk_device(cfg, shape, mesh, rules: Rules) -> Tuple[Dict, int]:
-    """(collectives, temp_bytes) of rank 0's train or prefill step of a
-    ``cfg`` model at ``shape`` (a ``ShapeConfig``) on ``meta`` under
-    ``mesh`` and ``rules``: its parameter, moment, input and cache blocks
-    made first, then the step run once under ``count_collectives`` and
-    ``TempBytes``."""
+def walk_device(cfg, shape, mesh, rules: Rules,
+                moments: str = "tp") -> Tuple[Dict, int]:
+    """(collectives, temp_bytes) of rank 0's train, prefill or decode step
+    of a ``cfg`` model at ``shape`` (a ``ShapeConfig``) on ``meta`` under
+    ``mesh`` and ``rules``: its parameter, moment (``moments="zero1"``:
+    ``zero1_layout``'s), input and cache blocks made first, then the step
+    run once under ``count_collectives`` and ``TempBytes``."""
     model = Model(cfg, device="meta")
     inputs = {}
     for name, t in model.input_specs(shape).items():
+        if name in ("cache", "pos"):
+            continue
         axes = _INPUT_AXES.get(name, (None,) * t.dim())[:t.dim()]
         inputs[name] = torch.empty(_local(tuple(t.shape), axes, mesh, rules),
                                    dtype=t.dtype, device="meta")
@@ -221,19 +220,24 @@ def walk_device(cfg, shape, mesh, rules: Rules) -> Tuple[Dict, int]:
             named = dict(model.named_parameters())
             params = {n: named[n] for n in jax_order(named)}
             opt = AdamW(lr=1e-4)
-            opt_state = opt.init(params)
+            opt_state = opt.init(params, zero1_layout(model, mesh)
+                                 if moments == "zero1" else None)
             step = make_train_step(model, opt, StepConfig())
 
             def fn():
                 step(params, opt_state, inputs)
         else:
             cache = model.init_cache(inputs["tokens"].shape[0],
-                                     shape.seq_len)
-
-            def fn():
-                model.prefill(inputs["tokens"], cache,
-                              patches=inputs.get("patches"),
-                              frames=inputs.get("frames"))
+                                     shape.seq_len,
+                                     whole_batch=shape.global_batch)
+            if shape.kind == "prefill":
+                def fn():
+                    model.prefill(inputs["tokens"], cache,
+                                  patches=inputs.get("patches"),
+                                  frames=inputs.get("frames"))
+            else:
+                def fn():
+                    model.decode(inputs["tokens"], cache, shape.seq_len - 1)
         with count_collectives() as coll, TempBytes() as temp:
             fn()
     return coll, temp.peak
@@ -265,16 +269,8 @@ def run_cell(arch: str, shape_name: str, mesh, mesh_name: str, outdir: str,
         if trace_only:
             rec["trace_only"] = True
         else:
-            shape = SHAPES[shape_name]
-            coll, memory["temp_bytes"] = {}, None
-            if shape.kind == "decode":
-                memory["temp_bytes_reason"] = DECODE_REASON
-            else:
-                try:
-                    coll, memory["temp_bytes"] = walk_device(cfg, shape,
-                                                             mesh, rules)
-                except NotPorted as e:      # ROADMAP.md A21
-                    memory["temp_bytes_reason"] = str(e)
+            coll, memory["temp_bytes"] = walk_device(
+                cfg, SHAPES[shape_name], mesh, rules, moments)
             rec.update({"memory": memory, "collectives": coll})
     # check: disable=EXC01 -- the sweep: one cell failing to trace must
     # not stop the others; the failure is recorded (type, message,

@@ -15,6 +15,17 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm_350m \\
       --smoke --device cpu --steps 4 --batch 2 --seq 128 --gdt-budget-mb 1
 
+Under a mesh (``--mesh DATAxMODEL``: one process a rank, the group named
+by the environment of a multi-process launcher such as ``torchrun``; a
+1x1 mesh starts its own group of one) each rank trains its blocks on its
+data block of every batch, with the JAX dry run's ``--profile`` (``fsdp``:
+every leaf's ``embed`` dim over the data axis) and ``--moments``
+(``zero1``: a layer's moments on the data rank that owns it):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_1b \
+      --smoke --device cpu --steps 4 --batch 2 --seq 32 --mesh 1x1 \
+      --profile fsdp --moments zero1
+
 The hybrid and xLSTM families' sequence must be at most their chunk (128)
 or a multiple of it.  The VLM and encoder-decoder families are refused:
 their batches need ``patches`` or ``frames``, which ``SyntheticLM`` does
@@ -24,8 +35,11 @@ not make (the JAX launcher fails on the missing key).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
+import socket
 import time
 
 import torch
@@ -34,7 +48,9 @@ from .._device import resolve_device
 from ..configs import ARCHS, get, get_smoke
 from ..core import GuidanceConfig
 from ..data import SyntheticLM
+from ..dist.sharding import mesh_coordinate, use_mesh
 from ..ft import HeartbeatMonitor
+from .mesh import make_test_mesh
 from ..models import Model
 from ..optim import AdamW, cosine_schedule
 from ..train import StepConfig, Trainer, TrainerConfig
@@ -68,6 +84,13 @@ def main(argv=None):
                    help="inject a failure at this step and restart")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
+    p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                   help="train under a (data, model) mesh of that many "
+                        "ranks (module docstring)")
+    p.add_argument("--profile", default="tp", choices=["tp", "fsdp"],
+                   help="parameter layout under --mesh")
+    p.add_argument("--moments", default="tp", choices=["tp", "zero1"],
+                   help="optimizer-moment layout under --mesh")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -92,17 +115,28 @@ def main(argv=None):
         steps=args.steps, log_every=max(args.steps // 20, 1),
         ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir, gdt=gdt,
         step=StepConfig(accum=args.accum, compression=args.compression),
-        seed=args.seed)
-    trainer = Trainer(model, opt, tcfg)
+        seed=args.seed, profile=args.profile, moments=args.moments)
+    mesh = None if args.mesh is None else start_mesh(args.mesh, device)
+    if mesh is not None and (args.ckpt_dir or args.simulate_failure):
+        raise SystemExit("--mesh: checkpoints are not written from a "
+                         "rank's blocks")
+    with contextlib.nullcontext() if mesh is None else use_mesh(mesh):
+        trainer = Trainer(model, opt, tcfg)
     if args.restore and args.ckpt_dir:
         meta = trainer.restore_checkpoint()
         print(f"restored checkpoint at step {meta['step']}")
 
     src = SyntheticLM(cfg.vocab, args.seq, args.batch, seed=0)
     monitor = HeartbeatMonitor(n_nodes=1, timeout_s=600.0)
+    rows = slice(None)
+    if mesh is not None:
+        n = int(args.mesh.split("x")[0])
+        c = mesh_coordinate(mesh)["data"]
+        rows = slice(c * args.batch // n, (c + 1) * args.batch // n)
 
     def on_device(b):
-        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        return {k: torch.from_numpy(v[rows]).to(device)
+                for k, v in b.items()}
 
     def batches():
         i = 0
@@ -129,6 +163,33 @@ def main(argv=None):
     print(json.dumps(result, indent=1))
     for m in trainer.metrics_log[-5:]:
         print(f"  step {int(m['step']):5d}  loss {m['loss']:.4f}")
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def start_mesh(spec: str, device):
+    """The (data, model) ``DeviceMesh`` of ``--mesh DATAxMODEL``: over the
+    group the environment names (``WORLD_SIZE``, ``RANK``,
+    ``MASTER_ADDR``/``MASTER_PORT``), or, for 1x1 without one, a group of
+    this process alone on a free local port."""
+    import torch.distributed as dist
+
+    data, model = (int(n) for n in spec.split("x"))
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    elif data * model == 1:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group(backend, rank=0, world_size=1,
+                                init_method=f"tcp://localhost:{port}")
+    else:
+        raise SystemExit(f"--mesh {spec}: start one process a rank with "
+                         f"a launcher that sets WORLD_SIZE and RANK")
+    return make_test_mesh(data, model, device)
 
 
 if __name__ == "__main__":

@@ -34,16 +34,23 @@ and ``wv`` are whole on every rank: each rank projects all K heads, its q
 heads read the one their group maps to, and the two weights enter the
 group so their gradient sums over it.  A dim the rules leave whole (a
 count that does not divide) runs the meshless code; so does everything on
-a model axis of one rank.  Contiguous-cache serving
-uses them too, with ``attention_decode`` for one token against a
-contiguous KV cache, ``attention_decode_ring`` against a sliding-window
-arch's ring of ``window`` slots and ``cross_attention_decode`` against an
-encoder's memory.
+a model axis of one rank.  Cross attention projects its k and v from
+the encoder's output on the rank's kv heads the same way
+(``cross_attention_qkv``).  Contiguous-cache serving uses them too, with
+``attention_decode`` for one token against a contiguous KV cache,
+``attention_decode_ring`` against a sliding-window arch's ring of
+``window`` slots and ``cross_attention_decode`` against an encoder's
+memory; under a mesh against the rank's cache block, which holds its kv
+heads, or, where the rules split ``kv_seq`` (``SeqSplit``), its positions:
+each rank attends its keys and the partial attentions (``o``, ``m``,
+``l``) are merged in rank order (``partial_attention``,
+``dist.collectives.merge_partials``).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+import dataclasses
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,8 +58,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.collectives import (all_reduce_max, copy_to_group,
-                                reduce_from_group)
+from ..dist.collectives import (all_gather_dim, all_reduce_max,
+                                copy_to_group, gather_partials, group_size,
+                                merge_partials, reduce_from_group)
 from ..dist.sharding import NO_TP, TPLayout, constrain
 from ..kernels import ops
 from ..tiles import ROW_TILE, linear, row_tiles
@@ -178,6 +186,25 @@ def self_attention_qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     return group, q, k, v, read
 
 
+def cross_attention_qkv(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+                        kv_x: torch.Tensor, tp: TPLayout = NO_TP):
+    """(group, q, k, v, read) of cross attention, as ``self_attention_qkv``
+    gives them but without rope: q (B, S, H, dh) from x, k and v (B, Sk,
+    K, dh) from the encoder's output ``kv_x``.  Under tensor parallelism
+    both enter the group, q is on the rank's heads and k, v on its kv heads
+    (or, in the GQA fallback, on all K from the whole ``wk``/``wv``, of
+    which its heads read ``read``)."""
+    group = tp.over("heads")
+    wk, wv, read = p["wk"], p["wv"], None
+    if group is not None:
+        x, kv_x = copy_to_group(x, group), copy_to_group(kv_x, group)
+        if tp.over("kv_heads") is None:
+            wk, wv = copy_to_group(wk, group), copy_to_group(wv, group)
+            read = _kv_heads_read(p["wq"].shape[1], tp)
+    return group, project(x, p["wq"]), project(kv_x, wk), project(kv_x, wv), \
+        read
+
+
 def attention_out(p: Mapping[str, torch.Tensor], out: torch.Tensor,
                   group) -> torch.Tensor:
     """``wo`` over attention's output (B, S, H, dh): row-parallel under
@@ -201,11 +228,11 @@ def attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     v from ``kv_x``, no rope, ``ops.flash_attention`` unmasked over all Sk
     keys (Sk need not be S)."""
     if kv_x is not None:
-        q = project(x, p["wq"])
-        k = project(kv_x, p["wk"])
-        v = project(kv_x, p["wv"])
+        group, q, k, v, read = cross_attention_qkv(p, x, kv_x, tp)
+        if read is not None:
+            k, v = k[:, :, read], v[:, :, read]
         out = ops.flash_attention(q, k, v, causal=False)
-        return project(out, p["wo"], k=2)
+        return attention_out(p, out, group)
     group, q, k, v, read = self_attention_qkv(p, x, positions, freqs, tp)
     if read is not None:
         k, v = k[:, :, read], v[:, :, read]
@@ -213,10 +240,85 @@ def attention(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     return attention_out(p, out, group)
 
 
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """How a decode cache's positions lie over the ranks (``Model``
+    resolves it from the cache's spec under the ambient rules): each rank
+    of ``group`` holds the positions [rank * n, (rank + 1) * n) of the n
+    its block holds; ``group`` None: every position.  ``model``: the group
+    is the model axis, whose ranks then each hold every kv head, so a
+    step gathers the group's q heads and new k and v first (the dry run's
+    decode rules and ``SP_DECODE_RULES``)."""
+
+    group: Any = None
+    rank: int = 0
+    model: bool = False
+
+
+NO_SPLIT = SeqSplit()
+
+
+def kv_for_cache(k: torch.Tensor, v: torch.Tensor, tp: TPLayout,
+                 seq: SeqSplit):
+    """k, v (B, S, K', dh) on the kv heads the rank projects, as its cache
+    block holds heads: gathered over the model group (one all-gather of
+    the pair) when the cache's positions split over it and the
+    parameters' kv heads do too."""
+    if seq.model and tp.over("kv_heads") is not None:
+        kv = all_gather_dim(torch.stack([k, v]), 3, tp.group)
+        return kv[0], kv[1]
+    return k, v
+
+
+def write_positions(cache: torch.Tensor, rows: torch.Tensor,
+                    slots: Sequence[int], seq: SeqSplit = NO_SPLIT) -> None:
+    """Write ``rows`` (B, n, K, dh), the entries of the global cache slots
+    ``slots`` (n ints; a ``range`` is one copy), into the rank's block
+    ``cache`` (B, S_blk, K, dh), which holds slots [seq.rank * S_blk,
+    (seq.rank + 1) * S_blk): only the slots it holds."""
+    S_blk = cache.shape[1]
+    lo = seq.rank * S_blk
+    if isinstance(slots, range) and slots.step == 1:
+        a, b = max(slots.start, lo), min(slots.stop, lo + S_blk)
+        if a < b:
+            cache[:, a - lo:b - lo] = rows[:, a - slots.start:
+                                           b - slots.start].to(cache.dtype)
+        return
+    mine = [(s - lo, j) for j, s in enumerate(slots) if lo <= s < lo + S_blk]
+    if mine:
+        dst, src = (torch.tensor(t, device=cache.device) for t in zip(*mine))
+        cache[:, dst] = rows[:, src].to(cache.dtype)
+
+
+def partial_attention(s: torch.Tensor, v: torch.Tensor):
+    """One block's partial attention of masked, scaled f32 scores s (B, K,
+    G, S_blk) over its values v (B, S_blk, K, dh): (o (B, K, G, dh) f32
+    normalised by l, the row maximum m and the sum of exponentials l after
+    it, both (B, K, G)), for ``merge_partials``."""
+    m = s.amax(-1)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(-1)
+    return torch.einsum("bkgs,bskd->bkgd", e, v.to(F32)) / l[..., None], m, l
+
+
+def _attend_rows(s: torch.Tensor, v: torch.Tensor,
+                 seq: SeqSplit) -> torch.Tensor:
+    """f32 o (B, K, G, dh) of masked, scaled f32 scores s (B, K, G, S_blk)
+    over the rank's values v (B, S_blk, K, dh): the softmax over every key
+    when the block holds them all; else the block's partial attention,
+    gathered over the group and merged in rank order."""
+    if seq.group is None:
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgs,bskd->bkgd", w, v.to(F32))
+    return merge_partials(*gather_partials(*partial_attention(s, v),
+                                           seq.group))
+
+
 def attention_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
                      freqs: torch.Tensor, window: Optional[int] = None,
-                     ring: bool = False) -> torch.Tensor:
+                     ring: bool = False, tp: TPLayout = NO_TP,
+                     seq: SeqSplit = NO_SPLIT) -> torch.Tensor:
     """One-token decode against a contiguous KV cache
     (``repro/models/layers.py`` ``attention_decode``): x (B, 1, d);
     cache_k/v (B, S_max, K, dh), written in place at ``pos`` with this
@@ -224,32 +326,56 @@ def attention_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     inside the window, if any) in f32, softmax, the product with V in f32,
     a cast to x's dtype, then ``wo``.  With ``ring``, the cache is a ring
     (``attention_decode_ring``).  Plain torch: the JAX package has no
-    kernel here.  Returns y (B, 1, d)."""
-    B, S_max, K, dh = cache_k.shape
+    kernel here.  Returns y (B, 1, d).
+
+    Under a mesh the cache is the rank's block.  With its kv heads split
+    as the parameters' (``DECODE_RULES``): q on the rank's heads, k and v
+    on its kv heads (all K in the GQA fallback, of which its heads read
+    their group's), ``wo`` row-parallel and reduced.  With its positions
+    split (``seq``): over the model axis the group's q heads and new k and
+    v are gathered first; the rank that holds slot ``pos`` (``pos % W`` on
+    a ring) writes it; each rank attends its positions, and the partial
+    attentions are merged (``merge_partials``); the rank keeps its heads'
+    rows for the row-parallel ``wo``."""
+    B, S_blk, _, dh = cache_k.shape
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q = rope(project(x, p["wq"]), positions, freqs)          # (B,1,H,dh)
-    k1 = rope(project(x, p["wk"]), positions, freqs)
-    v1 = project(x, p["wv"])
-    slot = pos % S_max if ring else pos
-    cache_k[:, slot] = k1[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v1[:, 0].to(cache_v.dtype)
-    H = q.shape[2]
+    group, q, k1, v1, read = self_attention_qkv(p, x, positions, freqs, tp)
+    Hl = q.shape[2]
+    if seq.model:
+        q = all_gather_dim(q, 2, group)
+        k1, v1 = kv_for_cache(k1, v1, tp, seq)
+        read = None
+    if k1.shape[2] != cache_k.shape[2]:
+        raise ValueError(f"decode: the cache block holds {cache_k.shape[2]} "
+                         f"kv heads, the rank projects {k1.shape[2]}")
+    ways = 1 if seq.group is None else group_size(seq.group)
+    slot = pos % (S_blk * ways) if ring else pos
+    write_positions(cache_k, k1, range(slot, slot + 1), seq)
+    write_positions(cache_v, v1, range(slot, slot + 1), seq)
+    kc, vc = cache_k, cache_v
+    if read is not None:
+        kc, vc = kc[:, :, read], vc[:, :, read]
+    H, K = q.shape[2], kc.shape[2]
     qg = q.reshape(B, K, H // K, dh).to(F32)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.to(F32))
+    s = torch.einsum("bkgd,bskd->bkgs", qg, kc.to(F32))
     s = s * (1.0 / np.sqrt(dh))
-    k_pos = torch.arange(S_max, device=x.device)
+    lo = seq.rank * S_blk
+    k_pos = torch.arange(lo, lo + S_blk, device=x.device)
     allowed = k_pos <= pos
     if window is not None and not ring:
         allowed &= (pos - k_pos) < window
     s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", w, cache_v.to(F32)).to(x.dtype)
-    return project(o.reshape(B, 1, H, dh), p["wo"], k=2)
+    o = _attend_rows(s, vc, seq).to(x.dtype).reshape(B, 1, H, dh)
+    if seq.model and H != Hl:
+        o = o[:, :, tp.rank * Hl:(tp.rank + 1) * Hl]
+    return attention_out(p, o, group)
 
 
 def attention_decode_ring(p: Mapping[str, torch.Tensor], x: torch.Tensor,
                           cache_k: torch.Tensor, cache_v: torch.Tensor,
-                          pos: int, freqs: torch.Tensor) -> torch.Tensor:
+                          pos: int, freqs: torch.Tensor,
+                          tp: TPLayout = NO_TP,
+                          seq: SeqSplit = NO_SPLIT) -> torch.Tensor:
     """One-token decode against the ring KV cache of a sliding-window arch
     (``repro/models/layers.py`` ``attention_decode_ring``): cache_k/v (B,
     W, K, dh), this token's roped k and v written at slot pos % W.  Keys
@@ -257,27 +383,43 @@ def attention_decode_ring(p: Mapping[str, torch.Tensor], x: torch.Tensor,
     rotation; until the ring fills (pos < W - 1) only slots <= pos hold
     data, after that every slot is inside the window.  Returns y (B, 1,
     d)."""
-    return attention_decode(p, x, cache_k, cache_v, pos, freqs, ring=True)
+    return attention_decode(p, x, cache_k, cache_v, pos, freqs, ring=True,
+                            tp=tp, seq=seq)
 
 
 def cross_attention_decode(p: Mapping[str, torch.Tensor], x: torch.Tensor,
-                           mem_k: torch.Tensor,
-                           mem_v: torch.Tensor) -> torch.Tensor:
+                           mem_k: torch.Tensor, mem_v: torch.Tensor,
+                           tp: TPLayout = NO_TP,
+                           seq: SeqSplit = NO_SPLIT) -> torch.Tensor:
     """Decode-time cross attention over the encoder memory
     (``repro/models/layers.py`` ``cross_attention_decode``): x (B, 1, d);
     mem_k/mem_v (B, Se, K, dh), every row attended.  Scores in f32, no
     rope, softmax, the product with V in f32, a cast to x's dtype, then
     ``wo``.  Plain torch: the JAX package has no kernel here.  Returns y
-    (B, 1, d)."""
+    (B, 1, d).  Under a mesh as ``attention_decode``: the memory is the
+    rank's block, of its kv heads or of its positions."""
     B = x.shape[0]
-    K, dh = mem_k.shape[2], mem_k.shape[3]
+    dh = mem_k.shape[3]
+    group = tp.over("heads")
+    read = None
+    if group is not None:
+        x = copy_to_group(x, group)
+        if tp.over("kv_heads") is None:
+            read = _kv_heads_read(p["wq"].shape[1], tp)
     q = project(x, p["wq"])                                  # (B,1,H,dh)
-    H = q.shape[2]
+    Hl = q.shape[2]
+    if seq.model:
+        q = all_gather_dim(q, 2, group)
+        read = None
+    if read is not None:
+        mem_k, mem_v = mem_k[:, :, read], mem_v[:, :, read]
+    H, K = q.shape[2], mem_k.shape[2]
     qg = q.reshape(B, K, H // K, dh).to(F32)
     s = torch.einsum("bkgd,bskd->bkgs", qg, mem_k.to(F32)) / np.sqrt(dh)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", w, mem_v.to(F32)).to(x.dtype)
-    return project(o.reshape(B, 1, H, dh), p["wo"], k=2)
+    o = _attend_rows(s, mem_v, seq).to(x.dtype).reshape(B, 1, H, dh)
+    if seq.model and H != Hl:
+        o = o[:, :, tp.rank * Hl:(tp.rank + 1) * Hl]
+    return attention_out(p, o, group)
 
 
 def swiglu(p: Mapping[str, torch.Tensor], x: torch.Tensor,

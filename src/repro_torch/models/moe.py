@@ -65,7 +65,8 @@ same bits.  Under ep, x's and the router's gradients are those of the
 rank's data block, whole on every rank of its model group; the data ranks'
 gradients differ, and the trainer's data-parallel reduction
 (``train.step``) sums them into the batch's.  Capacity dispatch under a
-mesh of more than one rank is refused (ROADMAP.md A21).
+mesh runs per row on the rank's data block and, on the model axis, on the
+rank's block of the expert weights (``_moe_capacity``).
 """
 
 from __future__ import annotations
@@ -81,8 +82,8 @@ import torch.nn.functional as F
 from ..dist import collectives as coll
 from ..dist.collectives import (copy_to_group, ragged_all_to_all,
                                 reduce_from_group)
-from ..dist.sharding import (NO_TP, NotPorted, TPLayout, active_mesh,
-                             batch_data_axes, mesh_sizes)
+from ..dist.sharding import (NO_TP, TPLayout, active_mesh, batch_data_axes,
+                             mesh_sizes)
 from ..kernels import ops
 from ..tiles import linear
 
@@ -595,22 +596,41 @@ def _capacity_slots(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig
                                 cfg.top_k)
 
 
-def _moe_capacity(p, x, cfg: MoEConfig) -> torch.Tensor:
+def _moe_capacity(p, x, cfg: MoEConfig, tp: TPLayout = NO_TP
+                  ) -> torch.Tensor:
     """GShard-style capacity-bounded dispatch, per batch row: each row
     gives every expert ``_capacity(S)`` slots, a pick past its expert's
     capacity is dropped (its token keeps only its other picks; the
     residual carries it), the expert SwiGLU runs as batched products over
     (row, expert) on the (B, E, C, d) buffer, and each token sums its kept
-    picks' rows gate-weighted in f32."""
+    picks' rows gate-weighted in f32.
+
+    Under a mesh the rows are the rank's data block (the dispatch is per
+    row: no collective).  Where the layout ``tp`` splits the expert
+    weights over the model axis (``mlp`` under tp, ``experts`` under ep)
+    x and the router enter the group, the products run on the rank's
+    block of the weights (under ep its experts' rows of the buffer, the
+    others' zeros), the combine gives the rank's partial sum, and one
+    ``reduce_from_group`` sums the group's on the (B, S, d) output, not on
+    the (B, E, C, d) buffer (the combine is linear)."""
     B, S, d = x.shape
-    gates, slots = _capacity_slots(p.router, x, cfg)
+    E = cfg.padded_experts
+    group = (tp.over("experts", E) if cfg.parallelism == "ep"
+             else tp.over("mlp", cfg.d_ff))
+    x = copy_to_group(x, group)
+    gates, slots = _capacity_slots(copy_to_group(p.router, group), x, cfg)
     buf = _CapacityDispatch.apply(x, slots, cfg.top_k)
-    g = torch.einsum("becd,edf->becf", buf, p.w_gate)
-    u = torch.einsum("becd,edf->becf", buf, p.w_up)
+    E_loc = p.w_gate.shape[0]
+    lo = tp.rank * E_loc if E_loc != E else 0
+    mine = buf if E_loc == E else buf[:, lo:lo + E_loc]
+    g = torch.einsum("becd,edf->becf", mine, p.w_gate)
+    u = torch.einsum("becd,edf->becf", mine, p.w_up)
     h = F.silu(g.to(F32)).to(x.dtype) * u
     out_buf = torch.einsum("becf,efd->becd", h, p.w_down)
+    if E_loc != E:
+        out_buf = F.pad(out_buf, (0, 0, 0, 0, lo, E - lo - E_loc))
     y = _CapacityCombine.apply(out_buf, gates.reshape(B, S, cfg.top_k), slots)
-    return y.to(x.dtype)
+    return reduce_from_group(y, group).to(x.dtype)
 
 
 def dropped_picks(x: torch.Tensor, router: torch.Tensor,
@@ -633,10 +653,7 @@ def moe(p, x: torch.Tensor, cfg: MoEConfig,
     ``tp``: the model's layout (tp over the FFN width)."""
     mode = dispatch if dispatch is not None else cfg.dispatch
     if mode == "capacity":
-        if any(s > 1 for s in mesh_sizes(active_mesh()).values()):
-            raise NotPorted("capacity dispatch under a mesh of more than "
-                            "one rank is not ported yet (ROADMAP.md A21)")
-        return _moe_capacity(p, x, cfg)
+        return _moe_capacity(p, x, cfg, tp)
     if mode != "dropless":
         raise ValueError(f"unknown MoE dispatch {mode!r}")
     mesh = _ep_mesh(cfg)
@@ -646,7 +663,9 @@ def moe(p, x: torch.Tensor, cfg: MoEConfig,
 
 
 def moe_decode(p, x: torch.Tensor, cfg: MoEConfig,
-               dispatch: Optional[str] = None) -> torch.Tensor:
+               dispatch: Optional[str] = None,
+               tp: TPLayout = NO_TP) -> torch.Tensor:
     """Decode-time MoE: the same function as ``moe`` (routing and the
-    grouped FFN are per token), so decode logits match prefill logits."""
-    return moe(p, x, cfg, dispatch=dispatch)
+    grouped FFN are per token), so decode logits match prefill logits;
+    ``tp`` as there."""
+    return moe(p, x, cfg, dispatch=dispatch, tp=tp)

@@ -14,8 +14,8 @@ group shared by all heads.  The f32 islands are the JAX package's:
 is a softplus clipped to ``[dt_min, dt_max * 100]``; silu runs in f32; the
 grouped RMSNorm over d_inner uses eps 1e-6; the SSM state is f32.
 
-Tensor parallelism (prefill and training, under a mesh whose ``model``
-axis splits ``ssm_heads``): ``w_z``, ``w_x``, ``w_dt``, ``dt_bias``,
+Tensor parallelism (prefill, decode and training, under a mesh whose
+``model`` axis splits ``ssm_heads``): ``w_z``, ``w_x``, ``w_dt``, ``dt_bias``,
 ``a_log``, ``D``, ``conv_x`` and ``norm`` are the rank's block over
 ``d_inner`` / ``ssm_heads``, both cut at head boundaries, so a rank's
 channels are exactly its heads' P channels (``Model.shardings`` leaves
@@ -199,13 +199,17 @@ def ssm_forward(p: SSM, u: torch.Tensor, cfg: SSMConfig,
 
 
 def ssm_decode(p: SSM, u: torch.Tensor, conv_state: torch.Tensor,
-               ssm_state: torch.Tensor, cfg: SSMConfig):
+               ssm_state: torch.Tensor, cfg: SSMConfig,
+               tp: TPLayout = NO_TP):
     """One-token decode.  u: (B,1,d); conv_state: (B, W-1, d_inner);
     ssm_state: (B,H,N,P) f32.  Returns (y, conv_state, ssm_state), the
-    states new tensors."""
+    states new tensors.  Under tensor parallelism as ``ssm_forward``: the
+    rank's heads and their channels (the states its blocks), the gated
+    norm's sum of squares reduced, ``w_out`` row-parallel."""
     B = u.shape[0]
-    H, P = cfg.n_heads, cfg.head_dim
-    z, x, Bm, Cm, dt = _inputs(p, u, cfg)           # all (B,1,*)
+    group = tp.over("ssm_heads")
+    H, P = p.a_log.shape[0], cfg.head_dim      # the rank's heads
+    z, x, Bm, Cm, dt = _inputs(p, u, cfg, group)    # all (B,1,*)
     window = torch.cat([conv_state, x], dim=1)      # (B,W,d_inner)
     xc = torch.einsum("bwc,wc->bc", window, p.conv_x)
     new_conv = window[:, 1:]
@@ -221,5 +225,5 @@ def ssm_decode(p: SSM, u: torch.Tensor, conv_state: torch.Tensor,
     new_state = decay[..., None, None] * ssm_state + upd
     y = torch.einsum("bn,bhnp->bhp", Cn, new_state)  # (B,H,P)
     y = y + xh * p.D[None, :, None]
-    y = y.reshape(B, 1, cfg.d_inner).to(u.dtype)
-    return _gated_norm(y, z, p, u.dtype, cfg), new_conv, new_state
+    y = y.reshape(B, 1, H * P).to(u.dtype)
+    return _gated_norm(y, z, p, u.dtype, cfg, group), new_conv, new_state

@@ -55,19 +55,22 @@ decode is plain torch (``attention_decode``, ``cross_attention_decode``).
 The xLSTM family is plain torch throughout.  The paged ``Engine`` serves
 the dense and MoE families, as the JAX engine does.
 
-Under a mesh (``dist.sharding.use_mesh``) ``forward``, ``loss`` and
-``prefill`` compute on each rank's local blocks: ``shard_`` (or
-``local_params``) cuts them by ``shardings``, which are the JAX package's
-``param_pspecs`` under the ambient rules, with ``d_inner`` following
-``ssm_heads``, and records the layout (``tp``, a ``TPLayout``) that the
-model hands its layers.  The dense, MoE (``parallelism="tp"`` or ``"ep"``)
-and hybrid families run tensor-parallel over the ``model`` axis
-(``models.layers``, ``models.moe``, ``models.ssm``); a rank's batch is its
-data block, and ``loss`` is its NLL over the token count it is given
-(``train.step`` passes the data ranks' global count).  Decode and the
-xLSTM, encoder-decoder and VLM families under a model axis of more than
-one rank, and parameter layouts that split ``embed`` or ``layers`` (the
-``fsdp`` profile, zero1), raise (ROADMAP.md A21).
+Under a mesh (``dist.sharding.use_mesh``) ``forward``, ``loss``,
+``prefill`` and ``decode`` compute on each rank's local blocks: ``shard_``
+(or ``local_params``) cuts them by ``shardings``, which are the JAX
+package's ``param_pspecs`` under the ambient rules, with ``d_inner``
+following ``ssm_heads`` in a Mamba2 block, and records the layout (``tp``,
+a ``TPLayout``) that the model hands its layers.  Every family runs
+tensor-parallel over the ``model`` axis (``models.layers``, ``models.moe``
+with either dispatch, ``models.ssm``, ``models.xlstm``); a rank's batch is
+its data block, and ``loss`` is its NLL over the token count it is given
+(``train.step`` passes the data ranks' global count).  Under the ``fsdp``
+profile (``FSDP_RULES``) a parameter's ``embed`` dim is split over the
+data axis and gathered where it is read (``Gathered``, ``fsdp``), inside a
+layer's remat region.  A cache under a mesh is the rank's blocks
+(``init_cache``): its kv heads (``DECODE_RULES``) or, where ``kv_seq``
+splits, its positions of every kv head, whose decode merges the ranks'
+partial attentions (``layers.attention_decode``, ``_seq_split``).
 
 Parameters are made with ``requires_grad=False``, so serving builds no
 autograd graph.  Training hands ``loss`` its own leaves (``params``: the
@@ -81,26 +84,27 @@ from __future__ import annotations
 import dataclasses
 import math
 from types import SimpleNamespace
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
-from ..dist.collectives import gather_from_group
-from ..dist.sharding import (NO_TP, AbstractMesh, NotPorted, PartitionSpec,
-                             Rules, TPLayout, active_mesh, active_rules,
-                             data_ways, local_block, logical_to_pspec,
-                             mesh_sizes, model_group, spec_shards, tp_layout)
+from ..dist.collectives import gather_from_group, gather_shards, group_size
+from ..dist.sharding import (NO_TP, AbstractMesh, PartitionSpec, Rules,
+                             TPLayout, active_mesh, axis_group, axis_rank,
+                             data_ways, entry_axes, local_block,
+                             logical_to_pspec, spec_shards, tp_layout)
 from ..kernels import ops
 from .common import (ArrayDef, LeafSharding, leaf_axes, module_defs,
                      param_shardings, tree_map)
 from .config import ModelConfig, ShapeConfig
-from .layers import (attention, attention_decode, attention_out,
-                     chunked_lm_loss, cross_attention_decode, embed_tokens,
-                     norm, param, project, rope_freqs,
-                     self_attention_qkv, swiglu)
+from .layers import (NO_SPLIT, SeqSplit, attention, attention_decode,
+                     attention_out, chunked_lm_loss, cross_attention_decode,
+                     cross_attention_qkv, embed_tokens, kv_for_cache, norm,
+                     param, project, rope_freqs, self_attention_qkv, swiglu,
+                     write_positions)
 from .moe import MoEConfig, moe, moe_decode
 from .ssm import SSM, SSMConfig, ssm_decode, ssm_forward
 from .xlstm import (MLSTM, SLSTM, XLSTMConfig, mlstm_decode, mlstm_parallel,
@@ -109,6 +113,8 @@ from .xlstm import (MLSTM, SLSTM, XLSTMConfig, mlstm_decode, mlstm_parallel,
 FAMILIES = ("dense", "moe", "hybrid", "xlstm", "encdec", "vlm")
 # The sLSTM state's cache leaves, in the order of its (c, n, h, m) tuple.
 SLSTM_STATE = ("sc", "sn", "sh", "sm")
+# The logical axes of a KV cache leaf (``repro/models/transformer.py``).
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
 
 
 class RMSNorm(nn.Module):
@@ -245,14 +251,51 @@ class SLSTMLayer(nn.Module):
         self.slstm = SLSTM(xl_cfg, device, dtype)
 
 
-def _refuse_layout(mesh, rules: Rules) -> None:
-    """Parameter layouts that split ``embed`` or the layer stack (the
-    ``fsdp`` profile, zero1) on a mesh of more than one rank raise."""
-    if any(s > 1 for s in mesh_sizes(mesh).values()) and (
-            rules.get("embed") or rules.get("layers")):
-        raise NotPorted("a parameter layout that splits embed or the layer "
-                        "stack (the fsdp profile, zero1) is not ported yet "
-                        "(ROADMAP.md A21)")
+def fsdp_dims(shardings: Mapping) -> Dict[str, int]:
+    """Per parameter split over the ``data`` axis (the ``fsdp`` profile's
+    ``embed``), the dim its shards lie along; a layout that splits the
+    layer stack or splits a dim over a data axis jointly with another
+    raises (zero1 splits the moments' layer stack, never the
+    parameters')."""
+    out = {}
+    for name, sh in shardings.items():
+        if sh.layer_split:
+            raise ValueError(f"the rules split the layer stack of "
+                             f"{name}: only the moments' may split "
+                             f"(zero1, AdamW.init)")
+        for dim, entry in enumerate(sh.spec):
+            axes = entry_axes(entry)
+            if not {"pod", "data"} & set(axes):
+                continue
+            if axes != ("data",):
+                raise ValueError(f"{name} splits dim {dim} over {axes}: "
+                                 f"the parameter gather runs over 'data' "
+                                 f"alone")
+            out[name] = dim
+    return out
+
+
+class Gathered(Mapping):
+    """The parameters as the layers read them under the ``fsdp`` profile:
+    a tensor split over the data axis (``dims``: name -> dim) is
+    all-gathered over ``group`` each time it is read
+    (``dist.collectives.gather_shards``: its gradient reduce-scattered),
+    any other returned as it is."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor],
+                 dims: Mapping[str, int], group):
+        self._params, self._dims, self._group = params, dims, group
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        t = self._params[name]
+        dim = self._dims.get(name)
+        return t if dim is None else gather_shards(t, dim, self._group)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._params)
+
+    def __len__(self) -> int:
+        return len(self._params)
 
 
 def _layer_tree(params: Mapping[str, torch.Tensor], prefix: str,
@@ -290,10 +333,13 @@ class Model(nn.Module):
     ``D`` and the xLSTM gates in f32), uninitialised until ``init`` or
     ``load_state_dict``."""
 
-    # The layout the layers compute on, and the whole parameter defs:
-    # set by ``shard_``.
+    # The layout the layers compute on, the whole parameter defs, and the
+    # parameters the fsdp profile gathers over the data group (name ->
+    # dim): set by ``shard_``.
     tp: TPLayout = NO_TP
     _whole_defs: Optional[Dict] = None
+    fsdp: Mapping[str, int] = {}
+    _fsdp_group = None
 
     def __init__(self, cfg: ModelConfig, device: DeviceLike = None):
         super().__init__()
@@ -373,6 +419,8 @@ class Model(nn.Module):
         if self.ssm_cfg is not None:
             out["d_inner"] = self.ssm_cfg.d_inner
             out["ssm_heads"] = self.ssm_cfg.n_heads
+        if self.xl_cfg is not None:
+            out["d_inner"] = self.xl_cfg.d_inner
         return out
 
     def shardings(self, mesh, rules: Optional[Rules] = None
@@ -401,9 +449,10 @@ class Model(nn.Module):
                      rank: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """This rank's block of each whole tensor of ``tensors`` (named as
         the parameters are) on ``mesh`` (on an ``AbstractMesh``, rank
-        ``rank``'s, default 0)."""
-        _refuse_layout(mesh, active_rules() if rules is None else rules)
+        ``rank``'s, default 0).  A layout that splits the layer stack
+        raises (``fsdp_dims``)."""
         sh = self.shardings(mesh, rules)
+        fsdp_dims(sh)
         out = {}
         for name, t in tensors.items():
             s = sh[name]
@@ -414,9 +463,10 @@ class Model(nn.Module):
     @torch.no_grad()
     def shard_(self, mesh=None, rules: Optional[Rules] = None) -> "Model":
         """Replace every parameter by this rank's block on ``mesh``
-        (default: the ambient one), in place: what ``prefill`` and a
-        ``Trainer`` under the mesh read), and record the layout the layers
-        compute on (``tp``)."""
+        (default: the ambient one), in place: what ``prefill``, ``decode``
+        and a ``Trainer`` under the mesh read), and record the layout the
+        layers compute on (``tp``) and the parameters the fsdp profile
+        gathers (``fsdp``)."""
         mesh = active_mesh() if mesh is None else mesh
         defs = self.param_defs()
         named = dict(self.named_parameters())
@@ -426,27 +476,75 @@ class Model(nn.Module):
             p.data = local[name]
         self._whole_defs = defs
         self.tp = tp_layout(self.logical_sizes(), mesh, rules)
+        self.fsdp = fsdp_dims(self.shardings(mesh, rules))
+        self._fsdp_group = axis_group(mesh, "data") if self.fsdp else None
         return self
 
-    def _refuse_on_mesh(self, decode: bool = False) -> None:
-        """Refuse what is not ported yet (ROADMAP.md A21): decode and the
-        xLSTM, encoder-decoder and VLM families under a model axis of more
-        than one rank (the ambient mesh's or the layout ``shard_``
-        recorded), and parameter layouts that split ``embed`` or the layer
-        stack."""
+    def _view(self, params: Optional[Mapping[str, torch.Tensor]] = None
+              ) -> Mapping[str, torch.Tensor]:
+        """The parameters the layers read: ``params`` (state-dict names;
+        default the module's own), under the fsdp profile through
+        ``Gathered``.  Training reads a layer's inside its remat region,
+        so the recompute gathers again."""
+        P = dict(self.named_parameters()) if params is None else params
+        if not self.fsdp or isinstance(P, Gathered):
+            return P
+        return Gathered(P, self.fsdp, self._fsdp_group)
+
+    def _seq_split(self, cache_k: torch.Tensor) -> SeqSplit:
+        """How the KV cache block ``cache_k`` (n, B, S, K, dh) splits its
+        positions under the ambient mesh and rules: resolved on the whole
+        sizes ``init_cache`` (or ``prefill``, for the encoder memory)
+        recorded for the block's (B, S)."""
         mesh = active_mesh()
-        if model_group(mesh) is not None or self.tp.group is not None:
-            what = None
-            if decode:
-                what = "decode under a model axis (DECODE_RULES)"
-            elif self.cfg.family in ("xlstm", "encdec", "vlm"):
-                what = f"the {self.cfg.family} family under tensor parallelism"
-            if what is not None:
-                raise NotPorted(f"{what} is not ported yet (ROADMAP.md A21); "
-                                f"run it outside a mesh or on a model axis "
-                                f"of one rank")
-        if mesh is not None:
-            _refuse_layout(mesh, active_rules())
+        if mesh is None:
+            return NO_SPLIT
+        n, B, S, _, dh = cache_k.shape
+        whole = self.__dict__.get("_cache_sizes", {}).get((B, S))
+        Bw, Sw = whole or (B * data_ways(mesh), S)
+        seq = self._resolve_split(mesh, (n, Bw, Sw, dh))
+        if whole is None and seq.group is not None:
+            raise ValueError(f"a KV cache block of {S} positions whose "
+                             f"kv_seq splits: decode reads the layout "
+                             f"init_cache made")
+        return seq
+
+    def _resolve_split(self, mesh, shape: Tuple[int, int, int, int]
+                       ) -> SeqSplit:
+        """The ``SeqSplit`` of a KV leaf of whole (n, B, S, dh) on ``mesh``
+        under the ambient rules."""
+        n, B, S, dh = shape
+        spec = logical_to_pspec(KV_AXES, (n, B, S, self.cfg.kv_heads, dh),
+                                mesh)
+        axes = entry_axes(spec[2])
+        if not axes:
+            return NO_SPLIT
+        if len(axes) != 1:
+            raise ValueError(f"kv_seq split jointly over {axes}: a decode "
+                             f"step merges over one axis")
+        (axis,) = axes
+        return SeqSplit(axis_group(mesh, axis), axis_rank(mesh, axis),
+                        axis == "model")
+
+    def _memory_split(self, cache_k: torch.Tensor,
+                      Se: int) -> Tuple[SeqSplit, int]:
+        """(layout, positions a block holds) of the encoder memory of
+        ``Se`` positions that ``prefill`` writes beside the KV cache block
+        ``cache_k``: laid out as a KV leaf, its whole sizes recorded."""
+        mesh = active_mesh()
+        if mesh is None:
+            return NO_SPLIT, Se
+        n, B, S, _, dh = cache_k.shape
+        Bw = self.__dict__.get("_cache_sizes", {}).get(
+            (B, S), (B * data_ways(mesh), S))[0]
+        seq = self._resolve_split(mesh, (n, Bw, Se, dh))
+        blk = Se // _ways(seq)
+        self._record_cache((B, blk), (Bw, Se))
+        return seq, blk
+
+    def _record_cache(self, block: Tuple[int, int],
+                      whole: Tuple[int, int]) -> None:
+        self.__dict__.setdefault("_cache_sizes", {})[block] = whole
 
     @torch.no_grad()
     def init(self, generator: Optional[torch.Generator] = None) -> "Model":
@@ -538,6 +636,10 @@ class Model(nn.Module):
                           window=self.cfg.window, tp=self.tp)
         return h + swiglu(lp["mlp"], norm(lp["ln2"], h), self.tp)
 
+    def _ssm_layer(self, P: Mapping[str, torch.Tensor], i: int,
+                   x: torch.Tensor) -> torch.Tensor:
+        return self._ssm_body(*self._norm_block(P, "ssm_layers", i), x)
+
     def _run_hybrid_stack(self, P: Mapping[str, torch.Tensor],
                           x: torch.Tensor, positions: torch.Tensor,
                           freqs: torch.Tensor) -> torch.Tensor:
@@ -547,8 +649,7 @@ class Model(nn.Module):
         sp = self._shared(P)
         for layers, j in self._segments():
             for i in layers:
-                ln, lp = self._norm_block(P, "ssm_layers", i)
-                x = self._remat(self._ssm_body, ln, lp, x)
+                x = self._remat(self._ssm_layer, P, i, x)
             if j is not None:
                 x = self._attn_mlp_body(sp, x, positions, freqs)
         return x
@@ -571,9 +672,10 @@ class Model(nn.Module):
             out.append((range(n_s * per, n_m), None))
         return out
 
-    def _mlstm_body(self, ln: torch.Tensor, lp: SimpleNamespace,
-                    x: torch.Tensor) -> torch.Tensor:
-        return x + mlstm_parallel(lp, norm(ln, x), self.xl_cfg)
+    def _mlstm_layer(self, P: Mapping[str, torch.Tensor], i: int,
+                     x: torch.Tensor) -> torch.Tensor:
+        ln, lp = self._norm_block(P, "mlstm_layers", i)
+        return x + mlstm_parallel(lp, norm(ln, x), self.xl_cfg, tp=self.tp)
 
     def _run_xlstm_stack(self, P: Mapping[str, torch.Tensor],
                          x: torch.Tensor) -> torch.Tensor:
@@ -581,16 +683,19 @@ class Model(nn.Module):
         ``checkpoint`` when ``cfg.remat``, each sLSTM layer outside it."""
         for layers, j in self._xlstm_segments():
             for i in layers:
-                ln, lp = self._norm_block(P, "mlstm_layers", i)
-                x = self._remat(self._mlstm_body, ln, lp, x)
+                x = self._remat(self._mlstm_layer, P, i, x)
             if j is not None:
                 ln, sp = self._norm_block(P, "slstm_layers", j)
-                y, _ = slstm_forward(sp, norm(ln, x), self.xl_cfg)
+                y, _ = slstm_forward(sp, norm(ln, x), self.xl_cfg,
+                                     tp=self.tp)
                 x = x + y
         return x
 
     def _remat(self, body, *args):
-        """``body(*args)``, under ``checkpoint`` when ``cfg.remat``."""
+        """``body(*args)``, under ``checkpoint`` when ``cfg.remat``.  A
+        body given the parameters' mapping reads its layer's tensors
+        inside, so the fsdp profile's gathers run again in the
+        recompute."""
         if self.cfg.remat:
             return checkpoint(body, *args, use_reentrant=False)
         return body(*args)
@@ -608,24 +713,31 @@ class Model(nn.Module):
         -> the encoder's output (B, Se, d), each layer under ``checkpoint``
         when ``cfg.remat``.  Its self-attention is causal: the reference's
         ``_mask`` never reads the ``causal=False`` that ``_encode`` sets."""
-        P = dict(self.named_parameters()) if params is None else params
+        P = self._view(params)
         x = self._adapt(frames, P["audio_adapter.w"])
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
         freqs = self._freqs(x.device)
-        for i, layer in enumerate(self.enc_layers):
-            lp = _layer_tree(P, f"enc_layers.{i}.", layer)
-            x = self._remat(self._attn_mlp_body, lp, x, positions, freqs)
+        for i in range(len(self.enc_layers)):
+            x = self._remat(self._encoder_layer, P, i, x, positions, freqs)
         return x
 
-    def _encdec_body(self, lp: Mapping, x: torch.Tensor,
-                     positions: torch.Tensor, freqs: torch.Tensor,
-                     enc_out: torch.Tensor) -> torch.Tensor:
+    def _encoder_layer(self, P: Mapping[str, torch.Tensor], i: int,
+                       x: torch.Tensor, positions: torch.Tensor,
+                       freqs: torch.Tensor) -> torch.Tensor:
+        lp = _layer_tree(P, f"enc_layers.{i}.", self.enc_layers[i])
+        return self._attn_mlp_body(lp, x, positions, freqs)
+
+    def _encdec_layer(self, P: Mapping[str, torch.Tensor], i: int,
+                      x: torch.Tensor, positions: torch.Tensor,
+                      freqs: torch.Tensor,
+                      enc_out: torch.Tensor) -> torch.Tensor:
+        lp = _layer_tree(P, f"dec_layers.{i}.", self.dec_layers[i])
         h = x + attention(lp["attn"], norm(lp["ln1"], x), positions, freqs,
-                          window=self.cfg.window)
+                          window=self.cfg.window, tp=self.tp)
         h = h + attention(lp["xattn"], norm(lp["lnx"], h), positions, freqs,
-                          kv_x=enc_out)
-        return h + swiglu(lp["mlp"], norm(lp["ln2"], h))
+                          kv_x=enc_out, tp=self.tp)
+        return h + swiglu(lp["mlp"], norm(lp["ln2"], h), self.tp)
 
     def _frontend(self, patches: Optional[torch.Tensor],
                   frames: Optional[torch.Tensor], need: bool) -> None:
@@ -666,9 +778,8 @@ class Model(nn.Module):
         state-dict names to the tensors to use (default: the module's
         own).  The VLM family takes ``patches`` (B, P, d), S = P + T; the
         encoder-decoder ``frames`` (B, Se, d), S = T."""
-        P = dict(self.named_parameters()) if params is None else params
+        P = self._view(params)
         self._frontend(patches, frames, need=True)
-        self._refuse_on_mesh()
         x = self._embed_inputs(P, tokens, patches)
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -679,16 +790,20 @@ class Model(nn.Module):
         if fam == "hybrid":
             return self._run_hybrid_stack(P, x, positions, freqs)
         if fam == "encdec":
-            enc_out = self.encode(frames, P)
-            for i, layer in enumerate(self.dec_layers):
-                lp = _layer_tree(P, f"dec_layers.{i}.", layer)
-                x = self._remat(self._encdec_body, lp, x, positions, freqs,
-                                enc_out)
+            enc_out = self.encode(frames, params)
+            for i in range(len(self.dec_layers)):
+                x = self._remat(self._encdec_layer, P, i, x, positions,
+                                freqs, enc_out)
             return x
         for i in range(self.cfg.n_layers):
-            lp = self._layer_params(P, i)
-            x = self._remat(self._dense_body, lp, x, positions, freqs)
+            x = self._remat(self._dense_layer, P, i, x, positions, freqs)
         return x
+
+    def _dense_layer(self, P: Mapping[str, torch.Tensor], i: int,
+                     x: torch.Tensor, positions: torch.Tensor,
+                     freqs: torch.Tensor) -> torch.Tensor:
+        return self._dense_body(self._layer_params(P, i), x, positions,
+                                freqs)
 
     def loss(self, batch: Mapping[str, torch.Tensor],
              params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -703,6 +818,7 @@ class Model(nn.Module):
         patches = batch.get("patches")
         x = self.forward(batch["tokens"], P, patches=patches,
                          frames=batch.get("frames"))
+        P = self._view(P)
         labels = batch["labels"]
         if patches is not None:
             pad = labels.new_full((labels.shape[0], patches.shape[1]), -1)
@@ -792,15 +908,20 @@ class Model(nn.Module):
 
         return tree_map(one, self.cache_defs(batch, seq))
 
-    def init_cache(self, batch: int, seq: int) -> Dict:
+    def init_cache(self, batch: int, seq: int,
+                   whole_batch: Optional[int] = None) -> Dict:
         """The contiguous cache of ``cache_defs``: zeros on the model's
-        device.  Under a mesh ``batch`` is the rank's rows and the cache
-        its blocks (``cache_specs``), as ``prefill`` there fills them."""
+        device.  Under a mesh ``batch`` is the rank's rows (``whole_batch``
+        the global rows, default ``batch`` times the data ways) and the
+        cache its blocks (``cache_specs``), as ``prefill`` there fills
+        them; the whole sizes of its KV blocks are recorded, for
+        ``decode`` to read their layout."""
         mesh = active_mesh()
         if mesh is None:
             return tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
                                                   device=self.device),
                             self.cache_defs(batch, seq))
+
         def block(pair):
             d, spec = pair
             shape = [n // spec_shards((e,), mesh) if e is not None else n
@@ -808,8 +929,14 @@ class Model(nn.Module):
                          len(d.shape) - len(spec)))]
             return torch.zeros(shape, dtype=d.dtype, device=self.device)
 
-        return tree_map(block, self.cache_specs(batch * data_ways(mesh), seq,
-                                                mesh))
+        B = batch * data_ways(mesh) if whole_batch is None else whole_batch
+        out = tree_map(block, self.cache_specs(B, seq, mesh))
+        if "kv" in out:
+            k = out["kv"]["k"]
+            W = self.cfg.window
+            self._record_cache((k.shape[1], k.shape[2]),
+                               (B, seq if W is None else min(seq, W)))
+        return out
 
     def input_specs(self, shape: ShapeConfig) -> Dict:
         """Stand-ins on the ``meta`` device for every input of the step the
@@ -853,19 +980,16 @@ class Model(nn.Module):
             out.append((range(n_seg * k, self.cfg.n_layers), None))
         return out
 
-    def _shared(self, params: Optional[Mapping[str, torch.Tensor]] = None
-                ) -> Dict:
-        """The shared block's tensors, nested as the JAX tree is: from
-        ``params`` (state-dict names) or the module's own."""
-        if params is None:
-            params = dict(self.shared_attn.named_parameters(
-                prefix="shared_attn"))
-        return _layer_tree(params, "shared_attn.", self.shared_attn)
+    def _shared(self, P: Mapping[str, torch.Tensor]) -> Dict:
+        """The shared block's tensors of ``P`` (state-dict names), nested
+        as the JAX tree is."""
+        return _layer_tree(P, "shared_attn.", self.shared_attn)
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+    def _logits(self, P: Mapping[str, torch.Tensor],
+                x: torch.Tensor) -> torch.Tensor:
         """f32 logits (B, vocab) of x (B, d) after the final norm: whole on
         every rank, the vocab blocks gathered under tensor parallelism."""
-        logits = project(norm(self.final_ln.scale, x), self.head.w).to(
+        logits = project(norm(P["final_ln.scale"], x), P["head.w"]).to(
             torch.float32)
         return gather_from_group(logits, self.tp.over("vocab"))
 
@@ -890,31 +1014,33 @@ class Model(nn.Module):
         application's K/V at the head of its slot; the xLSTM family each
         layer's final state.  Those two need S at most their chunk (128)
         or a multiple of it.  Under a mesh ``tokens`` are the rank's data
-        block, the parameters and ``cache`` its blocks (``shard_``; the
-        cache's ``kv_heads`` and ``d_inner`` / ``ssm_heads`` split as the
-        parameters' do), and the logits are whole."""
+        block, the parameters and ``cache`` its blocks (``shard_``,
+        ``init_cache``), and the logits are whole: each family runs
+        tensor-parallel on the rank's heads, widths and channels, and the
+        cache blocks take what the ambient rules give the rank (its kv
+        heads, or, where ``kv_seq`` splits, its positions of every kv
+        head; an mLSTM state its rows of the key dim)."""
         self._frontend(patches, frames, need=False)
-        self._refuse_on_mesh()
+        P = self._view()
         fam = self.cfg.family
         if fam == "xlstm":
-            return self._prefill_xlstm(tokens, cache)
+            return self._prefill_xlstm(P, tokens, cache)
         if fam == "encdec":
-            return self._prefill_encdec(tokens, frames, cache)
+            return self._prefill_encdec(P, tokens, frames, cache)
         if fam != "hybrid":
-            P = dict(self.named_parameters())
-            return self._prefill_attn(self._embed_inputs(P, tokens, patches),
-                                      cache)
+            return self._prefill_attn(P, self._embed_inputs(P, tokens,
+                                                            patches), cache)
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         freqs = self._freqs(tokens.device)
-        x = embed_tokens(self.embed.tok, tokens, self.tp)
-        sp = self._shared()
+        x = embed_tokens(P["embed.tok"], tokens, self.tp)
+        sp = self._shared(P)
+        seq = self._seq_split(cache["kv"]["k"])
         for layers, j in self._segments():
             for i in layers:
-                lp = self.ssm_layers[i]
-                out, conv, ssm = ssm_forward(lp.ssm, norm(lp.ln.scale, x),
-                                             self.ssm_cfg, return_state=True,
-                                             tp=self.tp)
+                ln, lp = self._norm_block(P, "ssm_layers", i)
+                out, conv, ssm = ssm_forward(lp, norm(ln, x), self.ssm_cfg,
+                                             return_state=True, tp=self.tp)
                 x = x + out
                 cache["conv"][i] = conv.to(cache["conv"].dtype)
                 cache["ssm"][i] = ssm
@@ -922,9 +1048,9 @@ class Model(nn.Module):
                 continue
             x = self._self_attn_prefill(sp, x, cache["kv"]["k"][j],
                                         cache["kv"]["v"][j], positions,
-                                        freqs, None)
+                                        freqs, False, seq)
             x = x + swiglu(sp["mlp"], norm(sp["ln2"], x), self.tp)
-        return self._logits(x[:, -1]), cache
+        return self._logits(P, x[:, -1]), cache
 
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, cache: Dict, pos: int):
@@ -935,49 +1061,48 @@ class Model(nn.Module):
         as in the JAX package.  The encoder-decoder attends its encoder
         memory ``xk``/``xv`` after each self-attention
         (``cross_attention_decode``); the xLSTM family steps each layer's
-        state and ignores ``pos``.  Under a mesh with a model axis of more
-        than one rank it raises (ROADMAP.md A21)."""
-        self._refuse_on_mesh(decode=True)
+        state and ignores ``pos``.  Under a mesh the rows are the rank's
+        data block and ``cache`` its blocks (``init_cache``, ``prefill``):
+        tensor-parallel as ``prefill``, its KV blocks of the rank's kv
+        heads (``DECODE_RULES``) or of its positions (``kv_seq`` split:
+        the partial attentions merged, ``attention_decode``)."""
+        P = self._view()
         fam = self.cfg.family
         if fam == "xlstm":
-            return self._decode_xlstm(tokens, cache)
+            return self._decode_xlstm(P, tokens, cache)
         if fam == "encdec":
-            return self._decode_encdec(tokens, cache, pos)
+            return self._decode_encdec(P, tokens, cache, pos)
         if fam != "hybrid":
-            return self._decode_attn(tokens, cache, pos)
-        x = self.embed.tok[tokens.reshape(-1, 1).long()]        # (B,1,d)
+            return self._decode_attn(P, tokens, cache, pos)
+        x = embed_tokens(P["embed.tok"], tokens.reshape(-1, 1), self.tp)
         freqs = self._freqs(x.device)
-        sp = self._shared()
+        sp = self._shared(P)
+        ck, cv = cache["kv"]["k"], cache["kv"]["v"]
+        seq = self._seq_split(ck)
         for layers, j in self._segments():
             for i in layers:
-                lp = self.ssm_layers[i]
-                y, conv, ssm = ssm_decode(lp.ssm, norm(lp.ln.scale, x),
-                                          cache["conv"][i], cache["ssm"][i],
-                                          self.ssm_cfg)
+                ln, lp = self._norm_block(P, "ssm_layers", i)
+                y, conv, ssm = ssm_decode(lp, norm(ln, x), cache["conv"][i],
+                                          cache["ssm"][i], self.ssm_cfg,
+                                          tp=self.tp)
                 x = x + y
                 cache["conv"][i] = conv
                 cache["ssm"][i] = ssm
             if j is None:
                 continue
-            x = x + attention_decode(sp["attn"], norm(sp["ln1"], x),
-                                     cache["kv"]["k"][j],
-                                     cache["kv"]["v"][j], pos, freqs,
-                                     window=self.cfg.window)
-            x = x + swiglu(sp["mlp"], norm(sp["ln2"], x))
-        return self._logits(x[:, 0]), cache
-
-    def _decoder_layer(self, i: int):
-        """Layer i's tensors nested as the JAX layer tree is (the module's
-        own)."""
-        return self._layer_params(dict(self.layers[i].named_parameters(
-            prefix=f"layers.{i}")), i)
+            x = x + attention_decode(sp["attn"], norm(sp["ln1"], x), ck[j],
+                                     cv[j], pos, freqs,
+                                     window=self.cfg.window, tp=self.tp,
+                                     seq=seq)
+            x = x + swiglu(sp["mlp"], norm(sp["ln2"], x), self.tp)
+        return self._logits(P, x[:, 0]), cache
 
     def _ffn(self, lp: Mapping, h: torch.Tensor, decode: bool = False
              ) -> torch.Tensor:
         if self.moe_cfg is None:
             return swiglu(lp["mlp"], h, self.tp)
         if decode:
-            return moe_decode(lp["moe"], h, self.moe_cfg)
+            return moe_decode(lp["moe"], h, self.moe_cfg, tp=self.tp)
         return moe(lp["moe"], h, self.moe_cfg, tp=self.tp)
 
     def _check_prompt(self, S: int, slots: int, ring: bool) -> None:
@@ -988,7 +1113,8 @@ class Model(nn.Module):
                 f"{'exactly' if ring else 'at least'} {want} positions, got "
                 f"{slots} (init_cache(batch, seq) with seq >= {S})")
 
-    def _prefill_attn(self, x: torch.Tensor, cache: Dict):
+    def _prefill_attn(self, P: Mapping[str, torch.Tensor], x: torch.Tensor,
+                      cache: Dict):
         """The dense, MoE and VLM prefill (``_prefill_attn``) of the
         embedded prompt x (B, S, d): each layer's attention through the
         flash forward with the config's window, its roped K/V into the
@@ -997,166 +1123,194 @@ class Model(nn.Module):
         cfg = self.cfg
         S = x.shape[1]
         ck, cv = cache["kv"]["k"], cache["kv"]["v"]
+        seq = self._seq_split(ck)
         W = cfg.window
         ring = W is not None and S > W
-        self._check_prompt(S, ck.shape[2], ring)
+        self._check_prompt(S, ck.shape[2] * _ways(seq), ring)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        slots = (torch.arange(S - W, S, device=x.device) % W
-                 if ring else None)
         freqs = self._freqs(x.device)
         for i in range(cfg.n_layers):
-            lp = self._decoder_layer(i)
+            lp = self._layer_params(P, i)
             x = self._self_attn_prefill(lp, x, ck[i], cv[i], positions,
-                                        freqs, slots)
+                                        freqs, ring, seq)
             x = x + self._ffn(lp, norm(lp["ln2"], x))
-        return self._logits(x[:, -1]), cache
+        return self._logits(P, x[:, -1]), cache
 
     def _self_attn_prefill(self, lp: Mapping, x: torch.Tensor,
                            ck: torch.Tensor, cv: torch.Tensor,
                            positions: torch.Tensor, freqs: torch.Tensor,
-                           slots: Optional[torch.Tensor]) -> torch.Tensor:
+                           ring: bool, seq: SeqSplit) -> torch.Tensor:
         """x plus layer ``lp``'s causal self-attention over the prompt x
         (B, S, d) through the flash forward with the config's window, its
         roped K/V written into the layer's cache ``ck``/``cv`` (B, slots,
-        K, dh): at the head, or, given the ring's ``slots`` (S > W), only
-        the last W positions, position p at slot p % W.  Under tensor
-        parallelism on the rank's heads (``self_attention_qkv``): the
-        cache holds the kv heads the rank holds."""
+        K, dh): at the head, or, on a ``ring`` (S > W), only the last W
+        positions, position p at slot p % W.  Under tensor parallelism on
+        the rank's heads (``self_attention_qkv``): the cache block holds
+        the kv heads the rank holds, or, where ``seq`` splits its
+        positions over the model axis, its positions of every kv head."""
         S, W = x.shape[1], self.cfg.window
         h = norm(lp["ln1"], x)
         group, q, k, v, read = self_attention_qkv(lp["attn"], h, positions,
                                                   freqs, self.tp)
-        if slots is not None:
-            ck[:, slots] = k[:, S - W:].to(ck.dtype)
-            cv[:, slots] = v[:, S - W:].to(cv.dtype)
+        kk, vv = kv_for_cache(k, v, self.tp, seq)
+        if ring:
+            slots = [p % W for p in range(S - W, S)]
+            kk, vv = kk[:, S - W:], vv[:, S - W:]
         else:
-            ck[:, :S] = k.to(ck.dtype)
-            cv[:, :S] = v.to(cv.dtype)
+            slots = range(S)
+        write_positions(ck, kk, slots, seq)
+        write_positions(cv, vv, slots, seq)
         if read is not None:
             k, v = k[:, :, read], v[:, :, read]
         o = ops.flash_attention(q, k, v, causal=True, window=W)
         return x + attention_out(lp["attn"], o, group)
 
-    def _decode_attn(self, tokens: torch.Tensor, cache: Dict, pos: int):
+    def _decode_attn(self, P: Mapping[str, torch.Tensor],
+                     tokens: torch.Tensor, cache: Dict, pos: int):
         """The dense and MoE branch of ``decode``: a ring cache
         (``attention_decode_ring``) when the arch has a window and the cache
         holds at most that many positions, else attention over positions <=
         pos (and inside the window)."""
         cfg = self.cfg
         ck, cv = cache["kv"]["k"], cache["kv"]["v"]
-        ring = cfg.window is not None and ck.shape[2] <= cfg.window
-        x = self.embed.tok[tokens.reshape(-1, 1).long()]        # (B,1,d)
+        seq = self._seq_split(ck)
+        ring = (cfg.window is not None
+                and ck.shape[2] * _ways(seq) <= cfg.window)
+        x = embed_tokens(P["embed.tok"], tokens.reshape(-1, 1), self.tp)
         freqs = self._freqs(x.device)
         for i in range(cfg.n_layers):
-            lp = self._decoder_layer(i)
+            lp = self._layer_params(P, i)
             x = x + attention_decode(lp["attn"], norm(lp["ln1"], x), ck[i],
                                      cv[i], pos, freqs, window=cfg.window,
-                                     ring=ring)
+                                     ring=ring, tp=self.tp, seq=seq)
             x = x + self._ffn(lp, norm(lp["ln2"], x), decode=True)
-        return self._logits(x[:, 0]), cache
+        return self._logits(P, x[:, 0]), cache
 
-    def _own_tree(self, stack: str, i: int) -> Dict:
-        """Layer i of ``stack`` (``enc_layers``, ``dec_layers``), the
-        module's own tensors nested as the JAX layer tree is."""
-        layer = getattr(self, stack)[i]
-        return _layer_tree(dict(layer.named_parameters()), "", layer)
-
-    def _prefill_encdec(self, tokens: torch.Tensor, frames: torch.Tensor,
+    def _prefill_encdec(self, P: Mapping[str, torch.Tensor],
+                        tokens: torch.Tensor, frames: torch.Tensor,
                         cache: Dict):
         """The encoder-decoder branch of ``_prefill_attn``: the encoder over
         ``frames``, then each decoder layer's ``_self_attn_prefill`` (its
-        K/V into the cache at the head) and its cross attention through the flash forward over the encoder's output,
-        whose K/V become ``xk``/``xv`` at the frames' length Se (what the
-        JAX package's prefill returns)."""
+        K/V into the cache at the head) and its cross attention through
+        the flash forward over the encoder's output, whose K/V become
+        ``xk``/``xv`` at the frames' length Se (what the JAX package's
+        prefill returns): under a mesh the rank's block of them, as the
+        KV cache's."""
         cfg = self.cfg
         S = tokens.shape[1]
         ck, cv = cache["kv"]["k"], cache["kv"]["v"]
-        self._check_prompt(S, ck.shape[2], False)
-        enc_out = self.encode(frames)
+        seq = self._seq_split(ck)
+        self._check_prompt(S, ck.shape[2] * _ways(seq), False)
+        enc_out = self.encode(frames, P)
+        mseq, Se_blk = self._memory_split(ck, enc_out.shape[1])
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         freqs = self._freqs(tokens.device)
-        x = self.embed.tok[tokens.long()]
+        x = embed_tokens(P["embed.tok"], tokens, self.tp)
         xks, xvs = [], []
+        lo = mseq.rank * Se_blk
         for i in range(cfg.n_layers):
-            lp = self._own_tree("dec_layers", i)
+            lp = _layer_tree(P, f"dec_layers.{i}.", self.dec_layers[i])
             x = self._self_attn_prefill(lp, x, ck[i], cv[i], positions,
-                                        freqs, None)
+                                        freqs, False, seq)
             hx = norm(lp["lnx"], x)
-            xk = project(enc_out, lp["xattn"]["wk"])
-            xv = project(enc_out, lp["xattn"]["wv"])
-            xks.append(xk.to(ck.dtype))
-            xvs.append(xv.to(cv.dtype))
-            o = ops.flash_attention(project(hx, lp["xattn"]["wq"]), xk, xv,
-                                    causal=False)
-            x = x + project(o, lp["xattn"]["wo"], k=2)
-            x = x + swiglu(lp["mlp"], norm(lp["ln2"], x))
+            group, q, xk, xv, read = cross_attention_qkv(lp["xattn"], hx,
+                                                         enc_out, self.tp)
+            mk, mv = kv_for_cache(xk, xv, self.tp, mseq)
+            xks.append(mk[:, lo:lo + Se_blk].to(ck.dtype))
+            xvs.append(mv[:, lo:lo + Se_blk].to(cv.dtype))
+            if read is not None:
+                xk, xv = xk[:, :, read], xv[:, :, read]
+            o = ops.flash_attention(q, xk, xv, causal=False)
+            x = x + attention_out(lp["xattn"], o, group)
+            x = x + swiglu(lp["mlp"], norm(lp["ln2"], x), self.tp)
         cache["xk"] = torch.stack(xks)
         cache["xv"] = torch.stack(xvs)
-        return self._logits(x[:, -1]), cache
+        return self._logits(P, x[:, -1]), cache
 
-    def _decode_encdec(self, tokens: torch.Tensor, cache: Dict, pos: int):
+    def _decode_encdec(self, P: Mapping[str, torch.Tensor],
+                       tokens: torch.Tensor, cache: Dict, pos: int):
         """The encoder-decoder branch of ``decode``: per decoder layer,
         ``attention_decode`` over the self-attention cache at ``pos``, then
         ``cross_attention_decode`` over every row of ``xk``/``xv``, then
         the SwiGLU."""
         cfg = self.cfg
         ck, cv = cache["kv"]["k"], cache["kv"]["v"]
-        x = self.embed.tok[tokens.reshape(-1, 1).long()]        # (B,1,d)
+        seq, mseq = self._seq_split(ck), self._seq_split(cache["xk"])
+        x = embed_tokens(P["embed.tok"], tokens.reshape(-1, 1), self.tp)
         freqs = self._freqs(x.device)
         for i in range(cfg.n_layers):
-            lp = self._own_tree("dec_layers", i)
+            lp = _layer_tree(P, f"dec_layers.{i}.", self.dec_layers[i])
             x = x + attention_decode(lp["attn"], norm(lp["ln1"], x), ck[i],
-                                     cv[i], pos, freqs, window=cfg.window)
+                                     cv[i], pos, freqs, window=cfg.window,
+                                     tp=self.tp, seq=seq)
             x = x + cross_attention_decode(lp["xattn"], norm(lp["lnx"], x),
-                                           cache["xk"][i], cache["xv"][i])
-            x = x + swiglu(lp["mlp"], norm(lp["ln2"], x))
-        return self._logits(x[:, 0]), cache
+                                           cache["xk"][i], cache["xv"][i],
+                                           tp=self.tp, seq=mseq)
+            x = x + swiglu(lp["mlp"], norm(lp["ln2"], x), self.tp)
+        return self._logits(P, x[:, 0]), cache
 
-    def _prefill_xlstm(self, tokens: torch.Tensor, cache: Dict):
+    def _state_rows(self, state: torch.Tensor,
+                    block: torch.Tensor) -> torch.Tensor:
+        """The rank's block of a whole mLSTM state (C (B, H, dh, dh) or n
+        (B, H, dh)): its rows of the key dim (dim 2) where the cache's
+        block splits it."""
+        n = block.shape[2]
+        if n == state.shape[2]:
+            return state
+        return state[:, :, self.tp.rank * n:(self.tp.rank + 1) * n]
+
+    def _prefill_xlstm(self, P: Mapping[str, torch.Tensor],
+                       tokens: torch.Tensor, cache: Dict):
         """``_prefill_xlstm``: the xLSTM trunk with each layer's final
         state into the cache (mLSTM i: ``C``/``n`` [i]; sLSTM j:
         ``sc``/``sn``/``sh``/``sm`` [j]).  S must be at most the mLSTM
         chunk (128) or a multiple of it."""
-        x = self.embed.tok[tokens.long()]
+        x = embed_tokens(P["embed.tok"], tokens, self.tp)
         for layers, j in self._xlstm_segments():
             for i in layers:
-                lp = self.mlstm_layers[i]
-                out, C, n = mlstm_parallel(lp.mlstm, norm(lp.ln.scale, x),
-                                           self.xl_cfg, return_state=True)
+                ln, lp = self._norm_block(P, "mlstm_layers", i)
+                out, C, n = mlstm_parallel(lp, norm(ln, x), self.xl_cfg,
+                                           return_state=True, tp=self.tp)
                 x = x + out
-                cache["C"][i] = C
-                cache["n"][i] = n
+                cache["C"][i] = self._state_rows(C, cache["C"][i])
+                cache["n"][i] = self._state_rows(n, cache["n"][i])
             if j is None:
                 continue
-            sp = self.slstm_layers[j]
-            y, state = slstm_forward(sp.slstm, norm(sp.ln.scale, x),
-                                     self.xl_cfg)
+            ln, sp = self._norm_block(P, "slstm_layers", j)
+            y, state = slstm_forward(sp, norm(ln, x), self.xl_cfg,
+                                     tp=self.tp)
             x = x + y
             for name, t in zip(SLSTM_STATE, state):
                 cache[name][j] = t
-        return self._logits(x[:, -1]), cache
+        return self._logits(P, x[:, -1]), cache
 
-    def _decode_xlstm(self, tokens: torch.Tensor, cache: Dict):
+    def _decode_xlstm(self, P: Mapping[str, torch.Tensor],
+                      tokens: torch.Tensor, cache: Dict):
         """``_decode_xlstm``: one step of every mLSTM layer
         (``mlstm_decode``) and sLSTM layer (``slstm_decode``) from the
         cached states, written back in place."""
-        x = self.embed.tok[tokens.reshape(-1, 1).long()]        # (B,1,d)
+        x = embed_tokens(P["embed.tok"], tokens.reshape(-1, 1), self.tp)
         for layers, j in self._xlstm_segments():
             for i in layers:
-                lp = self.mlstm_layers[i]
-                y, C, n = mlstm_decode(lp.mlstm, norm(lp.ln.scale, x),
-                                       cache["C"][i], cache["n"][i],
-                                       self.xl_cfg)
+                ln, lp = self._norm_block(P, "mlstm_layers", i)
+                y, C, n = mlstm_decode(lp, norm(ln, x), cache["C"][i],
+                                       cache["n"][i], self.xl_cfg,
+                                       tp=self.tp)
                 x = x + y
                 cache["C"][i] = C
                 cache["n"][i] = n
             if j is None:
                 continue
-            sp = self.slstm_layers[j]
+            ln, sp = self._norm_block(P, "slstm_layers", j)
             state = tuple(cache[name][j] for name in SLSTM_STATE)
-            y, state = slstm_decode(sp.slstm, norm(sp.ln.scale, x), state,
-                                    self.xl_cfg)
+            y, state = slstm_decode(sp, norm(ln, x), state, self.xl_cfg,
+                                    tp=self.tp)
             x = x + y
             for name, t in zip(SLSTM_STATE, state):
                 cache[name][j] = t
-        return self._logits(x[:, 0]), cache
+        return self._logits(P, x[:, 0]), cache
+
+
+def _ways(seq: SeqSplit) -> int:
+    """How many blocks a cache's positions split into."""
+    return 1 if seq.group is None else group_size(seq.group)

@@ -18,6 +18,18 @@ stabiliser m starts at 0, so that prefill and decode agree on it exactly
 (the clamp makes the trajectory depend on the stabiliser).  The sLSTM's
 four recurrent products run as one batched product over the gates
 (``_slstm_cell``): each output entry is the same dot product JAX takes.
+
+Tensor parallelism (``tp``, a model's ``TPLayout`` whose ``model`` axis
+splits ``d_inner``): the mLSTM's ``w_up`` and ``w_z`` are the rank's
+columns of ``d_inner``, and ``w_q``, ``w_k``, ``w_v``, ``w_i`` and ``w_f``
+(``("d_inner", None)``) its rows, whose partial products are reduced over
+the group: the recurrence runs on the whole q, k, v and gates on every
+rank.  Its output enters the rank's columns again (``split_to_group``),
+the norm's sum of squares over ``d_inner`` is reduced, and ``w_down`` is
+row-parallel.  A decode state block splits the key dim of C and n where
+the cache's ``d_inner`` entry does: the rank's rows of the products over
+it are reduced.  The sLSTM's gates stay whole; its FFN ``w_ff1`` /
+``w_ff2`` is column- / row-parallel over ``mlp``.
 """
 
 from __future__ import annotations
@@ -31,6 +43,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.collectives import (copy_to_group, reduce_from_group,
+                                split_to_group)
+from ..dist.sharding import NO_TP, TPLayout
 from .layers import param, project
 
 F32 = torch.float32
@@ -101,28 +116,52 @@ class SLSTM(nn.Module):
 
 
 def _scaled_norm(y: torch.Tensor, scale: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
+                 dtype: torch.dtype, group=None,
+                 width: int = 0) -> torch.Tensor:
     """The mLSTM's output norm: f32 mean of squares over the last axis,
-    eps 1e-6, times ``scale``, cast to ``dtype``."""
+    eps 1e-6, times ``scale``, cast to ``dtype``.  Under tensor
+    parallelism y holds the rank's columns of the whole ``width``: the
+    sum of squares is reduced over ``group`` (its gradient too)."""
     yf = y.to(F32)
-    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    if group is None:
+        var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    else:
+        ss = torch.sum(torch.square(yf), dim=-1, keepdim=True)
+        var = copy_to_group(reduce_from_group(ss, group), group) / width
     return (yf * torch.rsqrt(var + 1e-6) * scale).to(dtype)
 
 
-def _mlstm_inputs(p, x: torch.Tensor, cfg: XLSTMConfig):
-    """z, q, k, v (B, S, H, dh) in x's dtype, the clipped input gate and
-    the forget gate's log-sigmoid (B, S, H) in f32."""
+def _mlstm_inputs(p, x: torch.Tensor, cfg: XLSTMConfig, group=None):
+    """z (B, S, d_inner: the rank's columns under tensor parallelism) and
+    q, k, v (B, S, H, dh), whole, in x's dtype, the clipped input gate and
+    the forget gate's log-sigmoid (B, S, H) in f32.  Under tensor
+    parallelism x enters ``group`` and the row-parallel products are
+    reduced over it."""
     B, S, _ = x.shape
     H, dh = cfg.n_heads, cfg.head_dim
+    x = copy_to_group(x, group)
     up = project(x, p.w_up)
     z = project(x, p.w_z)
-    q = project(up, p.w_q).reshape(B, S, H, dh)
-    k = project(up, p.w_k).reshape(B, S, H, dh)
-    v = project(up, p.w_v).reshape(B, S, H, dh)
+    q = reduce_from_group(project(up, p.w_q), group).reshape(B, S, H, dh)
+    k = reduce_from_group(project(up, p.w_k), group).reshape(B, S, H, dh)
+    v = reduce_from_group(project(up, p.w_v), group).reshape(B, S, H, dh)
     upf = up.to(F32)
-    ig = torch.clamp(project(upf, p.w_i) + p.b_i, -ICLIP, ICLIP)
-    flog = F.logsigmoid(project(upf, p.w_f) + p.b_f)
+    ig = torch.clamp(reduce_from_group(project(upf, p.w_i), group) + p.b_i,
+                     -ICLIP, ICLIP)
+    flog = F.logsigmoid(reduce_from_group(project(upf, p.w_f), group)
+                        + p.b_f)
     return z, q, k, v, ig, flog
+
+
+def _mlstm_out(p, y: torch.Tensor, z: torch.Tensor, x: torch.Tensor,
+               cfg: XLSTMConfig, group, rank: int) -> torch.Tensor:
+    """The mLSTM's output from its whole recurrence output y (B, S,
+    d_inner): gated by silu(z), normed, ``w_down``; under tensor
+    parallelism on the rank's columns, ``w_down`` row-parallel."""
+    y = split_to_group(y, group, rank)
+    y = y.to(x.dtype) * F.silu(z.to(F32)).to(x.dtype)
+    y = _scaled_norm(y, p.norm, x.dtype, group, cfg.d_inner)
+    return reduce_from_group(project(y, p.w_down), group)
 
 
 def _mlstm_chunk(qc, kc, vc, ic, fc, C, n, scale: float):
@@ -161,18 +200,20 @@ def _mlstm_chunk(qc, kc, vc, ic, fc, C, n, scale: float):
 
 
 def mlstm_parallel(p, x: torch.Tensor, cfg: XLSTMConfig,
-                   return_state: bool = False):
+                   return_state: bool = False, tp: TPLayout = NO_TP):
     """Chunkwise-parallel mLSTM (``mlstm_parallel``).  x: (B, S, d) ->
     (B, S, d); with ``return_state`` also the final C (B, H, dh, dh) and n
-    (B, H, dh) in f32, for decode to continue.  S must be at most the
-    chunk or a multiple of it, as the reference asserts."""
+    (B, H, dh) in f32, for decode to continue (whole on every rank under
+    tensor parallelism).  S must be at most the chunk or a multiple of
+    it, as the reference asserts."""
     B, S, _ = x.shape
     H, dh = cfg.n_heads, cfg.head_dim
     Q = min(cfg.chunk, S)
     if S % Q:
         raise ValueError(f"mLSTM prefill of {S} positions: S must be at "
                          f"most the chunk ({cfg.chunk}) or a multiple of it")
-    z, q, k, v, ig, flog = _mlstm_inputs(p, x, cfg)
+    group = tp.over("d_inner", cfg.d_inner)
+    z, q, k, v, ig, flog = _mlstm_inputs(p, x, cfg, group)
     scale = 1.0 / math.sqrt(dh)
     C = torch.zeros((B, H, dh, dh), dtype=F32, device=x.device)
     n = torch.zeros((B, H, dh), dtype=F32, device=x.device)
@@ -187,33 +228,38 @@ def mlstm_parallel(p, x: torch.Tensor, cfg: XLSTMConfig,
             y, C, n = _mlstm_chunk(*args, scale)
         ys.append(y)
     y = torch.cat(ys, dim=1).reshape(B, S, cfg.d_inner)
-    y = y.to(x.dtype) * F.silu(z.to(F32)).to(x.dtype)
-    out = project(_scaled_norm(y, p.norm, x.dtype), p.w_down)
+    out = _mlstm_out(p, y, z, x, cfg, group, tp.rank)
     if return_state:
         return out, C, n
     return out
 
 
 def mlstm_decode(p, x: torch.Tensor, C: torch.Tensor, n: torch.Tensor,
-                 cfg: XLSTMConfig):
+                 cfg: XLSTMConfig, tp: TPLayout = NO_TP):
     """One-token mLSTM step (``mlstm_decode``).  x: (B, 1, d); C (B, H,
-    dh, dh) and n (B, H, dh) f32.  Returns (out (B, 1, d), C, n)."""
+    dh, dh) and n (B, H, dh) f32.  Returns (out (B, 1, d), C, n).  Under
+    tensor parallelism C and n may be the rank's rows of their key dim
+    (the cache's ``d_inner`` entry): the products over it are reduced."""
     B = x.shape[0]
     dh = cfg.head_dim
-    z, q, k, v, ig, flog = _mlstm_inputs(p, x, cfg)
+    group = tp.over("d_inner", cfg.d_inner)
+    z, q, k, v, ig, flog = _mlstm_inputs(p, x, cfg, group)
     q1 = q[:, 0].to(F32) / math.sqrt(dh)
     k1, v1 = k[:, 0].to(F32), v[:, 0].to(F32)
+    rows = tp.over("d_inner", dh)
+    if rows is not None:                    # the rank's rows of C and n
+        lo = tp.rank * C.shape[2]
+        q1, k1 = (t[..., lo:lo + C.shape[2]] for t in (q1, k1))
     f1, i1 = torch.exp(flog[:, 0]), torch.exp(ig[:, 0])     # (B,H)
     C_new = f1[..., None, None] * C + i1[..., None, None] * torch.einsum(
         "bhd,bhe->bhde", k1, v1)
     n_new = f1[..., None] * n + i1[..., None] * k1
-    y = torch.einsum("bhd,bhde->bhe", q1, C_new)
-    denom = torch.abs(torch.einsum("bhd,bhd->bh", q1, n_new))[..., None]
+    y = reduce_from_group(torch.einsum("bhd,bhde->bhe", q1, C_new), rows)
+    denom = torch.abs(reduce_from_group(
+        torch.einsum("bhd,bhd->bh", q1, n_new), rows))[..., None]
     y = y / torch.clamp(denom, min=1.0)
-    y = y.reshape(B, 1, cfg.d_inner).to(x.dtype)
-    y = y * F.silu(z.to(F32)).to(x.dtype)
-    out = project(_scaled_norm(y, p.norm, x.dtype), p.w_down)
-    return out, C_new, n_new
+    y = y.reshape(B, 1, cfg.d_inner)
+    return _mlstm_out(p, y, z, x, cfg, group, tp.rank), C_new, n_new
 
 
 def _slstm_cell(pre_t: torch.Tensor, R: torch.Tensor, bias: torch.Tensor,
@@ -241,11 +287,13 @@ def _slstm_cell(pre_t: torch.Tensor, R: torch.Tensor, bias: torch.Tensor,
 
 
 def slstm_forward(p, x: torch.Tensor, cfg: XLSTMConfig,
-                  state: Optional[SLSTMState] = None):
+                  state: Optional[SLSTMState] = None,
+                  tp: TPLayout = NO_TP):
     """The sLSTM over the sequence (``slstm_forward``), then its gated FFN
     (tanh-approximated gelu in f32, as ``jax.nn.gelu``).  x: (B, S, d).
     ``state`` (c, n, h, m) defaults to zeros, m included.  Returns (out
-    (B, S, d), final state)."""
+    (B, S, d), final state).  Under tensor parallelism the FFN runs on the
+    rank's columns of ``mlp`` and its row-parallel product is reduced."""
     B, S, d = x.shape
     H = cfg.n_heads
     dh = d // H
@@ -262,12 +310,14 @@ def slstm_forward(p, x: torch.Tensor, cfg: XLSTMConfig,
         state = _slstm_cell(pre[:, t], R, bias, state)
         hs.append(state[2])
     y = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    hff = project(y, p.w_ff1)
+    group = tp.over("mlp", int(d * cfg.slstm_ff_factor))
+    hff = project(copy_to_group(y, group), p.w_ff1)
     hff = F.gelu(hff.to(F32), approximate="tanh").to(x.dtype)
-    return project(hff, p.w_ff2), state
+    return reduce_from_group(project(hff, p.w_ff2), group), state
 
 
-def slstm_decode(p, x: torch.Tensor, state: SLSTMState, cfg: XLSTMConfig):
+def slstm_decode(p, x: torch.Tensor, state: SLSTMState, cfg: XLSTMConfig,
+                 tp: TPLayout = NO_TP):
     """One-token sLSTM step (``slstm_decode``): ``slstm_forward`` over one
     position from ``state``."""
-    return slstm_forward(p, x, cfg, state=state)
+    return slstm_forward(p, x, cfg, state=state, tp=tp)

@@ -18,10 +18,16 @@ parameter tensors it is given (one leaf's f32 temporaries at a time,
 instead of a second copy of the whole state) and returns them.  The step
 count and the learning rate live on the host, as f32 numpy scalars.
 
-Under tensor parallelism the leaves are a rank's blocks: ``update``'s
-``split`` names the tensor-parallel group and the leaves split over it,
-whose sums of squares are summed over the group; the leaves whole on
-every rank count once.
+Under a mesh the leaves are a rank's blocks: ``update``'s ``split`` names,
+for each set of groups (the model group, the fsdp profile's data group, or
+both), the leaves split over them, whose sums of squares are summed over
+those groups; the leaves whole on every rank count once.  zero1
+(``MomentLayout``, the JAX dry run's moments with ``layers`` over
+``data``): ``init`` allocates only the moments of the rank's layers, a
+layer's parameters are updated by the data rank that owns its moments
+(gathered whole over the data group first where the fsdp profile splits
+them) and broadcast from it to the group; the other leaves keep their
+moments on every rank.
 
 Moments are first-class allocation sites for the tiering runtime: the
 trainer registers them in groups keyed like the parameters.
@@ -32,20 +38,40 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import (Any, Callable, Collection, Dict, Mapping, NamedTuple,
-                    Optional, Tuple, Union)
+                    Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
 
-from ..dist.collectives import all_reduce
+from ..dist.collectives import (all_gather_dim, all_reduce, broadcast,
+                                group_size)
 
 F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class MomentLayout:
+    """zero1's moments on a data group: ``owner`` maps each parameter
+    whose moments one data rank holds (its layer's) to that rank on
+    ``group``; ``gather`` a parameter whose block splits over the group
+    along a dim its moments do not (the fsdp profile) to that dim.  This
+    rank is ``rank`` on ``group``; a parameter absent from ``owner`` has
+    its moments on every rank, as its block."""
+
+    group: Any
+    rank: int
+    owner: Mapping[str, int]
+    gather: Mapping[str, int]
+
+    def holds(self, name: str) -> bool:
+        return self.owner.get(name, self.rank) == self.rank
 
 
 class AdamWState(NamedTuple):
     step: torch.Tensor                 # () int32 on the host
     m: Dict[str, torch.Tensor]
     v: Dict[str, torch.Tensor]
+    layout: Optional[MomentLayout] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,13 +83,22 @@ class AdamW:
     weight_decay: float = 0.1
     grad_clip: Optional[float] = 1.0
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=F32, device=p.device)
+    def init(self, params: Mapping[str, torch.Tensor],
+             layout: Optional[MomentLayout] = None) -> AdamWState:
+        """Zero moments in f32 for ``params``; under zero1 (``layout``)
+        only for the leaves this rank holds moments of, each the shape of
+        its moments' block."""
+        def zeros(name, p):
+            shape = list(p.shape)
+            if layout is not None and name in layout.gather:
+                shape[layout.gather[name]] *= group_size(layout.group)
+            return torch.zeros(shape, dtype=F32, device=p.device)
 
+        held = [n for n in params if layout is None or layout.holds(n)]
         return AdamWState(step=torch.zeros((), dtype=torch.int32),
-                          m={n: zeros(p) for n, p in params.items()},
-                          v={n: zeros(p) for n, p in params.items()})
+                          m={n: zeros(n, params[n]) for n in held},
+                          v={n: zeros(n, params[n]) for n in held},
+                          layout=layout)
 
     def _lr(self, step: int) -> np.float32:
         return np.float32(self.lr(step) if callable(self.lr) else self.lr)
@@ -72,22 +107,27 @@ class AdamW:
     def update(self, grads: Mapping[str, torch.Tensor], state: AdamWState,
                params: Mapping[str, torch.Tensor],
                ndim: Optional[Mapping[str, int]] = None,
-               split: Optional[Tuple[Any, Collection[str]]] = None):
+               split: Sequence[Tuple[Sequence[Any], Collection[str]]] = ()):
         """One step.  Returns (params, state, grad_norm); params and the
         state's moments are the tensors given, updated in place.
         ``ndim``: each leaf's rank for the decay rule (default its own).
-        ``split``: (tensor-parallel group, the names of the leaves split
-        over it) when the leaves are a rank's blocks."""
+        ``split``: (groups, the names of the leaves split over them) pairs
+        when the leaves are a rank's blocks: their sums of squares are
+        summed over each of the groups in turn."""
         step = state.step + 1
         t = np.float32(int(step))
         if self.grad_clip is not None:
-            group, names = split if split is not None else (None, ())
             sq = {n: torch.sum(torch.square(g.to(F32)))
                   for n, g in grads.items()}
+            names = set().union(*(n for _, n in split))
             total = sum(v for n, v in sq.items() if n not in names)
-            local = [v for n, v in sq.items() if n in names]
-            if local:
-                total = all_reduce(sum(local), group) + total
+            for groups, part in split:
+                local = [v for n, v in sq.items() if n in part]
+                if local:
+                    local = sum(local)
+                    for group in groups:
+                        local = all_reduce(local, group)
+                    total = local + total
             gnorm = torch.sqrt(total)
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         else:
@@ -99,17 +139,41 @@ class AdamW:
         # f32 on the host, as JAX computes 1 - b ** step in f32.
         c1 = float(np.float32(1) - np.float32(b1) ** t)
         c2 = float(np.float32(1) - np.float32(b2) ** t)
+        lay = state.layout
         for name, p in params.items():
-            g = grads[name].to(F32) * scale
-            m, v = state.m[name], state.v[name]
-            m.mul_(b1).add_(g * (1 - b1))
-            v.mul_(b2).add_(torch.square(g).mul_(1 - b2))
-            delta = (m / c1).div_((v / c2).sqrt_().add_(self.eps))
             rank = p.dim() if ndim is None else ndim[name]
-            if self.weight_decay and rank > 1:
-                delta.add_(p.to(F32) * self.weight_decay)
-            p.copy_(p.to(F32) - delta.mul_(lr))
-        return params, AdamWState(step, state.m, state.v), gnorm
+            owner = None if lay is None else lay.owner.get(name)
+            if owner is None:
+                self._apply(p, grads[name], state.m[name], state.v[name],
+                            scale, lr, c1, c2, rank)
+                continue
+            dim = lay.gather.get(name)
+            w, g = p, grads[name]
+            if dim is not None:
+                w = all_gather_dim(p, dim, lay.group).contiguous()
+                g = all_gather_dim(g, dim, lay.group)
+            if owner == lay.rank:
+                self._apply(w, g, state.m[name], state.v[name], scale, lr,
+                            c1, c2, rank)
+            broadcast(w, owner, lay.group)
+            if dim is not None:
+                n = p.shape[dim]
+                p.copy_(w.narrow(dim, lay.rank * n, n))
+        return params, AdamWState(step, state.m, state.v, lay), gnorm
+
+    def _apply(self, p: torch.Tensor, grad: torch.Tensor, m: torch.Tensor,
+               v: torch.Tensor, scale, lr: float, c1: float, c2: float,
+               rank: int) -> None:
+        """One leaf's step, in place: its clipped gradient into the
+        moments, the bias-corrected direction plus decay times ``lr`` off
+        the parameter."""
+        g = grad.to(F32) * scale
+        m.mul_(self.b1).add_(g * (1 - self.b1))
+        v.mul_(self.b2).add_(torch.square(g).mul_(1 - self.b2))
+        delta = (m / c1).div_((v / c2).sqrt_().add_(self.eps))
+        if self.weight_decay and rank > 1:
+            delta.add_(p.to(F32) * self.weight_decay)
+        p.copy_(p.to(F32) - delta.mul_(lr))
 
 
 def cosine_schedule(peak: float, warmup: int, total: int,

@@ -24,23 +24,33 @@ order, are summed over the data ranks (``dist.collectives.sum_over_data``:
 one all-reduce a data axis, ``pod`` then ``data``).  So the loss is the
 global mean over the tokens, however unevenly the ignored labels fall, and
 every rank holds its blocks of that mean's gradient.  The clip's global
-norm sums the leaves split over the model axis over its group
-(``AdamW.update``'s ``split``).
+norm sums the leaves split over the model axis over its group, and those
+the fsdp profile splits over the data axis over that one (``AdamW.update``'s
+``split``).
+
+The ``fsdp`` profile (``FSDP_RULES``: ``embed`` over ``data``): a leaf's
+block is 1/|data| of its ``embed`` dim, gathered before each use and its
+gradient reduce-scattered (``Model.fsdp``, ``dist.collectives.gather_shards``),
+so the data all-reduce skips it: the reduce-scatter has summed it over the
+data ranks.  zero1 (``zero1_layout``): the moments of a layer's leaves lie
+on the data rank that owns the layer (``AdamW.init``, ``MomentLayout``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
 from ..convert import jax_path
 from ..dist.collectives import sum_over_data
 from ..dist.compress import quantize_roundtrip
-from ..dist.sharding import active_mesh, data_groups, model_group
+from ..dist.sharding import (Rules, active_mesh, active_rules, axis_group,
+                             axis_rank, data_groups, entry_axes, mesh_sizes,
+                             model_group)
 from ..models.transformer import Model
-from ..optim.adamw import AdamW, AdamWState
+from ..optim.adamw import AdamW, AdamWState, MomentLayout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,18 +102,54 @@ def _global_count(batch: Mapping[str, torch.Tensor], groups):
     return sum_over_data((batch["labels"] != -1).sum(), groups)
 
 
-def _split_leaves(model: Model, mesh, seen: Dict) -> Optional[Tuple]:
-    """(model group, names of the parameters split over it) on ``mesh``,
-    or None without a model axis of more than one rank."""
-    group = model_group(mesh)
+def _split_leaves(model: Model, mesh, seen: Dict) -> List[Tuple]:
+    """(groups, names of the parameters split over each of them) on
+    ``mesh``: the model group's leaves, the fsdp profile's data group's,
+    and those split over both; empty without either."""
+    key = (id(mesh), id(active_rules()))
+    if key not in seen:
+        groups = {"model": model_group(mesh),
+                  "data": model._fsdp_group}
+        parts: Dict[Tuple[str, ...], List[str]] = {}
+        for n, s in model.shardings(mesh).items():
+            over = tuple(
+                a for a in ("model", "data") if groups[a] is not None and (
+                    a == "data" and n in model.fsdp or a == "model" and any(
+                        "model" in entry_axes(e) for e in s.spec)))
+            if over:
+                parts.setdefault(over, []).append(n)
+        seen[key] = [(tuple(groups[a] for a in over), frozenset(names))
+                     for over, names in sorted(parts.items())]
+    return seen[key]
+
+
+def zero1_layout(model: Model, mesh, rules: Optional[Rules] = None
+                 ) -> Optional[MomentLayout]:
+    """zero1's moment layout on ``mesh`` (the JAX dry run's moments:
+    ``rules``, default the ambient ones, with ``layers`` over ``data``):
+    each leaf of a layer stack that splits over the data axis is owned by
+    the data rank holding its layer, and gathered along the dim its
+    parameter block splits over ``data`` and its moments do not; None
+    without a data axis of more than one rank."""
+    group = axis_group(mesh, "data")
     if group is None:
         return None
-    if id(mesh) not in seen:
-        seen[id(mesh)] = frozenset(
-            n for n, s in model.shardings(mesh).items()
-            if any("model" in (e if isinstance(e, tuple) else (e,))
-                   for e in s.spec if e is not None))
-    return group, seen[id(mesh)]
+    rules = active_rules() if rules is None else rules
+    moments = model.shardings(mesh, dict(rules, layers="data"))
+    blocks = model.shardings(mesh, rules)
+    ways = mesh_sizes(mesh)["data"]
+    owner, gather = {}, {}
+    for name, sh in moments.items():
+        if not sh.layer_split:
+            continue
+        if sh.layer_axes != ("data",):
+            raise ValueError(f"{name}: zero1 splits the layer stack over "
+                             f"'data' alone, not {sh.layer_axes}")
+        owner[name] = sh.layer // (sh.n_layers // ways)
+        for dim, (pe, me) in enumerate(zip(blocks[name].spec, sh.spec)):
+            if "data" in entry_axes(pe) and "data" not in entry_axes(me):
+                gather[name] = dim
+    return MomentLayout(group, axis_rank(mesh, "data"), owner, gather)
 
 
 def reduced_value_and_grad(model: Model, params: Mapping[str, torch.Tensor],
@@ -130,8 +176,12 @@ def reduced_value_and_grad(model: Model, params: Mapping[str, torch.Tensor],
         loss = loss / accum
         grads = {n: g / accum for n, g in grads.items()}
     if groups:
+        # A leaf the fsdp profile splits over ``data`` was summed over it
+        # by its reduce-scatter.
+        rest = [g for g in groups if g != model._fsdp_group]
         loss = sum_over_data(loss.clone(), groups)
-        grads = {n: sum_over_data(g.contiguous(), groups)
+        grads = {n: sum_over_data(g.contiguous(),
+                                  rest if n in model.fsdp else groups)
                  for n, g in grads.items()}
     return loss, grads
 
@@ -151,8 +201,8 @@ def make_train_step(model: Model, opt: AdamW,
         mesh = active_mesh()
         params, opt_state, gnorm = opt.update(
             grads, opt_state, params, ndim,
-            split=None if mesh is None else _split_leaves(model, mesh,
-                                                          split_names))
+            split=() if mesh is None else _split_leaves(model, mesh,
+                                                        split_names))
         metrics = {"loss": loss, "grad_norm": gnorm, "step": opt_state.step}
         return params, opt_state, metrics
 

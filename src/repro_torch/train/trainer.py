@@ -29,8 +29,13 @@ leaf order): the optimizer updates them in place, and placement swaps
 their ``.data``.  A Trainer made under ``dist.sharding.use_mesh`` holds
 the rank's blocks (``Model.shard_``) and runs every step under that mesh,
 so the step's data-parallel reduction and tensor parallelism apply; its
-batches are the rank's data blocks (``data.ShardedLoader``).  Checkpoints
-of a mesh of more than one rank are not written from local blocks.
+batches are the rank's data blocks (``data.ShardedLoader``).  Its
+``profile`` (``"fsdp"``: ``FSDP_RULES``, every leaf's ``embed`` dim over
+the data axis, gathered before use) and ``moments`` (``"zero1"``: a
+layer's moments on the data rank that owns it, ``train.step.zero1_layout``)
+are the JAX dry run's ``--profile`` and ``--moments``; without a mesh they
+change nothing.  Checkpoints of a mesh of more than one rank are not
+written from local blocks.
 """
 
 from __future__ import annotations
@@ -54,10 +59,11 @@ from ..core import (
     SiteRegistry,
 )
 from ..core.placement import TorchArenaPlacer
-from ..dist.sharding import active_mesh, mesh_sizes, use_mesh
+from ..dist.sharding import (DEFAULT_RULES, FSDP_RULES, active_mesh,
+                             mesh_sizes, use_mesh, use_rules)
 from ..models.transformer import Model
 from ..optim.adamw import AdamW, AdamWState
-from .step import StepConfig, make_train_step
+from .step import StepConfig, make_train_step, zero1_layout
 
 _TREES = ("params", "adam_m", "adam_v")
 
@@ -73,6 +79,11 @@ class TrainerConfig:
     # Param-init seed when no generator is passed to the Trainer; not
     # defaulted, so no run silently shares one init stream.
     seed: Optional[int] = None
+    # Under a mesh: the parameter layout ("tp": DEFAULT_RULES, "fsdp":
+    # FSDP_RULES) and the moments' ("tp": as the parameters, "zero1": a
+    # layer's on its data rank).
+    profile: str = "tp"
+    moments: str = "tp"
 
 
 class Trainer:
@@ -100,13 +111,21 @@ class Trainer:
                 generator = torch.Generator(
                     device=self.device).manual_seed(cfg.seed)
             model.init(generator)
+        if cfg.profile not in ("tp", "fsdp") or cfg.moments not in (
+                "tp", "zero1"):
+            raise ValueError(f"profile {cfg.profile!r} (tp | fsdp), moments "
+                             f"{cfg.moments!r} (tp | zero1)")
+        self.rules = FSDP_RULES if cfg.profile == "fsdp" else DEFAULT_RULES
         self.mesh = active_mesh()
+        layout = None
         if self.mesh is not None:
-            model.shard_(self.mesh)
+            model.shard_(self.mesh, self.rules)
+            if cfg.moments == "zero1":
+                layout = zero1_layout(model, self.mesh, self.rules)
         named = dict(model.named_parameters())
         self.params: Dict[str, torch.nn.Parameter] = {
             n: named[n] for n in jax_order(named)}
-        self.opt_state = opt.init(self.params)
+        self.opt_state = opt.init(self.params, layout)
         self.step_fn = make_train_step(model, opt, cfg.step)
         self.metrics_log: list = []
 
@@ -154,6 +173,8 @@ class Trainer:
         for tree in _TREES:
             groups: Dict[str, list] = {}
             for name in self.params:
+                if tree != "params" and name not in self.opt_state.m:
+                    continue                # zero1: another rank's layer
                 path, layer = jax_path(name)
                 parts = [tree] + path.split("/")
                 key = "/".join(parts[: self.registry.context_depth])
@@ -217,8 +238,10 @@ class Trainer:
             batch = next(it)
             if gdt_on:
                 self._sync_state_from_placer()
-            with (contextlib.nullcontext() if self.mesh is None
-                  else use_mesh(self.mesh)):
+            with contextlib.ExitStack() as ctx:
+                if self.mesh is not None:
+                    ctx.enter_context(use_rules(self.rules))
+                    ctx.enter_context(use_mesh(self.mesh))
                 _, self.opt_state, metrics = self.step_fn(
                     self.params, self.opt_state, batch)
             if gdt_on:

@@ -4,15 +4,17 @@ repro_torch.launch.dryrun``), as ``test_system.py``'s
 single-pod mesh writes a JSON record with ``status: ok``, the 256 devices,
 a ``global_cost``, and per-device ``argument_bytes`` equal to what the JAX
 package's specs give the same arguments on its abstract mesh (parameters,
-cache, tokens and position).  A decode cell keeps a null ``temp_bytes``
-and empty ``collectives``, with a reason naming ROADMAP.md A21.  The
+cache, tokens and position).  The decode cell's per-device walk (one
+decode step on the rank's cache block, its positions split over the model
+axis) records a positive ``temp_bytes`` and per layer the gathers of the
+q heads and of the partial attentions over the model group.  The
 per-device walk: ``llama3_2_1b`` at ``--quick-layers 2`` records the
 tensor-parallel and data-parallel all-reduces and a positive
 ``temp_bytes`` at ``train_4k`` and ``prefill_32k``; the global walk's
 product flops at full depth are the reference's (866106998784 at
-``decode_32k``, 1.233652046364672e16 at ``train_4k``).  A cell whose
-step is not ported under a mesh keeps its A21 reason; a wrong layout in
-the per-device walk fails the cell."""
+``decode_32k``, 1.233652046364672e16 at ``train_4k``).  The fsdp
+profile's cell walks with its data-group all-gathers and reduce-scatters;
+a wrong layout in the per-device walk fails the cell."""
 
 import json
 import os
@@ -62,9 +64,16 @@ def test_dryrun_cell_via_cli(tmp_path):
     assert rec["status"] == "ok"
     assert rec["devices"] == 256
     assert rec["global_cost"]["flops"] > 0
-    assert rec["memory"]["temp_bytes"] is None
-    assert "A21" in rec["memory"]["temp_bytes_reason"]
-    assert rec["collectives"] == {}
+    assert rec["memory"]["temp_bytes"] > 0
+    assert "temp_bytes_reason" not in rec["memory"]
+    # Per layer: the q heads and the partials over the model group (the
+    # 8 kv heads do not split 16 ways: wk and wv are whole), and the
+    # logits' gather; the embedding's, attention's and the MLP's reduces.
+    L = ref_get("llama3_2_1b").n_layers
+    coll = rec["collectives"]
+    assert coll["all_gather"]["count"] == 2 * L + 1
+    assert coll["all_gather"]["max_group"] == 16
+    assert coll["all_reduce"]["count"] == 1 + 2 * L
 
     mesh = rdist.abstract_mesh((16, 16), ("data", "model"))
     rules = ref_build_cell("llama3_2_1b", "decode_32k", mesh,
@@ -132,8 +141,11 @@ def _whole_blocks(self, mesh, tensors, rules=None, rank=None):
 
 @pytest.mark.parametrize("case", ["not_ported", "wrong_layout"])
 def test_per_device_walk_refusal_and_fault(tmp_path, monkeypatch, case):
-    """A step that is not ported under a mesh (the fsdp profile, A21)
-    keeps the cell ``ok`` with a null ``temp_bytes`` and its reason; a
+    """The fsdp profile's training cell (``not_ported``: the case that the
+    dry run refused until the profile was ported) walks: the cell is
+    ``ok`` with a positive ``temp_bytes``, an all-gather over the data
+    group of 2 of each leaf in the forward and of each layer leaf again in
+    remat's recompute, and a reduce-scatter of each leaf's gradient; a
     wrong layout in the per-device walk is a fault: the cell fails with
     the ``constrain`` error and its traceback."""
     from repro_torch.dist import abstract_mesh
@@ -144,13 +156,18 @@ def test_per_device_walk_refusal_and_fault(tmp_path, monkeypatch, case):
     profile = "fsdp" if case == "not_ported" else "tp"
     if case == "wrong_layout":
         monkeypatch.setattr(Model, "local_params", _whole_blocks)
-    rec = run_cell("llama3_2_1b", "prefill_32k", mesh, "2x8",
-                   str(tmp_path), quick_layers=1, profile=profile)
+    shape = "train_4k" if case == "not_ported" else "prefill_32k"
+    rec = run_cell("llama3_2_1b", shape, mesh, "2x8", str(tmp_path),
+                   quick_layers=1, profile=profile)
     if case == "not_ported":
         assert rec["status"] == "ok", rec.get("error")
-        assert rec["memory"]["temp_bytes"] is None
-        assert "A21" in rec["memory"]["temp_bytes_reason"]
-        assert rec["collectives"] == {}
+        assert rec["memory"]["temp_bytes"] > 0
+        ag = rec["collectives"]["all_gather"]
+        rs = rec["collectives"]["reduce_scatter"]
+        # 1 layer of 9 leaves, the embedding, final norm and head, each
+        # with an embed dim (zero1 moments: 1 layer does not split 2 ways).
+        assert ag["count"] == 2 * 9 + 3 and ag["max_group"] == 2
+        assert rs["count"] == 9 + 3 and rs["max_group"] == 2
     else:
         assert rec["status"] == "fail"
         assert rec["error"].startswith("ValueError: constrain"), rec["error"]
