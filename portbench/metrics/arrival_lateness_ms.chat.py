@@ -1,0 +1,14 @@
+"""arrival_lateness_ms.chat: 95th percentile of how late the harness submitted or resumed a
+request against its schedule, in the untraced part of the window."""
+
+from portbench.metrics import _common as C
+
+UNIT = "ms"
+BETTER = "lower"
+SOURCE = "host_clock"
+LAYER = "front door (serve/api.py LLM)"
+MOVES = "gen_tokens_per_s"
+
+
+def read(rec):
+    return C.percentile(C.lateness_ms(rec), 95)

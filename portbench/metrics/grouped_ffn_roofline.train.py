@@ -1,0 +1,15 @@
+"""grouped_ffn_roofline.train: The grouped-expert kernels' forward and backward launches together:
+least time of their work (work.grouped_ffn, work.grouped_ffn_bwd) over
+their profiled device time."""
+
+from portbench.metrics import _common as C
+
+UNIT = "%"
+BETTER = "higher"
+SOURCE = "device_trace"
+LAYER = "kernels (kernels/paged_attention.py, kernels/moe_gemm.py, kernels/flash_attention.py)"
+MOVES = "train_tokens_per_s"
+
+
+def read(rec):
+    return C.grouped_ffn_roofline(rec)
